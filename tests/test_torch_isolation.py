@@ -1,0 +1,82 @@
+"""The port stands alone: it imports neither JAX nor trex_tpu, and its
+entry points do not fall back to the CPU without being asked."""
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import sys
+sys.modules["jax"] = None
+import importlib, pkgutil
+import trex_tpu_torch
+names = ["trex_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(trex_tpu_torch.__path__,
+                                          "trex_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "trex_tpu" or m.startswith("trex_tpu.")
+             or m == "jax" and sys.modules[m] is not None)
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_without_jax_or_trex_tpu():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    n, bad = r.stdout.split(" ", 1)
+    assert int(n) >= 8 and bad.strip() == "[]"
+
+
+def test_no_jax_import_lines():
+    files = list((REPO / "trex_tpu_torch").rglob("*.py")) \
+        + [REPO / "chip_smoke.py", REPO / "torch_profile.py",
+           REPO / "tests" / "test_torch_ccl_kernel.py"]
+    for f in files:
+        for line in f.read_text().splitlines():
+            s = line.strip()
+            for mod in ("jax", "trex_tpu"):
+                assert not (s.startswith(f"import {mod}")
+                            and not s.startswith(f"import {mod}_")), (f, s)
+                assert not (s.startswith(f"from {mod} ")
+                            or s.startswith(f"from {mod}.")), (f, s)
+
+
+def test_entry_points_need_cuda_unless_cpu_asked():
+    from trex_tpu_torch import resolve_device
+    from trex_tpu_torch.ops.device_pipeline import detect_batch
+    from trex_tpu_torch.ops.device_tracker import track_video_device
+
+    if torch.cuda.is_available():
+        pytest.skip("CUDA present: the default device is valid")
+    assert resolve_device("cpu") == torch.device("cpu")
+    frames = np.full((1, 16, 16), 200, np.uint8)
+    settings = dict(match_mode="approximate", track_do_history_split=False,
+                    calculate_posture=False, track_max_individuals=2)
+    for call in (lambda: resolve_device(),
+                 lambda: detect_batch(frames, frames[0], threshold=15),
+                 lambda: track_video_device(frames, frames[0], settings)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_package_lists_every_module():
+    import trex_tpu_torch
+
+    mods = {m.name for m in pkgutil.walk_packages(trex_tpu_torch.__path__,
+                                                  "trex_tpu_torch.")}
+    for name in ("device", "convert", "kernels", "config.defaults",
+                 "ops.cc_device", "ops.device_pipeline", "ops.runcc",
+                 "ops.device_match", "ops.device_tracker"):
+        assert f"trex_tpu_torch.{name}" in mods

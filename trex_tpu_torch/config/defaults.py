@@ -1,0 +1,51 @@
+"""Defaults of the settings the port reads.
+
+Copied from ``trex_tpu/config/params_table.json`` (the ``default``
+column) for the keys that the device tracker's ``params_from_settings``
+and ``_detect_kwargs`` read. The port's functions take ``settings`` as
+any mapping (a plain ``dict`` works) and fall back to these values.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+DEFAULTS: dict = {
+    "frame_rate": 0,
+    "cm_per_pixel": 0.0,
+    "track_max_individuals": 1024,
+    "track_max_speed": 0.0,
+    "track_max_reassign_time": 0.5,
+    "track_time_probability_enabled": True,
+    "track_size_filter": [],
+    "detect_size_filter": [],
+    "match_min_probability": 0.1,
+    "match_mode": "automatic",
+    "track_do_history_split": True,
+    "calculate_posture": True,
+    "track_speed_decay": 1.0,
+    "track_trusted_probability": 0.25,
+    "detect_threshold": 15,
+    "detect_threshold_is_absolute": True,
+    "track_threshold": 0,
+    "track_background_subtraction": False,
+    "track_threshold_is_absolute": True,
+}
+
+
+class SettingsView(Mapping):
+    """Read-only view: the caller's values over :data:`DEFAULTS`."""
+
+    def __init__(self, settings: Mapping | None = None):
+        self._s = settings if settings is not None else {}
+
+    def __getitem__(self, key):
+        try:
+            return self._s[key]
+        except KeyError:
+            return DEFAULTS[key]
+
+    def __iter__(self):
+        return iter(DEFAULTS)
+
+    def __len__(self):
+        return len(DEFAULTS)
