@@ -5,27 +5,50 @@
 
 Phases, each raising on failure:
 
-1. Build every CUDA kernel of the port from ``trex_tpu_torch/csrc`` and
-   hold each against its plain PyTorch version on random masks
+1. Build every CUDA kernel of the port from ``trex_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all started together) and the host labeler from
+   ``trex_tpu_torch/native`` (``g++``, beside them), and hold each kernel
+   against its plain PyTorch version: the labeler on random masks
    (densities 0.1 / 0.35 / 0.6, widths that are not a multiple of 128,
-   S-shapes that span the frame): labels must be equal (torch.equal).
+   S-shapes that span the frame), the 3x3 minimum stencil on random
+   int32 tiles (a 3x3 tile, sizes that are not multiples of 32 or 128):
+   outputs must be equal (torch.equal).
 2. Pixel-grid detection at full size: ``detect_batch(use_pallas=True)``
    on 32 synthetic frames of 1024^2 with 256 fish. Equal to the same
    call through the plain labeler, and slot for slot equal to the
    run-based ``detect_batch_runs`` on every frame where neither
    overflows. The CUDA labeler's launch count must have moved.
-3. Device tracking chunk at full size: ``track_video_device`` on 64
+3. Propagation labelling at full size: ``label_components(mask,
+   use_pallas=True)`` on the 32 detection masks of phase 2, one stencil
+   launch per step. Equal to ``label_components_vmem`` and to the plain
+   path; the stencil's launch count must have moved.
+4. Device tracking chunk at full size: ``track_video_device`` on 64
    synthetic frames of 1024^2 with 256 fish (the base configuration:
    approximate matching, no history split). No detect overflow,
    0 < n_fish <= 256, and the packed result of ``fused_scan_packed``
    on the same chunk equals the dict result. On a small chunk the card
    gives the same integer outputs as the port's CPU path (which the
    tests hold to the JAX package).
-4. Report: frames per second of phases 2 and 3, the card's name and
-   power limit, and one JSON line with every kernel's launches on the
-   main path, error against its plain version, time, bound and the
-   plain version's time. The last line is
-   ``{"ok": true, "device": {...}}``.
+5. The product engine on the same chunk: ``DeviceTracker.track_frames``
+   with the host replay of the frames the scan flags. Every frame has a
+   history entry, two runs agree, the frames before the first flagged
+   one equal phase 4's and the first assist is that frame. Held to the
+   port's host FastTracker under ``tests/test_device_engine.py::
+   _compare_history``'s rule (every host assignment in the device
+   history, x and y within 1e-4) on a sparse full-size chunk (64 fish)
+   and on two two-fish scenes that replay 21 frames and demote after 32
+   assists, as the JAX twin does. On the 256-fish chunk the frames
+   where the history departs from the host engine are reported, not
+   held: the JAX package's DeviceTracker departs from its FastTracker
+   at that density as well (``ROADMAP.md`` C1). On a small chunk that
+   replays frames, the card equals the port's CPU path (which the tests
+   hold to the JAX package's DeviceTracker).
+6. Report: frames per second of phases 2-5, the replay's assist frames
+   and seconds, the card's name and power limit, and one JSON line with
+   every kernel's launches on its path, error against its plain
+   version, time, bound, the plain version's time and the nearest
+   library call's time. The last line is ``{"ok": true, "device":
+   {...}}``.
 
 Exits non-zero, printing no result, without CUDA or without the
 trex_tpu_torch package beside it.
@@ -162,12 +185,20 @@ def s_shape_mask(h, w, turns):
 def phase_kernels(dev, report):
     import torch
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from trex_tpu_torch import kernels
+    from trex_tpu_torch.ops import labeling
     from trex_tpu_torch.ops.cc_device import (label_components_plain,
-                                              label_components_vmem)
+                                              label_components_vmem,
+                                              neighbor_min,
+                                              neighbor_min_plain)
 
     t0 = time.perf_counter()
-    took = kernels.build(verbose=True)
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(labeling.build)
+        took = kernels.build(verbose=True)
+        host.result()
     report["build_s"] = time.perf_counter() - t0
     report["nvcc_s"] = took
     rng = np.random.default_rng(0)
@@ -183,8 +214,19 @@ def phase_kernels(dev, report):
         ref = label_components_plain(mt.to(dev))
         check(torch.equal(got, ref),
               f"ccl kernel != plain on a {tuple(m.shape)} mask")
-    print(f"phase 1 ok: ccl built in {report['build_s']:.1f} s, "
-          f"{len(cases)} mask sets equal to the plain labeler", flush=True)
+    shapes = [(1, 3, 3), (2, 1, 7), (3, 67, 130), (4, 517, 1000),
+              (1, 1026, 1026), (2, 1031, 999)]
+    for shape in shapes:
+        t = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31 - 1, shape,
+                                         dtype=np.int32))
+        got = neighbor_min(t.to(dev))
+        sync()
+        check(torch.equal(got.cpu(), neighbor_min_plain(t)),
+              f"neighbor_min kernel != plain on a {shape} tile")
+    print(f"phase 1 ok: kernels and host labeler built in "
+          f"{report['build_s']:.1f} s, {len(cases)} mask sets equal to "
+          f"the plain labeler, {len(shapes)} tile sets equal to the plain "
+          "stencil", flush=True)
 
 
 def phase_detect(dev, report, kern):
@@ -284,6 +326,83 @@ def phase_detect(dev, report, kern):
           flush=True)
 
 
+def phase_label(dev, report, kern):
+    import torch
+    import torch.nn.functional as F
+
+    from trex_tpu_torch import kernels
+    from trex_tpu_torch.ops.cc_device import (INACTIVE, label_components,
+                                              label_components_vmem,
+                                              neighbor_min,
+                                              neighbor_min_plain)
+
+    bg, frames = synth_frames(32)
+    fr = torch.as_tensor(frames, device=dev)
+    bgt = torch.as_tensor(bg, device=dev)
+    mask = ((bgt.to(torch.int16)[None] - fr.to(torch.int16)) >= 15) \
+        & (fr > 0)
+    label_components(mask[:1], use_pallas=True)  # warm-up
+    sync()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = label_components(mask, use_pallas=True)
+    sync()
+    call_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    check(launches["neighbor_min"] > 0, "label_components(use_pallas="
+          "True) never launched the neighbor_min kernel")
+    check(torch.equal(got, label_components_vmem(mask)),
+          "label_components(use_pallas=True) != label_components_vmem")
+    check(torch.equal(got, label_components(mask)),
+          "label_components(use_pallas=True) != its plain path")
+    check(int((got >= 0).sum()) == int(mask.sum()), "labels lost pixels")
+
+    # the stencil on tiles of the shape and values the labelling gives
+    # it (the masks' initial labels, padded with INACTIVE): the whole
+    # batch, and one frame
+    lin = torch.arange(SIZE * SIZE, dtype=torch.int32,
+                       device=dev).reshape(1, SIZE, SIZE)
+    tiles = F.pad(torch.where(mask, lin, INACTIVE), (1, 1, 1, 1),
+                  value=INACTIVE)
+    out = {}
+    for name, t in (("batch", tiles), ("frame", tiles[:1].contiguous())):
+        ref = neighbor_min_plain(t)
+        err = int((neighbor_min(t).long() - ref.long()).abs().max())
+        check(err == 0, f"neighbor_min kernel != plain on the {name} tile")
+        # bytes: each input element read once, each output written once;
+        # operations: 8 minimums per element (9 values)
+        b_bytes = 2 * 4 * t.numel() / HBM_BYTES_PER_S * 1e3
+        b_ops = 8 * t.numel() / INT32_OPS_PER_S * 1e3
+        td = t.double()
+        out[name] = dict(
+            shape=list(t.shape), max_abs_err=err,
+            ms=time_ms(lambda: neighbor_min(t), iters=20),
+            plain_ms=time_ms(lambda: neighbor_min_plain(t), iters=20),
+            library_ms=time_ms(lambda: -F.max_pool2d(-td, 3, 1, 1),
+                               iters=20),
+            bound_ms=max(b_bytes, b_ops),
+            bound_by="bytes" if b_bytes >= b_ops else "operations")
+    report["label"] = dict(frames=32, size=SIZE, call_s=call_s,
+                           steps=launches["neighbor_min"],
+                           stencil_one_frame=out["frame"])
+    kern.append({
+        "name": "neighbor_min",
+        "route": "cuda",
+        "source": "trex_tpu_torch/csrc/neighbor_min.cu",
+        "replaces": "trex_tpu/ops/cc_device.py:56",
+        "launches": launches["neighbor_min"],
+        **{k: out["batch"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+        "library_note": "nearest call: -max_pool2d(-x.double(), 3, 1, 1), "
+                        "zero-padded, not wrapped",
+        "shape": out["batch"]["shape"],
+    })
+    print(f"phase 3 ok: label_components(use_pallas=True) "
+          f"{call_s * 1e3:.1f} ms, {launches['neighbor_min']} steps, equal "
+          "to the ccl kernel and the plain path", flush=True)
+
+
 def phase_track(dev, report):
     import torch
 
@@ -347,8 +466,172 @@ def phase_track(dev, report):
                            detect_s=detect_s, fps=T / track_s,
                            needs_host_frames=int(hist["needs_host"].sum()),
                            assigned=int(hist["n_assigned"].sum()))
-    print(f"phase 3 ok: tracking chunk {report['track']['fps']:.1f} "
+    print(f"phase 4 ok: tracking chunk {report['track']['fps']:.1f} "
           f"frames/s, n_fish {n_fish}", flush=True)
+    return bg, frames, hist
+
+
+def pair_frames(kind):
+    """Two fish of 10x6 px in 256^2 (``tests/test_torch_engine.py``'s
+    scenes): ``merge_heavy`` crosses once over 60 frames, ``assist_storm``
+    merges every other frame for 80 frames."""
+    frames = []
+    for f in range(60 if kind == "merge_heavy" else 80):
+        if kind == "merge_heavy":
+            dx = max(0, abs(30 - f) - 10)
+            pos = [(120 - dx, 100), (130 + dx, 100)]
+        else:
+            pos = [(60 + f, 100), (66 + f if f % 2 else 74 + f, 100)]
+        img = np.full((256, 256), 200, np.uint8)
+        for x, y in pos:
+            img[y:y + 6, x:x + 10] = 80
+        frames.append(img)
+    return np.full((256, 256), 200, np.uint8), np.stack(frames)
+
+
+def host_track(frames, bg, settings):
+    """The port's host FastTracker over `frames`, labelled on the host;
+    returns the tracker and its seconds."""
+    from trex_tpu_torch.ops.device_tracker import _detect_kwargs
+    from trex_tpu_torch.ops.labeling import label_blobs_raw
+    from trex_tpu_torch.track.engine import FastTracker
+
+    kw = _detect_kwargs(settings, {})
+    det = dict(threshold=kw["detect_threshold"],
+               absolute=kw["detect_absolute"],
+               track_threshold=kw["track_threshold"],
+               track_absolute=kw["track_absolute"])
+    host = FastTracker(settings, bg)
+    t0 = time.perf_counter()
+    for f in range(len(frames)):
+        host.add_frame(f, f / 25.0, **label_blobs_raw(frames[f], bg, **det))
+    return host, time.perf_counter() - t0
+
+
+def departures(host, tracker, n_frames):
+    """Frames where the device history breaks ``tests/test_device_engine.py
+    ::_compare_history``'s rule: a host assignment missing from it, or
+    its x or y off by 1e-4 or more."""
+    out = []
+    for f in range(n_frames):
+        hh = host.history.get(f)
+        if hh is None:
+            continue
+        hd = tracker.history.get(f, {"fish": [], "x": [], "y": []})
+        dmap = {int(i): (x, y) for i, x, y in zip(hd["fish"], hd["x"],
+                                                   hd["y"])}
+        for i, x, y in zip(hh["fish"], hh["x"], hh["y"]):
+            d = dmap.get(int(i))
+            if d is None or abs(d[0] - x) >= 1e-4 or abs(d[1] - y) >= 1e-4:
+                out.append(f)
+                break
+    return out
+
+
+def phase_device_tracker(dev, report, bg, frames, hist):
+    """DeviceTracker.track_frames on the chunk of phase 4, `hist` being
+    track_video_device's result on it."""
+    from trex_tpu_torch.track.device_engine import DeviceTracker
+
+    settings = track_settings()
+    T = frames.shape[0]
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        tr = DeviceTracker(settings, bg, chunk=T, caps=TRACK_CAPS,
+                           device=dev).track_frames(frames)
+        runs.append((time.perf_counter() - t0, tr))
+    (first_s, first), (wall_s, tr) = runs
+    check(sorted(tr.history) == list(range(T)),
+          "DeviceTracker left frames without a history entry")
+    for f in range(T):
+        for k in ("fish", "x", "y", "prob"):
+            check(np.array_equal(first.history[f][k], tr.history[f][k]),
+                  f"DeviceTracker frame {f} {k} differs between two runs")
+    check(tr.assist_frames == first.assist_frames, "assists differ")
+
+    flags = (hist["needs_host"] | hist["detect_overflow"]).cpu().numpy()
+    first_flag = int(np.argmax(flags)) if flags.any() else T
+    seen = hist["fish_seen"].cpu().numpy()
+    fx = hist["fish_x"].cpu().numpy().astype(np.float64)
+    fy = hist["fish_y"].cpu().numpy().astype(np.float64)
+    for f in range(first_flag):
+        fid = np.flatnonzero(seen[f])
+        h = tr.history[f]
+        check(np.array_equal(h["fish"], fid)
+              and np.array_equal(h["x"], fx[f, fid])
+              and np.array_equal(h["y"], fy[f, fid]),
+              f"DeviceTracker frame {f} != track_video_device")
+    check(tr.assist_frames[:1] == ([first_flag] if first_flag < T else []),
+          "the first assist is not the first flagged frame")
+
+    # the host engine over the same frames: at this density the JAX
+    # package's DeviceTracker departs from its FastTracker too (ROADMAP
+    # C1), so the departures are reported here and held to none below,
+    # on scenes where the reference holds the rule
+    host, host_s = host_track(frames, bg, settings)
+    differ = departures(host, tr, T)
+
+    # held to the host engine, on the card: a sparse full-size chunk
+    # (no assist), and the two-fish scenes whose frames the scan flags
+    # (replays; the storm demotes) with the JAX twin's assist counts
+    sbg, sframes = synth_frames(T, n_fish=64, seed=0)
+    held = {"sparse_64x1024_64": (sbg, sframes, track_settings(64), T,
+                                  TRACK_CAPS, None)}
+    pair = dict(track_settings(2), track_size_filter=[[10, 90]])
+    for kind, want in (("merge_heavy", (21, False)),
+                       ("assist_storm", (32, True))):
+        held[kind] = (*pair_frames(kind), pair, 16, None, want)
+    agree = {}
+    for name, (hbg, hframes, hs, chunk, caps, want) in held.items():
+        n = len(hframes)
+        d = DeviceTracker(hs, hbg, chunk=chunk, caps=caps,
+                          device=dev).track_frames(hframes)
+        h, _ = host_track(hframes, hbg, hs)
+        bad = departures(h, d, n)
+        check(not bad, f"DeviceTracker departs from the host FastTracker "
+              f"on {name} at frames {bad[:5]}")
+        check(sorted(d.history) == list(range(n)) and d.n_fish == h.n_fish,
+              f"{name}: history frames or n_fish differ from the host")
+        if want is not None:
+            check((len(d.assist_frames), d.demoted) == want,
+                  f"{name}: {len(d.assist_frames)} assists, demoted "
+                  f"{d.demoted}; the JAX twin gives {want}")
+        agree[name] = dict(frames=n, n_fish=d.n_fish,
+                           assists=len(d.assist_frames), demoted=d.demoted)
+
+    # a small chunk: the card against the port's CPU path (which the
+    # tests hold to the JAX package's DeviceTracker)
+    sbg, sframes = synth_frames(24, n_fish=40, size=160, seed=0)
+    small = track_settings(40)
+    caps = dict(max_runs=1024, max_pixels=1 << 14, max_blobs=64,
+                max_child_runs=1024, max_children=64)
+    g = DeviceTracker(small, sbg, chunk=8, caps=caps,
+                      device=dev).track_frames(sframes)
+    c = DeviceTracker(small, sbg, chunk=8, caps=caps,
+                      device="cpu").track_frames(sframes)
+    check(g.assist_frames == c.assist_frames and g.n_fish == c.n_fish,
+          "small chunk DeviceTracker: card != CPU")
+    check(len(c.assist_frames) > 0, "the small chunk replayed no frame")
+    for f in range(len(sframes)):
+        for k in ("fish", "x", "y"):
+            check(np.array_equal(g.history[f][k], c.history[f][k]),
+                  f"small chunk DeviceTracker frame {f} {k}: card != CPU")
+    replay_s = sum(tr.statistics[f].adding_seconds for f in tr.assist_frames)
+    report["device_tracker"] = dict(
+        frames=T, size=SIZE, fish=N_FISH, n_fish=tr.n_fish,
+        first_call_s=first_s, s=wall_s, fps=T / wall_s,
+        assist_frames=tr.assist_frames, replay_s=replay_s,
+        scan_s=tr.scan_seconds, demoted=tr.demoted,
+        host_fast_tracker_s=host_s, host_fps=T / host_s,
+        host_n_fish=host.n_fish, frames_differing_from_host=differ,
+        equal_to_host=agree, small_chunk_assists=g.assist_frames)
+    print(f"phase 5 ok: DeviceTracker {T / wall_s:.1f} frames/s, "
+          f"{len(tr.assist_frames)} assists ({replay_s:.3f} s replay, "
+          f"{tr.scan_seconds:.3f} s scans), demoted {tr.demoted}; host "
+          f"FastTracker {T / host_s:.1f} frames/s, {len(differ)} frames "
+          f"depart from it (first {differ[:1]}); equal to the host engine "
+          f"on {', '.join(agree)}", flush=True)
 
 
 def main():
@@ -373,7 +656,9 @@ def main():
     t0 = time.perf_counter()
     phase_kernels(dev, report)
     phase_detect(dev, report, kern)
-    phase_track(dev, report)
+    phase_label(dev, report, kern)
+    chunk = phase_track(dev, report)
+    phase_device_tracker(dev, report, *chunk)
     report["total_s"] = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -388,9 +673,9 @@ def main():
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
-    print(json.dumps({"detect": report["detect"], "track": report["track"],
-                      "build_s": report["build_s"],
-                      "total_s": report["total_s"]}))
+    print(json.dumps({k: report[k] for k in (
+        "detect", "label", "track", "device_tracker", "build_s",
+        "total_s")}))
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,16 @@
 """Port parity: trex_tpu_torch.ops.cc_device / device_pipeline vs the JAX
-package on the CPU (the JAX stripe labeler in Pallas interpret mode).
-Labels and statistics must match bit for bit.
+package on the CPU (the JAX stripe labeler and neighbour-min kernel in
+Pallas interpret mode). Labels, stencils and statistics must match bit
+for bit.
 
-The CUDA kernel itself is tested in ``test_torch_ccl_kernel.py``."""
+The CUDA kernels themselves are tested in ``test_torch_ccl_kernel.py``."""
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
+from jax.experimental import pallas as pl
 
 from trex_tpu.ops import cc_device as J
 from trex_tpu.ops.device_pipeline import detect_batch as jax_detect_batch
@@ -104,7 +107,75 @@ def test_detect_batch_equals_jax(use_pallas):
             np.where(valid, np.asarray(ref[k]), 0), err_msg=k)
 
 
-def test_label_components_use_pallas_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        T.label_components(torch.zeros((4, 4), dtype=torch.uint8),
-                           use_pallas=True)
+@jax.jit
+def _pallas_neighbor_min(tile):
+    """The TPU kernel B2 in Pallas interpret mode, as
+    tests/test_cc_device.py runs it."""
+    return pl.pallas_call(
+        J._neighbor_min_kernel,
+        out_shape=jax.ShapeDtypeStruct(tile.shape, jnp.int32),
+        interpret=True)(tile)
+
+
+@pytest.mark.parametrize("shape", [(8, 8), (3, 3), (19, 45), (34, 130)])
+def test_neighbor_min_plain_equals_pallas_kernel(shape):
+    """The whole tile, wrapped border included, bit for bit."""
+    rng = np.random.default_rng(list(shape))
+    tile = rng.integers(-2 ** 31, 2 ** 31 - 1, shape, dtype=np.int32)
+    if shape == (34, 130):
+        # a padded label tile as the labeler builds it
+        tile = np.pad(rng.integers(0, 33 * 128, (32, 128),
+                                   dtype=np.int32), 1,
+                      constant_values=J._INACT)
+    ref = np.asarray(_pallas_neighbor_min(jnp.asarray(tile)))
+    got = T.neighbor_min(torch.as_tensor(tile)[None])
+    np.testing.assert_array_equal(got[0].numpy(), ref)
+    # a batch wraps each frame in itself, never into its neighbour
+    batch = np.stack([tile, tile[::-1].copy()])
+    got = T.neighbor_min(torch.as_tensor(batch)).numpy()
+    np.testing.assert_array_equal(got[0], ref)
+    np.testing.assert_array_equal(
+        got[1], np.asarray(_pallas_neighbor_min(jnp.asarray(batch[1]))))
+
+
+_row_run_min = jax.jit(J._row_run_min)
+
+
+def _pallas_loop(mask):
+    """label_components(use_pallas=True)'s loop (cc_device.py:106-119)
+    built from the JAX package's own _row_run_min and the Pallas kernel
+    in interpret mode (the JAX path itself needs a TPU)."""
+    fg = jnp.asarray(mask) > 0
+    h, w = fg.shape
+    labels = jnp.where(fg, jnp.arange(h * w, dtype=jnp.int32)
+                       .reshape(h, w), J.INACTIVE)
+    while True:
+        run = _row_run_min(labels, fg)
+        padded = jnp.pad(run, 1, constant_values=J.INACTIVE)
+        nm = _pallas_neighbor_min(padded)[1:-1, 1:-1]
+        new = jnp.where(fg, jnp.minimum(run, nm), J.INACTIVE)
+        changed = bool(jnp.any(new != labels))
+        labels = new
+        if not changed:
+            return np.asarray(jnp.where(fg, labels, -1))
+
+
+@pytest.mark.parametrize("case", ["random", "s_shape", "batch"])
+def test_label_components_use_pallas_equals_jax(case):
+    rng = np.random.default_rng(11)
+    if case == "random":
+        masks = (rng.random((1, 40, 70)) < 0.45).astype(np.uint8)
+    elif case == "s_shape":
+        masks = _s_shape()[None]
+    else:
+        masks = (rng.random((3, 24, 50)) < 0.35).astype(np.uint8)
+    got = T.label_components(torch.as_tensor(masks), use_pallas=True)
+    assert got.dtype == torch.int32
+    for b, m in enumerate(masks):
+        ref = np.asarray(J.label_components(jnp.asarray(m)))
+        np.testing.assert_array_equal(got[b].numpy(), ref)
+        np.testing.assert_array_equal(got[b].numpy(), _pallas_loop(m))
+    if case == "s_shape":
+        np.testing.assert_array_equal(
+            T.label_components(torch.as_tensor(masks[0]),
+                               use_pallas=True).numpy(), got[0].numpy())

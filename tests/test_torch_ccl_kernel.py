@@ -1,6 +1,7 @@
-"""The hand-written CUDA labeler (``trex_tpu_torch/csrc/ccl.cu``) and its
-wrapper. Imports neither JAX nor trex_tpu, so the tests marked ``cuda``
-run on a card with
+"""The hand-written CUDA kernels of the labellers and their wrappers: the
+union-find labeler ``trex_tpu_torch/csrc/ccl.cu`` and the 3x3 minimum
+stencil ``trex_tpu_torch/csrc/neighbor_min.cu``. Imports neither JAX nor
+trex_tpu, so the tests marked ``cuda`` run on a card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_ccl_kernel.py
 
@@ -127,3 +128,64 @@ def test_cuda_detect_batch_equals_cpu(cuda_device):
     v = ref["valid"]
     for k in ("cx", "cy"):
         assert torch.equal(got[k].cpu()[v], ref[k][v]), k
+
+
+def test_stencil_cpu_tensor_takes_plain_version():
+    rng = np.random.default_rng(4)
+    tiles = torch.as_tensor(rng.integers(-50, 50, (2, 5, 7),
+                                         dtype=np.int32))
+    before = kernels.launches["neighbor_min"]
+    got = T.neighbor_min(tiles)
+    assert kernels.launches["neighbor_min"] == before
+    assert torch.equal(got, T.neighbor_min_plain(tiles))
+    # the wrap stays inside each frame
+    one = torch.zeros((2, 3, 3), dtype=torch.int32)
+    one[0, 0, 0] = -7
+    assert torch.equal(T.neighbor_min(one)[1], one[1])
+    assert bool((T.neighbor_min(one)[0] == -7).all())
+    m = torch.as_tensor(_s_shape(40, 70, 7))
+    assert torch.equal(T.label_components(m, use_pallas=True),
+                       T.label_components(m))
+    assert kernels.launches["neighbor_min"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 3, 3), (3, 67, 130), (2, 1, 7),
+                                   (1, 1026, 1026), (4, 35, 1000)])
+def test_cuda_stencil_equals_plain(cuda_device, shape):
+    rng = np.random.default_rng(list(shape))
+    tiles = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31 - 1, shape,
+                                         dtype=np.int32))
+    before = kernels.launches["neighbor_min"]
+    got = T.neighbor_min(tiles.to(cuda_device))
+    torch.cuda.synchronize()
+    assert kernels.launches["neighbor_min"] == before + 1
+    assert torch.equal(got.cpu(), T.neighbor_min_plain(tiles))
+
+
+@pytest.mark.cuda
+def test_cuda_label_components_use_pallas(cuda_device):
+    rng = np.random.default_rng(5)
+    m = torch.as_tensor(np.concatenate([
+        rng.random((2, 96, 150)) < 0.4, _s_shape(96, 150, 11)[None] > 0]))
+    before = kernels.launches["neighbor_min"]
+    got = T.label_components(m.to(cuda_device), use_pallas=True).cpu()
+    launched = kernels.launches["neighbor_min"] - before
+    assert launched >= 11  # one per step; the serpentine needs its turns
+    assert torch.equal(got, T.label_components(m))
+    assert torch.equal(got, T.label_components_plain(m))
+
+
+@pytest.mark.cuda
+def test_cuda_stencil_failed_launch_raises(cuda_device, monkeypatch):
+    class Refused:
+        @staticmethod
+        def trex_neighbor_min(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(kernels, "library", lambda name: Refused)
+    before = kernels.launches["neighbor_min"]
+    with pytest.raises(RuntimeError, match="failed with error 9"):
+        T.neighbor_min(torch.zeros((1, 4, 4), dtype=torch.int32,
+                                   device=cuda_device))
+    assert kernels.launches["neighbor_min"] == before

@@ -36,7 +36,7 @@ def test_port_imports_without_jax_or_trex_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.split(" ", 1)
-    assert int(n) >= 8 and bad.strip() == "[]"
+    assert int(n) >= 18 and bad.strip() == "[]"
 
 
 def test_no_jax_import_lines():
@@ -57,6 +57,7 @@ def test_entry_points_need_cuda_unless_cpu_asked():
     from trex_tpu_torch import resolve_device
     from trex_tpu_torch.ops.device_pipeline import detect_batch
     from trex_tpu_torch.ops.device_tracker import track_video_device
+    from trex_tpu_torch.track.device_engine import DeviceTracker
 
     if torch.cuda.is_available():
         pytest.skip("CUDA present: the default device is valid")
@@ -66,9 +67,38 @@ def test_entry_points_need_cuda_unless_cpu_asked():
                     calculate_posture=False, track_max_individuals=2)
     for call in (lambda: resolve_device(),
                  lambda: detect_batch(frames, frames[0], threshold=15),
-                 lambda: track_video_device(frames, frames[0], settings)):
+                 lambda: track_video_device(frames, frames[0], settings),
+                 lambda: DeviceTracker(settings, frames[0])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_stencil_on_other_devices_raises():
+    """label_components(use_pallas=True) runs the CUDA kernel or, for a
+    CPU tensor, its plain version; any other device raises."""
+    from trex_tpu_torch.ops.cc_device import label_components, neighbor_min
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        neighbor_min(torch.zeros((1, 4, 4), dtype=torch.int32,
+                                 device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        label_components(torch.ones((4, 4), dtype=torch.uint8,
+                                    device="meta"), use_pallas=True)
+    with pytest.raises(ValueError, match="int32"):
+        neighbor_min(torch.zeros((1, 4, 4), dtype=torch.int64))
+
+
+def test_host_labeler_built_from_the_port():
+    """The replay's labeler is compiled from trex_tpu_torch/native, never
+    loaded from the JAX package's library."""
+    from trex_tpu_torch.ops import labeling
+
+    assert labeling.NATIVE == REPO / "trex_tpu_torch" / "native"
+    assert sorted(p.name for p in labeling.NATIVE.iterdir()) \
+        == sorted(labeling.SOURCES + labeling.HEADERS)
+    lib = labeling._lib()
+    assert Path(lib._name).parent == REPO / "build" / "trex_tpu_torch"
+    assert "libtrexnative" not in lib._name
 
 
 def test_package_lists_every_module():
@@ -78,5 +108,8 @@ def test_package_lists_every_module():
                                                   "trex_tpu_torch.")}
     for name in ("device", "convert", "kernels", "config.defaults",
                  "ops.cc_device", "ops.device_pipeline", "ops.runcc",
-                 "ops.device_match", "ops.device_tracker"):
+                 "ops.device_match", "ops.device_tracker", "ops.labeling",
+                 "track.blob", "track.prefilter", "track.splitting",
+                 "track.matching", "track.tracker", "track.engine",
+                 "track.device_engine"):
         assert f"trex_tpu_torch.{name}" in mods

@@ -5,9 +5,11 @@
 
 Profiles, with ``torch.profiler`` over a warm call each, the entry points
 that ``chip_smoke.py`` drives at the same sizes: pixel-grid detection
-(``detect_batch(use_pallas=True)``, 32 frames of 1024^2, 256 fish), the
-run-based detection alone and the tracking chunk
-(``track_video_device``, 64 frames of 1024^2, 256 fish). For each it
+(``detect_batch(use_pallas=True)``, 32 frames of 1024^2, 256 fish),
+propagation labelling of its masks (``label_components(use_pallas=True)``),
+the run-based detection alone, the tracking chunk
+(``track_video_device``, 64 frames of 1024^2, 256 fish) and the product
+engine over the same chunk (``DeviceTracker.track_frames``). For each it
 prints the host wall time, the summed device time of the kernels and the
 device's idle share over the call, the kernels with the most device time,
 and the PyTorch operators that launched most of it. Exits non-zero
@@ -76,10 +78,12 @@ def main():
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 1
+    from trex_tpu_torch.ops.cc_device import label_components
     from trex_tpu_torch.ops.device_pipeline import detect_batch
     from trex_tpu_torch.ops.device_tracker import (_detect_kwargs,
                                                    track_video_device)
     from trex_tpu_torch.ops.runcc import detect_batch_runs
+    from trex_tpu_torch.track.device_engine import DeviceTracker
 
     dev = torch.device("cuda", 0)
     bg, frames = smoke.synth_frames(64)
@@ -92,6 +96,10 @@ def main():
     report["detect_batch_pallas_32"] = profile_call(
         lambda: detect_batch(fr[:32], bgt, use_pallas=True, device=dev,
                              **kw))
+    mask = ((bgt.to(torch.int16)[None] - fr[:32].to(torch.int16)) >= 15) \
+        & (fr[:32] > 0)
+    report["label_components_pallas_32"] = profile_call(
+        lambda: label_components(mask, use_pallas=True))
     report["detect_batch_runs_64"] = profile_call(
         lambda: detect_batch_runs(
             fr, bgt, device=dev,
@@ -99,6 +107,9 @@ def main():
     report["track_video_device_64"] = profile_call(
         lambda: track_video_device(fr, bgt, settings, device=dev,
                                    **smoke.TRACK_CAPS))
+    report["device_tracker_64"] = profile_call(
+        lambda: DeviceTracker(settings, bg, chunk=64, caps=smoke.TRACK_CAPS,
+                              device=dev).track_frames(frames))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

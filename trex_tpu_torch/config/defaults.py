@@ -2,8 +2,10 @@
 
 Copied from ``trex_tpu/config/params_table.json`` (the ``default``
 column) for the keys that the device tracker's ``params_from_settings``
-and ``_detect_kwargs`` read. The port's functions take ``settings`` as
-any mapping (a plain ``dict`` works) and fall back to these values.
+and ``_detect_kwargs``, the host ``FastTracker`` (``check_supported``,
+its constructor, the prefilter and the start-frame split) and
+``DeviceTracker`` read. The port's functions take ``settings`` as any
+mapping (a plain ``dict`` works) and fall back to these values.
 """
 from __future__ import annotations
 
@@ -29,6 +31,31 @@ DEFAULTS: dict = {
     "track_threshold": 0,
     "track_background_subtraction": False,
     "track_threshold_is_absolute": True,
+    # host FastTracker
+    "manual_matches": {},
+    "manual_splits": {},
+    "track_ignore": [],
+    "track_include": [],
+    "track_ignore_bdx": {},
+    "posture_closing_steps": 0,
+    "track_threshold_2": 0,
+    "match_topk": None,
+    "track_only_categories": [],
+    "track_consistent_categories": False,
+    "closed_loop_enable": False,
+    "tags_recognize": False,
+    "auto_train": False,
+    "auto_apply": False,
+    "auto_categorize": False,
+    "auto_tags": False,
+    "tracklet_punish_timedelta": True,
+    "tracklet_punish_speeding": True,
+    "tracklet_max_length": 0.0,
+    "tags_dont_track": True,
+    "blob_split_algorithm": "threshold",
+    "track_posture_threshold": 0,
+    "blob_split_max_shrink": 0.2,
+    "blob_split_global_shrink_limit": 0.2,
 }
 
 

@@ -34,6 +34,8 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 SOURCES = {
     "ccl": ("ccl.cu", [("trex_ccl_label", [_VP, _VP, _I, _I, _I, _VP])]),
+    "neighbor_min": ("neighbor_min.cu",
+                     [("trex_neighbor_min", [_VP, _VP, _I, _I, _I, _VP])]),
 }
 
 launches: dict = {name: 0 for name in SOURCES}

@@ -4,8 +4,12 @@ Counterpart of ``trex_tpu/ops/cc_device.py``. Labels are linear indices
 ``y * W + x`` of each component's first pixel in scan order (8-connected),
 background ``-1``: the same canonical representative as the host labeler.
 
-- :func:`label_components`: plain min-label propagation (run minimum
-  plus 8-neighbour minimum until nothing changes).
+- :func:`label_components`: min-label propagation (run minimum plus
+  3x3 neighbour minimum until nothing changes). With ``use_pallas=True``
+  each step's stencil is :func:`neighbor_min`, which on a CUDA tensor
+  launches the hand-written kernel ``csrc/neighbor_min.cu`` (it replaces
+  the TPU's neighbour-min kernel); on a CPU tensor it runs
+  :func:`neighbor_min_plain`.
 - :func:`label_components_vmem`: the batched labeler. On a CUDA tensor
   it launches the hand-written union-find kernel ``csrc/ccl.cu``, which
   replaces the TPU's VMEM stripe relaxation; on a CPU tensor it runs
@@ -42,31 +46,57 @@ def _row_run_min(labels: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
     return torch.where(fg, out, INACTIVE)
 
 
-def _neighbor_min(labels_padded: torch.Tensor) -> torch.Tensor:
-    """8-neighbour minimum of (N, H+2, W+2) labels padded with INACTIVE;
-    returns the (N, H, W) interior."""
-    h = labels_padded.shape[1] - 2
-    w = labels_padded.shape[2] - 2
-    m = None
-    for dy in (0, 1, 2):
-        for dx in (0, 1, 2):
-            if dy == 1 and dx == 1:
-                continue
-            s = labels_padded[:, dy:dy + h, dx:dx + w]
-            m = s if m is None else torch.minimum(m, s)
+def neighbor_min_plain(tiles: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/neighbor_min.cu``: the minimum of
+    the 3x3 window around each element of (N, H, W) tiles, centre
+    included, indices modulo each tile's own H and W (``jnp.roll``'s
+    wrap in the TPU kernel, never across frames)."""
+    m = tiles
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy or dx:
+                m = torch.minimum(m, torch.roll(tiles, (dy, dx), (1, 2)))
     return m
+
+
+def neighbor_min(tiles: torch.Tensor) -> torch.Tensor:
+    """3x3 wrapped minimum of (N, H, W) int32 tiles, the same shape out.
+
+    On a CUDA tensor this launches ``csrc/neighbor_min.cu`` once for the
+    whole batch (it replaces the TPU kernel ``_neighbor_min_kernel``); on
+    a CPU tensor it runs :func:`neighbor_min_plain`."""
+    if tiles.dim() != 3 or tiles.dtype != torch.int32:
+        raise ValueError("tiles must be (N, H, W) int32, got "
+                         f"{tuple(tiles.shape)} {tiles.dtype}")
+    if tiles.device.type == "cpu":
+        return neighbor_min_plain(tiles)
+    if tiles.device.type != "cuda":
+        raise ValueError(f"unsupported device {tiles.device}")
+    n, h, w = tiles.shape
+    if h * w >= 2 ** 31 or n > 65535 or -(-h // 8) > 65535:
+        raise ValueError(f"tiles {tuple(tiles.shape)} exceed the kernel's "
+                         "int32 indices or its launch grid")
+    src = tiles.contiguous()
+    out = torch.empty_like(src)
+    lib = kernels.library("neighbor_min")
+    err = lib.trex_neighbor_min(
+        src.data_ptr(), out.data_ptr(), n, h, w,
+        torch.cuda.current_stream(tiles.device).cuda_stream)
+    kernels.check(err, "trex_neighbor_min")
+    kernels.launches["neighbor_min"] += 1
+    return out
 
 
 def label_components(mask: torch.Tensor, use_pallas: bool = False
                      ) -> torch.Tensor:
     """8-connected labels of a (H, W) mask, or of each frame of a
     (B, H, W) batch: int32, background -1, each component the linear
-    index of its first pixel in scan order."""
-    if use_pallas:
-        raise NotImplementedError(
-            "label_components(use_pallas=True) runs the TPU neighbour-min "
-            "kernel, which the port has not ported yet (queued next in "
-            "ROADMAP.md); use label_components_vmem for the CUDA kernel")
+    index of its first pixel in scan order.
+
+    ``use_pallas=True`` takes each step's neighbour minimum from
+    :func:`neighbor_min` (the CUDA kernel on a CUDA tensor, one launch
+    per step for the whole batch); otherwise from its plain version."""
+    stencil = neighbor_min if use_pallas else neighbor_min_plain
     fg = mask > 0
     single = fg.dim() == 2
     if single:
@@ -78,7 +108,7 @@ def label_components(mask: torch.Tensor, use_pallas: bool = False
     while True:
         run = _row_run_min(labels, fg)
         padded = F.pad(run, (1, 1, 1, 1), value=INACTIVE)
-        nm = _neighbor_min(padded)
+        nm = stencil(padded)[:, 1:-1, 1:-1]
         new = torch.where(fg, torch.minimum(run, nm), INACTIVE)
         changed = bool((new != labels).any())
         labels = new

@@ -1,0 +1,296 @@
+"""Connected-component blob extraction on the host (the replay's labeler).
+
+Counterpart of ``trex_tpu/ops/labeling.py``, reduced to what the host
+FastTracker replay calls. Binds the port's own copy of the native
+labeler, ``trex_tpu_torch/native/labeling.cpp``: line-run union-find
+labelling with 8-connectivity over thresholded background-difference
+images.
+
+The library is compiled with ``g++`` at first use into
+``build/trex_tpu_torch/`` (a directory git ignores), under a name that
+carries a hash of the sources and flags, and loaded with ``ctypes``.
+The flags are the JAX package's (``native/build.py``):
+``-ffp-contract=off`` keeps the float sums bit-equal to its library. A
+missing compiler or a failed build raises; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from ..kernels import BUILD_DIR
+
+NATIVE = Path(__file__).resolve().parents[1] / "native"
+SOURCES = ("labeling.cpp",)
+HEADERS = ("simd_clones.h",)
+GXX_FLAGS = ["-O3", "-ffp-contract=off", "-std=c++20", "-shared", "-fPIC"]
+
+
+@dataclass
+class Blob:
+    """One connected component: RLE lines + raw pixel values."""
+
+    lines: np.ndarray  # (K, 3) int32 [y, x0, x1 inclusive]
+    pixels: np.ndarray  # (num_pixels,) uint8, scan order
+    stats: Optional[np.ndarray] = None  # (8,) n_px, track_count, moments
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update((NATIVE / name).read_bytes())
+    return BUILD_DIR / f"libtrexlabel_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the host labeler unless it is built already; returns the
+    library's path. Raises RuntimeError without g++ or on a failed
+    build."""
+    out = library_path()
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host labeler of "
+                           "trex_tpu_torch cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    r = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp),
+                        *(str(NATIVE / s) for s in SOURCES)],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"g++ failed for the host labeler (exit "
+                           f"{r.returncode}):\n{r.stdout}{r.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+_i32p = ctypes.POINTER(ctypes.c_int32)
+_i64p = ctypes.POINTER(ctypes.c_int64)
+_f64p = ctypes.POINTER(ctypes.c_double)
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_c = ctypes.c_char_p
+_vp = ctypes.c_void_p
+_i32 = ctypes.c_int32
+_i64 = ctypes.c_int64
+_f64 = ctypes.c_double
+
+# symbol -> (restype, argtypes)
+_SIGNATURES = {
+    "trex_label_image2": (_vp, [_c, _c, _i32, _i32, _i32, _i32, _i32,
+                                _i32]),
+    "trex_label_stats": (_f64p, [_vp]),
+    "trex_label_n_blobs": (_i64, [_vp]),
+    "trex_label_n_lines": (_i64, [_vp]),
+    "trex_label_n_pixels": (_i64, [_vp]),
+    "trex_label_blob_line_start": (ctypes.POINTER(ctypes.c_uint32), [_vp]),
+    "trex_label_blob_pixel_start": (ctypes.POINTER(ctypes.c_uint32),
+                                    [_vp]),
+    "trex_label_lines": (_i32p, [_vp]),
+    "trex_label_pixels": (_u8p, [_vp]),
+    "trex_label_free": (None, [_vp]),
+    "trex_label_fill": (None, [_vp, _i32p, _c, _i64p, _i64p, _f64p]),
+    "trex_split_sizes": (None, [_c, _c, _i32, _i32, _i32p, _i32, _i32,
+                                _i32, _i64p]),
+    "trex_split_scan": (_i32, [_c, _c, _i32, _i32, _i32, _i32, _i32, _f64,
+                               _f64, _f64, _f64p, _i32, _f64p]),
+    "trex_threshold_blob": (_vp, [_i32p, _i64, _c, _c, _i32, _i32, _i32,
+                                  _i32]),
+    "trex_blob_stats": (None, [_i32p, _i64p, _c, _i64p, _i32, _c, _i32,
+                               _i32, _i32, _i32, _f64p]),
+    "trex_blob_dense": (None, [_i32p, _i64, _u8p, _i32, _i32, _i32, _i32,
+                               _i32, _u8p, _u8p]),
+}
+
+_lib_obj = None
+_lock = threading.Lock()
+
+
+def _lib() -> ctypes.CDLL:
+    """The loaded host labeler, built first if needed."""
+    global _lib_obj
+    with _lock:
+        if _lib_obj is None:
+            lib = ctypes.CDLL(str(build()))
+            for sym, (res, args) in _SIGNATURES.items():
+                fn = getattr(lib, sym)
+                fn.restype = res
+                fn.argtypes = args
+            _lib_obj = lib
+    return _lib_obj
+
+
+def _bg_ptr(background, shape):
+    if background is None:
+        return None, None
+    background = np.ascontiguousarray(background, dtype=np.uint8)
+    if background.shape != shape:
+        raise ValueError(f"background shape {background.shape} != image "
+                         f"{shape}")
+    return background, background.ctypes.data_as(_c)
+
+
+def split_scan(image: np.ndarray, background: Optional[np.ndarray],
+               initial: int, absolute: bool, expected: int,
+               cm_sqr: float, max_shrink: float, shrink_limit: float,
+               ranges) -> tuple[int, float]:
+    """Native threshold-escalation scan with the SplitBlob evaluation
+    fused in (early stop at the first keep/abort). Returns
+    (best_threshold or -1, first_size in cm^2)."""
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    h, w = image.shape
+    background, bg = _bg_ptr(background, image.shape)
+    r = np.ascontiguousarray(ranges if ranges is not None and len(ranges)
+                             else [], np.float64).reshape(-1, 2)
+    first_size = ctypes.c_double(0.0)
+    thr = _lib().trex_split_scan(
+        image.ctypes.data_as(_c), bg, w, h, int(initial),
+        1 if absolute else 0, int(expected), float(cm_sqr),
+        float(max_shrink), float(shrink_limit), r.ctypes.data_as(_f64p),
+        r.shape[0], ctypes.byref(first_size))
+    return int(thr), float(first_size.value)
+
+
+def split_sizes(image: np.ndarray, background: Optional[np.ndarray],
+                thresholds, absolute: bool = True,
+                top_k: int = 16) -> np.ndarray:
+    """Component-size scan over several thresholds. Returns int64
+    (n_thr, 2 + top_k): per threshold [n_components, total_fg_pixels,
+    top_k sizes descending (0-padded)]."""
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    h, w = image.shape
+    background, bg = _bg_ptr(background, image.shape)
+    thr = np.ascontiguousarray(thresholds, dtype=np.int32)
+    out = np.zeros((thr.size, 2 + top_k), np.int64)
+    _lib().trex_split_sizes(
+        image.ctypes.data_as(_c), bg, w, h, thr.ctypes.data_as(_i32p),
+        thr.size, 1 if absolute else 0, top_k, out.ctypes.data_as(_i64p))
+    return out
+
+
+def _label_ctx(image, background, threshold, absolute, track_threshold,
+               track_absolute):
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    if image.ndim != 2:
+        raise ValueError("the labeler expects a single-channel image")
+    h, w = image.shape
+    background, bg = _bg_ptr(background, image.shape)
+    lib = _lib()
+    return lib, lib.trex_label_image2(
+        image.ctypes.data_as(_c), bg, w, h, int(threshold),
+        1 if absolute else 0, int(track_threshold),
+        1 if track_absolute else 0)
+
+
+def label_blobs_raw(image: np.ndarray,
+                    background: Optional[np.ndarray] = None,
+                    threshold: int = 0, absolute: bool = True,
+                    track_threshold: int = 0,
+                    track_absolute: bool = True) -> dict:
+    """The labeler's flat arrays, the FastTracker's input:
+    {lines (L,3) i32, pixels (P,) u8, line_start (N+1,) i64,
+    pixel_start (N+1,) i64, stats (N,8) f64}."""
+    lib, ctx = _label_ctx(image, background, threshold, absolute,
+                          track_threshold, track_absolute)
+    try:
+        n_blobs = lib.trex_label_n_blobs(ctx)
+        lines = np.empty((lib.trex_label_n_lines(ctx), 3), np.int32)
+        pixels = np.empty(lib.trex_label_n_pixels(ctx), np.uint8)
+        line_start = np.empty(n_blobs + 1, np.int64)
+        pixel_start = np.empty(n_blobs + 1, np.int64)
+        stats = np.empty((n_blobs, 8), np.float64)
+        lib.trex_label_fill(
+            ctx, lines.ctypes.data_as(_i32p), pixels.ctypes.data_as(_c),
+            line_start.ctypes.data_as(_i64p),
+            pixel_start.ctypes.data_as(_i64p), stats.ctypes.data_as(_f64p))
+    finally:
+        lib.trex_label_free(ctx)
+    return {"lines": lines, "pixels": pixels, "line_start": line_start,
+            "pixel_start": pixel_start, "stats": stats}
+
+
+def label_blobs(image: np.ndarray, background: Optional[np.ndarray] = None,
+                threshold: int = 0, absolute: bool = True,
+                track_threshold: int = 0,
+                track_absolute: bool = True) -> list[Blob]:
+    """Connected components of a grayscale image, one :class:`Blob` each.
+
+    threshold <= 0: components of nonzero pixels of `image`.
+    background given: foreground test is |img-bg| >= threshold (absolute)
+    or (bg-img) >= threshold (signed, darker than the background).
+    Returned pixel values are the raw `image` values under the mask."""
+    lib, ctx = _label_ctx(image, background, threshold, absolute,
+                          track_threshold, track_absolute)
+    return _blobs_from_ctx(lib, ctx)
+
+
+def threshold_blob_native(lines: np.ndarray, pixels: np.ndarray,
+                          background: np.ndarray, threshold: int,
+                          absolute: bool) -> list[Blob]:
+    """pixel::threshold_blob in one native call: rasterize the blob crop
+    with background fill, label at `threshold`, return children with
+    image-space lines and shifted stats."""
+    lines = np.ascontiguousarray(lines, np.int32)
+    pixels = np.ascontiguousarray(pixels, np.uint8)
+    background = np.ascontiguousarray(background, np.uint8)
+    lib = _lib()
+    ctx = lib.trex_threshold_blob(
+        lines.ctypes.data_as(_i32p), len(lines), pixels.ctypes.data_as(_c),
+        background.ctypes.data_as(_c), background.shape[1],
+        background.shape[0], int(threshold), 1 if absolute else 0)
+    return _blobs_from_ctx(lib, ctx)
+
+
+def _blobs_from_ctx(lib, ctx) -> list[Blob]:
+    try:
+        n_blobs = lib.trex_label_n_blobs(ctx)
+        n_lines = lib.trex_label_n_lines(ctx)
+        n_pixels = lib.trex_label_n_pixels(ctx)
+        if n_blobs == 0:
+            return []
+        line_start = np.ctypeslib.as_array(
+            lib.trex_label_blob_line_start(ctx), (n_blobs + 1,)).copy()
+        pixel_start = np.ctypeslib.as_array(
+            lib.trex_label_blob_pixel_start(ctx), (n_blobs + 1,)).copy()
+        lines = np.ctypeslib.as_array(
+            lib.trex_label_lines(ctx), (n_lines, 3)).copy() \
+            if n_lines else np.zeros((0, 3), np.int32)
+        pixels = np.ctypeslib.as_array(
+            lib.trex_label_pixels(ctx), (n_pixels,)).copy() \
+            if n_pixels else np.zeros((0,), np.uint8)
+        stats = np.ctypeslib.as_array(
+            lib.trex_label_stats(ctx), (n_blobs, 8)).copy()
+    finally:
+        lib.trex_label_free(ctx)
+    return [Blob(lines=lines[line_start[b]:line_start[b + 1]],
+                 pixels=pixels[pixel_start[b]:pixel_start[b + 1]],
+                 stats=stats[b]) for b in range(n_blobs)]
+
+
+def blob_stats(lines: np.ndarray, line_start: np.ndarray,
+               pixels: np.ndarray, pixel_start: np.ndarray,
+               background: np.ndarray, track_threshold: int,
+               absolute: bool) -> np.ndarray:
+    """The labeler's (N, 8) per-blob statistics for blobs given as
+    concatenated lines and pixels (``trex_blob_stats``)."""
+    n = len(line_start) - 1
+    stats = np.zeros((n, 8))
+    h, w = background.shape[:2]
+    _lib().trex_blob_stats(
+        np.ascontiguousarray(lines, np.int32).ctypes.data_as(_i32p),
+        np.ascontiguousarray(line_start, np.int64).ctypes.data_as(_i64p),
+        np.ascontiguousarray(pixels, np.uint8).ctypes.data_as(_c),
+        np.ascontiguousarray(pixel_start, np.int64).ctypes.data_as(_i64p),
+        n, np.ascontiguousarray(background, np.uint8).ctypes.data_as(_c),
+        w, h, int(track_threshold), 1 if absolute else 0,
+        stats.ctypes.data_as(_f64p))
+    return stats

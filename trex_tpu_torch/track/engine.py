@@ -1,0 +1,729 @@
+"""FastTracker: the struct-of-arrays host tracking engine, base
+configuration.
+
+Counterpart of ``trex_tpu/track/engine.py::FastTracker`` for the
+configuration the device engine replays through: ``match_mode=
+approximate``, no history split, no posture, ``track_speed_decay`` 1 and
+no archive mode. It keeps all per-fish state in flat numpy arrays and
+takes the reference's Python paths (``_caches_py``, ``_match_py``,
+``_reactivate_py``), which is what the JAX package's engine runs for
+any match mode but ``automatic``. Host code stays numpy, as it is there.
+
+Per frame (``add_frame``): candidate table from the labeler's flat
+arrays (Tracker::prefilter, with the track-threshold re-split of
+partially passing blobs), the start-frame split of oversized blobs, the
+time probability from recent samples, the first pass (probability
+matrix over bbox centres, greedy matching), then the second pass
+(reactivation of inactive fish against centroids, then new fish in blob
+order while under ``track_max_individuals``).
+
+Any other configuration raises ``EngineUnsupported`` in the
+constructor.
+"""
+from __future__ import annotations
+
+import time as _time
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..config import SettingsView
+from ..ops.labeling import blob_stats
+from .blob import TrackBlob
+from .matching import MatchResult, PairedProbabilities, match
+from .prefilter import SizeFilters, threshold_components
+from .splitting import split_blob
+from .tracker import FrameStatistics
+
+
+class EngineUnsupported(ValueError):
+    """The settings need an engine or a slice the port lacks."""
+
+
+def check_supported(settings) -> None:
+    s = SettingsView(settings)
+
+    def want(cond, why):
+        if not cond:
+            raise EngineUnsupported(why)
+    want(not (s["manual_matches"] or {}), "manual_matches")
+    want(not (s["manual_splits"] or {}), "manual_splits")
+    want(not (s["track_ignore"] or []), "track_ignore")
+    want(not (s["track_include"] or []), "track_include")
+    want(not (s["track_ignore_bdx"] or {}), "track_ignore_bdx")
+    want(int(s["track_threshold"]) > 0, "track_threshold == 0")
+    want(int(s["track_threshold_2"]) <= 0, "track_threshold_2")
+    want(bool(s["track_background_subtraction"]),
+         "track_background_subtraction off")
+    want(not int(s["match_topk"] or 0), "match_topk")
+    want(int(s["track_max_individuals"]) > 0, "unbounded individuals")
+    want(not (s["track_only_categories"] or []), "track_only_categories")
+    want(not s["track_consistent_categories"],
+         "track_consistent_categories")
+    want(not s["closed_loop_enable"], "closed_loop_enable")
+    want(not s["tags_recognize"], "tags_recognize")
+    for flag in ("auto_train", "auto_apply", "auto_categorize",
+                 "auto_tags"):
+        want(not s[flag], flag)
+    # the base configuration; the rest are later slices (ROADMAP.md)
+    want(s["match_mode"] == "approximate",
+         f"match_mode {s['match_mode']!r} (only 'approximate' is ported)")
+    want(not s["track_do_history_split"],
+         "track_do_history_split (not ported yet)")
+    want(not s["calculate_posture"], "calculate_posture (not ported yet)")
+    decay = min(1.0, max(0.0, float(s["track_speed_decay"])))
+    want(decay ** 4 >= 1.0, "track_speed_decay < 1 (not ported yet)")
+
+
+@dataclass
+class _CandTable:
+    """Per-frame candidate blobs as flat arrays. Rows are backed either
+    by slices into the frame's native line/pixel arrays or by a
+    TrackBlob (re-split children and split pieces)."""
+    n: int
+    cnt: np.ndarray        # num_pixels
+    recount: np.ndarray    # cm^2 at track_threshold
+    cx: np.ndarray         # mask centroid
+    cy: np.ndarray
+    bx0: np.ndarray
+    by0: np.ndarray
+    bx1: np.ndarray
+    by1: np.ndarray
+    line_lo: np.ndarray    # [lo, hi) into `lines`; -1 when object-backed
+    line_hi: np.ndarray
+    objs: list             # TrackBlob or None per row
+    lines: np.ndarray      # frame line array (L, 3)
+    pixel_lo: np.ndarray   # per row, offset into pixels; -1 if object
+    pixel_hi: np.ndarray
+    pixels: np.ndarray
+
+    def blob(self, i: int) -> TrackBlob:
+        """Row i as a TrackBlob (the split path)."""
+        if self.objs[i] is not None:
+            return self.objs[i]
+        lines = self.lines[self.line_lo[i]:self.line_hi[i]]
+        px = self.pixels[self.pixel_lo[i]:self.pixel_hi[i]] \
+            if self.pixel_lo[i] >= 0 else None
+        return TrackBlob(lines, px)
+
+
+def _in_range_rows(values: np.ndarray, ranges) -> np.ndarray:
+    if not ranges:
+        return np.ones(values.shape, bool)
+    out = np.zeros(values.shape, bool)
+    for lo, hi in ranges:
+        out |= (values >= lo) & (values <= hi)
+    return out
+
+
+class FastTracker:
+    def __init__(self, settings, background: np.ndarray):
+        check_supported(settings)
+        s = self.settings = SettingsView(settings)
+        self.background = background
+        self.F = int(s["track_max_individuals"])
+        F = self.F
+        self.cm = float(s["cm_per_pixel"] or 1.0)
+        self.cm_sqr = self.cm * self.cm
+        self.frame_rate = int(s["frame_rate"] or 25)
+        self.t_max = float(s["track_max_reassign_time"])
+        self.p_min = float(s["match_min_probability"])
+        self.max_speed = float(s["track_max_speed"] or 1e9)
+        self.fish_size = SizeFilters(s["track_size_filter"])
+        self.track_thr = int(s["track_threshold"])
+        self.absolute = bool(s["track_threshold_is_absolute"])
+        self.mode = s["match_mode"]
+        self.minimum_frames = min(self.frame_rate, 5)
+        self.time_prob_enabled = bool(s["track_time_probability_enabled"])
+        self.punish_td = bool(s["tracklet_punish_timedelta"])
+        self.punish_sp = bool(s["tracklet_punish_speeding"])
+        self.trk_max_len = float(s["tracklet_max_length"] or 0)
+        self.max_gap = float(s["track_max_reassign_time"])
+
+        self.n_fish = 0                     # created so far
+        self.last_frame = np.full(F, -(10 ** 9), np.int64)
+        self.last_x = np.zeros(F)
+        self.last_y = np.zeros(F)
+        self.last_time = np.zeros(F)
+        self.n_basic = np.zeros(F, np.int64)
+        # current tracklet + the end of the one before it
+        self.trk_start = np.full(F, -1, np.int64)
+        self.trk_start_time = np.zeros(F)
+        self.prev_trk_end = np.full(F, -(10 ** 9), np.int64)
+        self.closed_tracklets: list[list[list[int]]] = [
+            [] for _ in range(F)]
+
+        self.start_frame = -1
+        self.end_frame = -1
+        self.frame_times: dict[int, float] = {}
+        self.statistics: dict[int, FrameStatistics] = {}
+        # per frame: fish ids, x, y, prob
+        self.history: dict[int, dict] = {}
+
+    # -- candidate construction (Tracker::prefilter) --------------------
+    def build_candidates(self, lines: np.ndarray, pixels: np.ndarray,
+                         line_start: np.ndarray, pixel_start: np.ndarray,
+                         stats: np.ndarray) -> tuple[_CandTable, list]:
+        """Vectorized prefilter over the native labeler's raw arrays.
+        Returns (candidate table incl. big blobs, big row indices)."""
+        s = self.settings
+        N = len(stats)
+        if N == 0:
+            empty = np.zeros(0)
+            none = np.zeros(0, np.int64)
+            return _CandTable(0, empty, empty, empty, empty, empty, empty,
+                              empty, empty, none, none, [], lines, none,
+                              none, pixels), []
+        rows = np.arange(N)
+        count = stats[:, 0]
+        track_count = stats[:, 1]
+        size_px = count * self.cm_sqr
+        max_lo, max_hi = self.fish_size.max_range
+        # huge blobs skip the expensive recount (force_set_recount)
+        huge = bool(self.fish_size) & (size_px > max_hi * 100)
+        recount = np.where(huge, size_px, track_count * self.cm_sqr)
+        # all-passing blobs keep their row: the threshold_components fast
+        # path yields a child identical to its parent with the same
+        # recount, so only partially passing blobs need the re-split
+        close = (not self.fish_size) | _in_close(recount, self.fish_size)
+        slow = close & (track_count != count) & (track_count > 0) & ~huge
+
+        if not slow.any():
+            table = self._table_from_rows(rows, count, recount, lines,
+                                          pixels, line_start, pixel_start,
+                                          stats)
+        else:
+            idx_rows: list = []
+            cnt_l: list = []
+            rec_l: list = []
+            objs: list = []
+            for i in range(N):
+                if slow[i]:
+                    b = TrackBlob(
+                        lines[line_start[i]:line_start[i + 1]],
+                        pixels[pixel_start[i]:pixel_start[i + 1]],
+                        stats=stats[i])
+                    comps = threshold_components(
+                        b, self.track_thr, self.background, s)
+                    if comps:
+                        for c in comps:
+                            c.recount(self.track_thr, self.background, s)
+                            idx_rows.append(-1)
+                            cnt_l.append(c.num_pixels)
+                            rec_l.append(c.recount(-1))
+                            objs.append(c)
+                        continue
+                idx_rows.append(i)
+                cnt_l.append(count[i])
+                rec_l.append(recount[i])
+                objs.append(None)
+            table = self._table_mixed(idx_rows, cnt_l, rec_l, objs, lines,
+                                      pixels, line_start, pixel_start,
+                                      stats)
+
+        # classification (filtered / noise / big)
+        in_rng = _in_range_rows(table.recount, self.fish_size.ranges)
+        small = np.zeros(table.n, bool)
+        if self.fish_size:
+            small = ~in_rng & (table.recount < max_lo)
+        keep = in_rng | ~small
+        big_mask = ~in_rng & ~small
+        table = _filter_table(table, keep)
+        return table, np.flatnonzero(big_mask[keep]).tolist()
+
+    def _table_from_rows(self, rows, cnt, rec, lines, pixels, line_start,
+                         pixel_start, stats) -> _CandTable:
+        st = stats[rows]
+        n = st[:, 0]
+        lo = line_start[rows].astype(np.int64)
+        hi = line_start[rows + 1].astype(np.int64)
+        y0 = lines[lo, 0].astype(np.float64)
+        y1 = lines[np.maximum(hi - 1, lo), 0].astype(np.float64)
+        # x bounds packed by the native labeler (st[7] = x0*65536 + x1)
+        allx0 = np.floor(st[:, 7] / 65536.0)
+        allx1 = st[:, 7] - allx0 * 65536.0
+        return _CandTable(
+            n=len(rows), cnt=np.asarray(cnt, np.float64),
+            recount=np.asarray(rec, np.float64),
+            cx=st[:, 2] / n, cy=st[:, 3] / n,
+            bx0=allx0, by0=y0, bx1=allx1, by1=y1,
+            line_lo=lo, line_hi=hi,
+            objs=[None] * len(rows), lines=lines,
+            pixel_lo=pixel_start[rows].astype(np.int64),
+            pixel_hi=pixel_start[rows + 1].astype(np.int64),
+            pixels=pixels)
+
+    def _table_mixed(self, idx_rows, cnt_l, rec_l, objs, lines, pixels,
+                     line_start, pixel_start, stats) -> _CandTable:
+        n = len(idx_rows)
+        cx, cy, bx0, by0, bx1, by1 = (np.zeros(n) for _ in range(6))
+        lo, hi, plo, phi = (np.full(n, -1, np.int64) for _ in range(4))
+        for r, i in enumerate(idx_rows):
+            if i >= 0:
+                lo[r] = line_start[i]
+                hi[r] = line_start[i + 1]
+                plo[r] = pixel_start[i]
+                phi[r] = pixel_start[i + 1]
+                st = stats[i]
+                cx[r] = st[2] / st[0]
+                cy[r] = st[3] / st[0]
+                ls = lines[lo[r]:hi[r]]
+                bx0[r] = ls[:, 1].min()
+                bx1[r] = ls[:, 2].max()
+                by0[r] = ls[0, 0]
+                by1[r] = ls[-1, 0]
+            else:
+                b = objs[r]
+                cx[r], cy[r] = b.center
+                x, y, w, h = b.bounds
+                bx0[r], by0[r] = x, y
+                bx1[r], by1[r] = x + w - 1, y + h - 1
+        return _CandTable(n, np.asarray(cnt_l, np.float64),
+                          np.asarray(rec_l, np.float64), cx, cy, bx0, by0,
+                          bx1, by1, lo, hi, objs, lines, plo, phi, pixels)
+
+    # -- caches (track_speed_decay 1: estimate = last position) ---------
+    def _caches_py(self, frame: int, time: float):
+        F = self.n_fish
+        last_f = self.last_frame[:F]
+        has = last_f > -(10 ** 8)
+        tdelta = np.maximum(time - self.last_time[:F], 1e-6)
+        if not self.time_prob_enabled:
+            tprob = np.where(has, 1.0, 0.0)
+        else:
+            p = 1.0 - np.minimum(1.0, np.maximum(
+                0.0, (tdelta - 1.0 / self.frame_rate) / self.t_max))
+            scale = np.ones(F)
+            needs = has & (last_f >= self.start_frame
+                           + self.minimum_frames)
+            if needs.any():
+                R = self._recent_samples(np.flatnonzero(needs), frame)
+                scale[needs] = np.minimum(
+                    1.0, (R - 1) / self.minimum_frames + self.p_min)
+            tprob = np.where(tdelta > self.t_max, 0.0,
+                             (p * scale) * 0.75 + 0.25)
+            tprob = np.where(has, tprob, 0.0)
+        return has, tdelta, tprob
+
+    def _recent_samples(self, fids: np.ndarray, frame: int) -> np.ndarray:
+        """Individual.recent_number_samples vectorized: the current
+        tracklet covers the common case; fish whose previous tracklet
+        could reach into the window walk their list. The window is
+        anchored at the current frame (Individual.cpp:1806)."""
+        prev = self.last_frame[fids]
+        lower = frame - self.frame_rate
+        time_limit = self.frame_rate * self.t_max
+        start = self.trk_start[fids]
+        n = np.minimum(prev, frame) - np.maximum(start, lower) + 1
+        n = np.maximum(n, 0)
+        # the walk breaks at once when the gap to the newest tracklet
+        # exceeds frame_rate * t_max (Individual.cpp:1802-1838)
+        n = np.where(frame - prev > time_limit, 0, n)
+        fallback = (start > lower) & (self.prev_trk_end[fids] >= lower) \
+            & (start - self.prev_trk_end[fids] <= time_limit)
+        for k in np.flatnonzero(fallback).tolist():
+            n[k] = self._recent_samples_walk(int(fids[k]), frame)
+        return n
+
+    def _recent_samples_walk(self, fid: int, frame: int) -> int:
+        lower = frame - self.frame_rate
+        time_limit = self.frame_rate * self.t_max
+        n = 0
+        previous = frame
+        trks = self.closed_tracklets[fid] \
+            + [[int(self.trk_start[fid]), int(self.last_frame[fid])]]
+        for t in reversed(trks):
+            if t[1] < lower:
+                break
+            if previous - t[1] > time_limit:
+                break
+            start = max(t[0], lower)
+            end = min(t[1], frame)
+            previous = start
+            n += max(0, end - start + 1)
+        return n
+
+    # -- assignment bookkeeping (Individual.add) --------------------------
+    def _assign(self, fids: np.ndarray, frame: int, time: float,
+                xs: np.ndarray, ys: np.ndarray):
+        if not len(fids):
+            return
+        lf = self.last_frame[fids]
+        lt = self.last_time[fids]
+        nb = self.n_basic[fids]
+        fresh = nb == 0
+        dt = time - lt
+        with np.errstate(invalid="ignore", divide="ignore"):
+            speed_cm = np.hypot(xs - self.last_x[fids],
+                                ys - self.last_y[fids]) \
+                / np.where(dt > 0, dt, np.inf) * self.cm
+        ok = (lf == frame - 1) & (nb >= 1)
+        if self.punish_td:
+            ok &= ~(dt >= self.max_gap)
+        if self.punish_sp:
+            ok &= ~(speed_cm >= self.max_speed * 0.99)
+        if self.trk_max_len > 0:
+            ok &= (time - self.trk_start_time[fids]) < self.trk_max_len
+        # the very first assignment of a fish also opens a tracklet
+        breaks = ~ok
+        for k in np.flatnonzero(breaks & ~fresh).tolist():
+            fid = int(fids[k])
+            self.closed_tracklets[fid].append(
+                [int(self.trk_start[fid]), int(self.last_frame[fid])])
+        bf = fids[breaks]
+        self.prev_trk_end[bf] = np.where(
+            fresh[breaks], -(10 ** 9), self.last_frame[bf])
+        self.trk_start[bf] = frame
+        self.trk_start_time[bf] = time
+        self.last_frame[fids] = frame
+        self.last_x[fids] = xs
+        self.last_y[fids] = ys
+        self.last_time[fids] = time
+        self.n_basic[fids] += 1
+
+    def _position_estimates(self):
+        """Estimated positions the matching distances measure from: the
+        last positions at ``track_speed_decay`` 1 (the decay estimate is
+        a later slice)."""
+        return self.last_x, self.last_y
+
+    # -- matching ---------------------------------------------------------
+    def _match_py(self, uf: np.ndarray, tdelta: np.ndarray,
+                  tprob: np.ndarray, table: _CandTable, B: int,
+                  est_x: np.ndarray, est_y: np.ndarray):
+        """Probability matrix over bbox centres + matching."""
+        bcx = (table.bx0 + table.bx1 + 1) * 0.5
+        bcy = (table.by0 + table.by1 + 1) * 0.5
+        d = np.hypot(bcx[None, :] - est_x[uf][:, None],
+                     bcy[None, :] - est_y[uf][:, None])
+        speed = d / tdelta[uf][:, None] * (self.cm / self.max_speed)
+        P = tprob[uf][:, None] / (1.0 + speed) ** 2
+        fob = np.full(B, -1, np.int64)
+        pob = np.zeros(B)
+        fi_idx, bi_idx = np.nonzero(P > self.p_min)
+        if not len(fi_idx):
+            return fob, pob
+        probs = P[fi_idx, bi_idx]
+        # isolated 1-edge fish x 1-edge blob pairs are singleton
+        # cliques: assign directly; the matcher gets the rest
+        f_deg = np.bincount(fi_idx, minlength=len(uf))
+        b_deg = np.bincount(bi_idx, minlength=B)
+        triv = (f_deg[fi_idx] == 1) & (b_deg[bi_idx] == 1)
+        fob[bi_idx[triv]] = uf[fi_idx[triv]]
+        pob[bi_idx[triv]] = probs[triv]
+        rest = ~triv
+        if rest.any():
+            paired = _bulk_paired(uf[fi_idx[rest]], bi_idx[rest],
+                                  probs[rest])
+            result = match(paired, mode=self.mode)
+            pmap = {(int(uf[f]), int(b)): float(p) for f, b, p in
+                    zip(fi_idx[rest], bi_idx[rest], probs[rest])}
+            for bi, fid in result.pairings.items():
+                fob[bi] = fid
+                pob[bi] = pmap[(fid, bi)]
+        return fob, pob
+
+    # -- main ------------------------------------------------------------
+    def add_frame(self, frame: int, time: float, lines, pixels,
+                  line_start, pixel_start, stats) -> MatchResult:
+        t0 = _time.perf_counter()
+        if self.start_frame < 0:
+            self.start_frame = frame
+        self.frame_times[frame] = time
+
+        table, big_rows = self.build_candidates(
+            lines, pixels, line_start, pixel_start, stats)
+
+        has, tdelta, tprob = self._caches_py(frame, time)
+        F = self.n_fish
+        # global frame-to-frame delta: position probabilities divide the
+        # distance from the estimate by ONE frame time for every fish
+        # (Individual.cpp:1753 local_tdelta), not by the per-fish gap
+        prev_t = self.frame_times.get(frame - 1)
+        global_td = (time - prev_t) if prev_t is not None else 0.0
+        speed_td = np.full(F, global_td if global_td > 0 else np.inf)
+        est_x, est_y = self._position_estimates()
+
+        if big_rows and frame == self.start_frame:
+            table = self._split_big_start(table, np.asarray(big_rows))
+
+        B = table.n
+        assigned_fish: set[int] = set()
+        assigned_blob = np.zeros(B, bool)
+        result = MatchResult(mode=self.mode)
+
+        if F and B:
+            # active set only: fish seen less than t_max ago
+            usable = has & (tprob > 0) & (tdelta < self.t_max)
+            uf = np.flatnonzero(usable)
+            if len(uf):
+                fob, pob = self._match_py(uf, speed_td, tprob, table, B,
+                                          est_x, est_y)
+                bs = np.flatnonzero(fob >= 0)
+                if len(bs):
+                    fids = fob[bs]
+                    assigned_blob[bs] = True
+                    assigned_fish.update(fids.tolist())
+                    self._assign(fids, frame, time, table.cx[bs],
+                                 table.cy[bs])
+                    self.history[frame] = {
+                        "fish": fids.astype(np.int64),
+                        "x": table.cx[bs].copy(),
+                        "y": table.cy[bs].copy(),
+                        "prob": pob[bs].copy(),
+                    }
+
+        # second pass: free blobs -> inactive or new fish. Only fish whose
+        # gap is >= t_max (or never seen) may reactivate; the probability
+        # divides by the global one-frame delta.
+        free = np.flatnonzero(~assigned_blob)
+        if len(free):
+            inactive_ok = (~has) | (tdelta >= self.t_max)
+            self._second_pass(table, free, frame, time, speed_td,
+                              assigned_fish, assigned_blob, inactive_ok)
+
+        self.end_frame = frame
+        self.statistics[frame] = FrameStatistics(
+            number_fish=len(assigned_fish),
+            adding_seconds=_time.perf_counter() - t0,
+            match_improvements=result.improvements_made)
+        return result
+
+    def _reactivate_py(self, cand_f: np.ndarray, free: np.ndarray,
+                       table: _CandTable, tdelta: np.ndarray):
+        """Greedy over free blobs in index order against inactive fish:
+        p = p_min + (1/sqdist/tdelta)(1 - p_min)."""
+        has = self.n_basic[cand_f] > 0
+        lx = self.last_x[cand_f]
+        ly = self.last_y[cand_f]
+        td = tdelta[cand_f]
+        bx = table.cx[free]
+        by = table.cy[free]
+        sq = (bx[None, :] - lx[:, None]) ** 2 \
+            + (by[None, :] - ly[:, None]) ** 2
+        with np.errstate(divide="ignore"):
+            p = np.where(sq > 0, 1.0 / sq / td[:, None],
+                         1.0 / td[:, None])
+        p = np.where(td[:, None] <= 0, 1.0, p)
+        p = self.p_min + p * (1.0 - self.p_min)
+        p = np.where(has[:, None], p, self.p_min)
+        taken = np.zeros(len(cand_f), bool)
+        newly: list[tuple[int, int]] = []
+        for j in range(len(free)):
+            col = np.where(taken, -1.0, p[:, j])
+            k = int(np.argmax(col))
+            if col[k] <= 0:
+                continue
+            taken[k] = True
+            newly.append((int(cand_f[k]), int(free[j])))
+        return newly
+
+    def _second_pass(self, table: _CandTable, free: np.ndarray,
+                     frame: int, time: float, tdelta: np.ndarray,
+                     assigned_fish: set, assigned_blob: np.ndarray,
+                     inactive_ok: np.ndarray):
+        """Reactivation (Tracker.cpp:1846-1975), then new individuals.
+        Only inactive fish (gap >= t_max, or never assigned) take part."""
+        mask = inactive_ok[:self.n_fish].copy()
+        if assigned_fish:
+            mask[np.fromiter(assigned_fish, np.int64,
+                             len(assigned_fish))] = False
+        cand_f = np.flatnonzero(mask)
+        if len(cand_f) and len(free):
+            newly = self._reactivate_py(cand_f, free, table, tdelta)
+            for _, bi in newly:
+                assigned_blob[bi] = True
+            if newly:
+                fids = np.asarray([f for f, _ in newly])
+                rows = np.asarray([r for _, r in newly])
+                self._assign(fids, frame, time, table.cx[rows],
+                             table.cy[rows])
+                assigned_fish.update(fids.tolist())
+                self._append_history(frame, fids, table.cx[rows],
+                                     table.cy[rows])
+        # brand-new individuals while under the cap; they do not count
+        # into number_fish (Tracker.add second-pass creation semantics)
+        for bi in [int(b) for b in free if not assigned_blob[b]]:
+            if self.n_fish >= self.F:
+                break
+            fid = self.n_fish
+            self.n_fish += 1
+            self._assign(np.asarray([fid]), frame, time, table.cx[[bi]],
+                         table.cy[[bi]])
+            assigned_blob[bi] = True
+            self._append_history(frame, np.asarray([fid]), table.cx[[bi]],
+                                 table.cy[[bi]])
+
+    def _append_history(self, frame, fids, xs, ys):
+        """Second-pass assignments join the frame's history with
+        probability 0."""
+        h = self.history.setdefault(
+            frame, {"fish": np.zeros(0, np.int64), "x": np.zeros(0),
+                    "y": np.zeros(0), "prob": np.zeros(0)})
+        h["fish"] = np.concatenate([h["fish"], fids])
+        h["x"] = np.concatenate([h["x"], xs])
+        h["y"] = np.concatenate([h["y"], ys])
+        h["prob"] = np.concatenate([h["prob"], np.zeros(len(fids))])
+
+    def _split_big_start(self, table: _CandTable,
+                         big_rows: np.ndarray) -> _CandTable:
+        """Start-frame split of oversized blobs (tracker.py add())."""
+        s = self.settings
+        drop = np.zeros(table.n, bool)
+        insert: dict[int, list] = {}
+        for bi in big_rows.tolist():
+            b = table.blob(bi)
+            want = 2
+            if self.fish_size:
+                mid = sum(self.fish_size.max_range) / 2 or 1.0
+                want = max(2, int(round(table.recount[bi] / mid))
+                           if mid else 2)
+            parts = []
+            while want >= 2 and not parts:
+                parts = split_blob(b, want, self.background, s)
+                want -= 1
+            kept = []
+            for p in parts:
+                if self.fish_size.in_range_of_one(p.num_pixels
+                                                  * self.cm_sqr):
+                    p.recount(self.track_thr, self.background, s)
+                    kept.append(p)
+            drop[bi] = True
+            if kept:
+                insert[bi] = kept
+        return _rebuild_with_splits(table, drop, insert)
+
+    # -- compatibility surface -------------------------------------------
+    def add_frame_blobs(self, frame: int, time: float,
+                        blobs: list) -> MatchResult:
+        """Track a frame given TrackBlob-like objects: concatenates
+        their line/pixel arrays and computes labeler-identical stats
+        natively when absent."""
+        if self.settings["tags_dont_track"]:
+            # physical-tag objects never track (Tracker.cpp:776)
+            blobs = [b for b in blobs if not (getattr(b, "flags", 0) & 0x2)]
+        return self.add_frame(frame, time,
+                              *raw_from_blobs(blobs, self.background,
+                                              self.track_thr,
+                                              self.absolute))
+
+
+def raw_from_blobs(blobs: list, background: np.ndarray, track_thr: int,
+                   absolute: bool) -> tuple:
+    """TrackBlob-likes -> the labeler's flat arrays (lines, pixels,
+    line_start, pixel_start, stats); stats computed natively when a
+    blob lacks them. Rows without pixel data get pixel_start -1."""
+    n = len(blobs)
+    if n == 0:
+        return (np.zeros((0, 3), np.int32), np.zeros(0, np.uint8),
+                np.zeros(1, np.int64), np.zeros(1, np.int64),
+                np.zeros((0, 8)))
+    lines = np.concatenate([np.asarray(b.lines, np.int32) for b in blobs])
+    have_px = all(b.pixels is not None for b in blobs)
+    pixels = np.concatenate([b.pixels for b in blobs]) if have_px \
+        else np.zeros(0, np.uint8)
+    line_start = np.zeros(n + 1, np.int64)
+    np.cumsum([len(b.lines) for b in blobs], out=line_start[1:])
+    if have_px:
+        pixel_start = np.zeros(n + 1, np.int64)
+        np.cumsum([len(b.pixels) for b in blobs], out=pixel_start[1:])
+    else:
+        pixel_start = np.full(n + 1, -1, np.int64)
+    if all(b.stats is not None for b in blobs):
+        stats = np.stack([b.stats for b in blobs])
+    else:
+        if not have_px:
+            raise EngineUnsupported("blobs without pixels or stats")
+        stats = blob_stats(lines, line_start, pixels, pixel_start,
+                           background, track_thr, absolute)
+    return lines, pixels, line_start, pixel_start, stats
+
+
+def _in_close(recount: np.ndarray, fish_size: SizeFilters) -> np.ndarray:
+    out = np.zeros(recount.shape, bool)
+    for lo, _ in fish_size.ranges:
+        out |= recount >= lo * 0.5
+    return out
+
+
+def _filter_table(t: _CandTable, keep: np.ndarray) -> _CandTable:
+    idx = np.flatnonzero(keep)
+    return _CandTable(
+        n=len(idx), cnt=t.cnt[idx], recount=t.recount[idx],
+        cx=t.cx[idx], cy=t.cy[idx], bx0=t.bx0[idx], by0=t.by0[idx],
+        bx1=t.bx1[idx], by1=t.by1[idx],
+        line_lo=t.line_lo[idx], line_hi=t.line_hi[idx],
+        objs=[t.objs[i] for i in idx.tolist()],
+        lines=t.lines, pixel_lo=t.pixel_lo[idx],
+        pixel_hi=t.pixel_hi[idx], pixels=t.pixels)
+
+
+def _rebuild_with_splits(t: _CandTable, drop: np.ndarray,
+                         insert: dict[int, list]) -> _CandTable:
+    """Replace dropped rows by their split pieces, in order, at the
+    parent's place. At the start frame the pieces are pre-filtered, so
+    no final size filter applies."""
+    base = _filter_table(t, ~drop)
+    base_pos = np.flatnonzero(~drop).astype(np.float64)
+    prow: list = []
+    pobj: list = []
+    for bi in sorted(insert):
+        for k, p in enumerate(insert[bi]):
+            # a fractional position keeps the pieces in order
+            prow.append(bi + (k + 1) / (len(insert[bi]) + 2))
+            pobj.append(p)
+    if not pobj:
+        return base
+    m = len(pobj)
+    centers = np.asarray([p.center for p in pobj])
+    bounds = np.asarray([p.bounds for p in pobj], np.float64)
+    none = np.full(m, -1, np.int64)
+    pieces = _CandTable(
+        n=m, cnt=np.fromiter((p.num_pixels for p in pobj), np.float64, m),
+        recount=np.fromiter((p.recount(-1) for p in pobj), np.float64, m),
+        cx=centers[:, 0], cy=centers[:, 1],
+        bx0=bounds[:, 0], by0=bounds[:, 1],
+        bx1=bounds[:, 0] + bounds[:, 2] - 1,
+        by1=bounds[:, 1] + bounds[:, 3] - 1,
+        line_lo=none, line_hi=none, objs=pobj, lines=t.lines,
+        pixel_lo=none, pixel_hi=none, pixels=t.pixels)
+    order = np.argsort(np.concatenate([base_pos, np.asarray(prow)]),
+                       kind="stable")
+    objs = base.objs + pieces.objs
+
+    def cat(name):
+        return np.concatenate([getattr(base, name),
+                               getattr(pieces, name)])[order]
+    return _CandTable(
+        n=len(order), cnt=cat("cnt"), recount=cat("recount"),
+        cx=cat("cx"), cy=cat("cy"), bx0=cat("bx0"), by0=cat("by0"),
+        bx1=cat("bx1"), by1=cat("by1"), line_lo=cat("line_lo"),
+        line_hi=cat("line_hi"), objs=[objs[i] for i in order.tolist()],
+        lines=t.lines, pixel_lo=cat("pixel_lo"), pixel_hi=cat("pixel_hi"),
+        pixels=t.pixels)
+
+
+def _bulk_paired(fish_ids: np.ndarray, blob_ids: np.ndarray,
+                 probs: np.ndarray) -> PairedProbabilities:
+    """PairedProbabilities from parallel fish-major edge arrays (as
+    np.nonzero yields them), blob slots in first-occurrence order."""
+    pp = PairedProbabilities()
+    uf, f_inv = np.unique(fish_ids, return_inverse=True)
+    ub, b_first = np.unique(blob_ids, return_index=True)
+    order = np.argsort(b_first, kind="stable")
+    ub_ordered = ub[order]
+    slot_of = np.empty(len(ub), np.int64)
+    slot_of[order] = np.arange(len(ub))
+    b_slot = slot_of[np.searchsorted(ub, blob_ids)]
+    pp._fish = [int(f) for f in uf]
+    pp._blobs = [int(b) for b in ub_ordered]
+    # bucket edges per fish; a stable sort keeps each fish's edge order
+    order = np.argsort(f_inv, kind="stable")
+    f_sorted = f_inv[order]
+    bs = b_slot[order].tolist()
+    ps = probs[order].tolist()
+    bounds = np.searchsorted(f_sorted, np.arange(len(uf) + 1))
+    for fi in range(len(uf)):
+        lo, hi = bounds[fi], bounds[fi + 1]
+        pp.edges[fi] = list(zip(bs[lo:hi], ps[lo:hi]))
+    return pp
