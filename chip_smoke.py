@@ -10,9 +10,10 @@ Phases, each raising on failure:
    ``trex_tpu_torch/native`` (``g++``, beside them), and hold each kernel
    against its plain PyTorch version: the labeler on random masks
    (densities 0.1 / 0.35 / 0.6, widths that are not a multiple of 128,
-   S-shapes that span the frame), the 3x3 minimum stencil on random
-   int32 tiles (a 3x3 tile, sizes that are not multiples of 32 or 128):
-   outputs must be equal (torch.equal).
+   S-shapes that span the frame) and on :func:`hard_masks` (masks that
+   break tiled labellers), the 3x3 minimum stencil on random int32 tiles
+   (a 3x3 tile, sizes that are not multiples of 32 or 128) and on
+   :func:`hard_tiles`: outputs must be equal (torch.equal).
 2. Pixel-grid detection at full size: ``detect_batch(use_pallas=True)``
    on 32 synthetic frames of 1024^2 with 256 fish. Equal to the same
    call through the plain labeler, and slot for slot equal to the
@@ -47,8 +48,12 @@ Phases, each raising on failure:
    and seconds, the card's name and power limit, and one JSON line with
    every kernel's launches on its path, error against its plain
    version, time, bound, the plain version's time and the nearest
-   library call's time. The last line is ``{"ok": true, "device":
-   {...}}``.
+   library call's time; for B1 also the device time of each of its
+   passes under ``torch.profiler``. A kernel's ``ms`` is the median of
+   single calls, each synchronised, so it holds the wrapper's host time
+   before the launch; ``ms_back_to_back`` is the time per call over 20
+   calls launched back to back, which hides that host time. The last
+   line is ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or without the
 trex_tpu_torch package beside it.
@@ -169,6 +174,99 @@ def time_ms(fn, iters=10, warmup=2):
     return statistics.median(times)
 
 
+def time_ms_back_to_back(fn, calls=20, warmup=2):
+    """Milliseconds per call of `fn()` on the card over `calls` calls
+    launched back to back between two CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    sync()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+PORT_KERNELS = ("ccl_", "neighbor_min")
+
+
+def kernel_split(fn, calls=10):
+    """Device milliseconds per call of `fn()` spent in each of the port's
+    own CUDA kernels (names with a prefix of PORT_KERNELS), under
+    torch.profiler over `calls` warm calls: {kernel: ms}. Empty when
+    the profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    out = {}
+    for e in prof.key_averages():
+        name = kernel_name(e.key)
+        if e.device_type == DeviceType.CUDA and name.startswith(PORT_KERNELS):
+            out[name] = out.get(name, 0.0) + device_us(e) / 1e3 / calls
+    return out
+
+
+def device_us(e) -> float:
+    """Self device time of a torch.profiler row, in microseconds."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, name):
+            return float(getattr(e, name))
+    return 0.0
+
+
+def kernel_name(key):
+    """The function name of a demangled CUDA kernel name
+    (``(anonymous namespace)::ccl_tile(unsigned char const*, ...)`` and
+    ``void (anonymous namespace)::f<2>(...)`` give ``ccl_tile``, ``f<2>``)."""
+    head = key.split("(anonymous namespace)::")[-1]
+    return head.split("(")[0].strip()
+
+
+def detection_masks(dev, n_frames=32):
+    """`n_frames` frames of :func:`synth_frames` on `dev` and their
+    pixel-grid detection masks (threshold 15 below the background, as
+    the bench's ``detect_batch`` call): (frames as numpy, frames,
+    background, (n_frames, SIZE, SIZE) bool masks), the last three on
+    `dev`. The labeler's input on its path."""
+    import torch
+
+    bg, frames = synth_frames(n_frames)
+    fr = torch.as_tensor(frames, device=dev)
+    bgt = torch.as_tensor(bg, device=dev)
+    mask = ((bgt.to(torch.int16)[None] - fr.to(torch.int16)) >= 15) \
+        & (fr > 0)
+    return frames, fr, bgt, mask
+
+
+def stencil_tiles(mask):
+    """The stencil's input on its path for (N, H, W) `mask`: the masks'
+    initial labels (y * W + x, INACTIVE on background) padded by one row
+    and column of INACTIVE, (N, H + 2, W + 2) int32."""
+    import torch
+    import torch.nn.functional as F
+
+    from trex_tpu_torch.ops.cc_device import INACTIVE
+
+    _, h, w = mask.shape
+    lin = torch.arange(h * w, dtype=torch.int32,
+                       device=mask.device).reshape(1, h, w)
+    return F.pad(torch.where(mask, lin, INACTIVE), (1, 1, 1, 1),
+                 value=INACTIVE)
+
+
 def s_shape_mask(h, w, turns):
     """A serpentine that spans the frame: `turns` horizontal bars joined
     alternately at the right and the left edge."""
@@ -180,6 +278,92 @@ def s_shape_mask(h, w, turns):
             x = w - 2 if i % 2 == 0 else 1
             m[y:ys[i + 1] + 1, x] = True
     return m
+
+
+def staircase(m, yc, xc, flip):
+    """Draw into `m` a staircase of 3-pixel steps, each joined to the
+    next only through a diagonal, whose middle joint is the diagonal
+    from pixel (yc - 1, xc - 1) to (yc, xc), or, `flip`ped, from
+    (yc - 1, xc) to (yc, xc - 1)."""
+    h, w = m.shape
+    for i in range(-4, 4):
+        y = yc + i
+        x = xc - 3 - 3 * i if flip else xc + 3 * i
+        if 0 <= y < h:
+            m[y, max(x, 0):max(min(x + 3, w), 0)] = True
+
+
+def hard_masks():
+    """Masks that break tiled labellers, as [(name, (B, H, W) bool)].
+
+    Frames of 70 x 300 (with the labeler's 32 x 256 tiles: a height that
+    is no multiple of the tile's, two inner tile rows, one inner tile
+    column): a checkerboard, whose components are linked only
+    diagonally; staircases whose diagonal joints lie on the tile corners
+    and on tile rows and columns between them, both diagonals; one-pixel
+    vertical lines through every tile row, on and beside the tile
+    columns; an all-foreground frame (one component, label 0); an
+    all-background frame; a random frame. Then H = 1, W = 1, widths
+    W = 16 (r + 1) + r, i.e. W = r (mod 16), for r = 1 .. 15, and a batch
+    of frames of one tile each (20 x 200: random, checkerboard, all
+    foreground), which the labeler finishes in its tile pass."""
+    rng = np.random.default_rng(7)
+    h, w = 70, 300
+    yy, xx = np.indices((h, w))
+    stairs = np.zeros((h, w), bool)
+    staircase(stairs, 32, 256, flip=False)  # joints on the tile corners
+    staircase(stairs, 64, 256, flip=True)
+    # joints on a tile column between two corners, and on a tile row
+    for yc, xc, flip in ((16, 256, True), (48, 256, False), (32, 100, False),
+                         (64, 150, True)):
+        staircase(stairs, yc, xc, flip)
+    lines = np.zeros((h, w), bool)
+    lines[:, [0, 3, 100, 255, 256, 299]] = True
+    out = [("checkerboard", (yy + xx) % 2 == 0),
+           ("staircases", stairs),
+           ("vertical_lines", lines),
+           ("all_foreground", np.ones((h, w), bool)),
+           ("all_background", np.zeros((h, w), bool)),
+           ("random_70x300", rng.random((h, w)) < 0.45),
+           ("h1", rng.random((1, w)) < 0.5),
+           ("w1", rng.random((h, 1)) < 0.5)]
+    out = [(name, m[None]) for name, m in out]
+    for r in range(1, 16):
+        out.append((f"w_mod16_{r}",
+                    rng.random((1, 40, 16 * (r + 1) + r)) < 0.5))
+    one = (slice(0, 20), slice(0, 200))
+    out.append(("one_tile", np.stack([rng.random((20, 200)) < 0.45,
+                                      (yy[one] + xx[one]) % 2 == 0,
+                                      np.ones((20, 200), bool)])))
+    return out
+
+
+def hard_tiles():
+    """Tiles that break the stencil's strip sweep, as [(name, (N, H, W)
+    int32, offset)]: widths W = 0 .. 3 (mod 4) (vector widths 2 and 1),
+    a height below one strip, and a tile to be laid `offset` int32
+    elements past an aligned address (an unaligned view, which takes the
+    scalar width)."""
+    rng = np.random.default_rng(8)
+
+    def rand(*shape):
+        return rng.integers(-2 ** 31, 2 ** 31 - 1, shape, dtype=np.int32)
+
+    out = [(f"w_mod4_{r}", rand(2, 37, 64 + r), 0) for r in range(4)]
+    out.append(("h_below_strip", rand(3, 5, 130), 0))
+    out.append(("unaligned_view", rand(2, 33, 130), 1))
+    return out
+
+
+def on_card(a, dev, offset=0):
+    """Tensor of numpy array `a` on `dev`, contiguous, starting `offset`
+    elements past the start of its allocation."""
+    import torch
+
+    t = torch.as_tensor(a)
+    buf = torch.empty(offset + t.numel(), dtype=t.dtype, device=dev)
+    buf[offset:] = t.reshape(-1).to(dev)
+    return buf[offset:].view(t.shape)
 
 
 def phase_kernels(dev, report):
@@ -207,25 +391,27 @@ def phase_kernels(dev, report):
     cases.append(np.stack([s_shape_mask(1024, 1000, 64),
                            s_shape_mask(1024, 1000, 300)]))
     cases.append(s_shape_mask(333, 1021, 41)[None])
-    for m in cases:
+    cases = [(f"random_{tuple(m.shape)}", m) for m in cases] + hard_masks()
+    for name, m in cases:
         mt = torch.as_tensor(m)
         got = label_components_vmem(mt.to(dev))
         sync()
         ref = label_components_plain(mt.to(dev))
         check(torch.equal(got, ref),
-              f"ccl kernel != plain on a {tuple(m.shape)} mask")
+              f"ccl kernel != plain on the {name} mask {tuple(m.shape)}")
     shapes = [(1, 3, 3), (2, 1, 7), (3, 67, 130), (4, 517, 1000),
               (1, 1026, 1026), (2, 1031, 999)]
-    for shape in shapes:
-        t = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31 - 1, shape,
-                                         dtype=np.int32))
-        got = neighbor_min(t.to(dev))
+    tiles = [(f"random_{shape}", rng.integers(-2 ** 31, 2 ** 31 - 1, shape,
+                                              dtype=np.int32), 0)
+             for shape in shapes] + hard_tiles()
+    for name, t, offset in tiles:
+        got = neighbor_min(on_card(t, dev, offset))
         sync()
-        check(torch.equal(got.cpu(), neighbor_min_plain(t)),
-              f"neighbor_min kernel != plain on a {shape} tile")
+        check(torch.equal(got.cpu(), neighbor_min_plain(torch.as_tensor(t))),
+              f"neighbor_min kernel != plain on the {name} tile {t.shape}")
     print(f"phase 1 ok: kernels and host labeler built in "
           f"{report['build_s']:.1f} s, {len(cases)} mask sets equal to "
-          f"the plain labeler, {len(shapes)} tile sets equal to the plain "
+          f"the plain labeler, {len(tiles)} tile sets equal to the plain "
           "stencil", flush=True)
 
 
@@ -238,9 +424,7 @@ def phase_detect(dev, report, kern):
     from trex_tpu_torch.ops.device_pipeline import detect_batch
     from trex_tpu_torch.ops.runcc import detect_batch_runs
 
-    bg, frames = synth_frames(32)
-    fr = torch.as_tensor(frames, device=dev)
-    bgt = torch.as_tensor(bg, device=dev)
+    frames, fr, bgt, mask = detection_masks(dev)
     kw = dict(threshold=15, absolute=False, track_threshold=20,
               max_blobs=256)
     sync()
@@ -286,13 +470,13 @@ def phase_detect(dev, report, kern):
     check(compared > 0, "no frame without overflow to compare")
 
     # kernel timing at the main path's shape, against its plain version
-    f16 = fr.to(torch.int16)
-    mask = ((bgt.to(torch.int16)[None] - f16) >= 15) & (fr > 0)
     got = label_components_vmem(mask)
     ref = label_components_plain(mask)
     err = int((got.long() - ref.long()).abs().max())
     check(err == 0, "ccl kernel != plain on the detection masks")
     ms = time_ms(lambda: label_components_vmem(mask), iters=20)
+    ms_b2b = time_ms_back_to_back(lambda: label_components_vmem(mask))
+    passes = kernel_split(lambda: label_components_vmem(mask))
     plain_ms = time_ms(lambda: label_components_plain(mask), iters=3,
                        warmup=1)
     npix = mask.numel()
@@ -320,6 +504,8 @@ def phase_detect(dev, report, kern):
         "library_ms": None,
         "library_note": "no single PyTorch call computes these labels",
         "shape": list(mask.shape),
+        "ms_back_to_back": ms_b2b,
+        "passes_ms": passes or "not measured",
     })
     print(f"phase 2 ok: pixel-grid detection {report['detect']['fps']:.1f} "
           f"frames/s, {compared}/32 frames equal to run-based slot for slot",
@@ -331,16 +517,12 @@ def phase_label(dev, report, kern):
     import torch.nn.functional as F
 
     from trex_tpu_torch import kernels
-    from trex_tpu_torch.ops.cc_device import (INACTIVE, label_components,
+    from trex_tpu_torch.ops.cc_device import (label_components,
                                               label_components_vmem,
                                               neighbor_min,
                                               neighbor_min_plain)
 
-    bg, frames = synth_frames(32)
-    fr = torch.as_tensor(frames, device=dev)
-    bgt = torch.as_tensor(bg, device=dev)
-    mask = ((bgt.to(torch.int16)[None] - fr.to(torch.int16)) >= 15) \
-        & (fr > 0)
+    mask = detection_masks(dev)[3]
     label_components(mask[:1], use_pallas=True)  # warm-up
     sync()
     kernels.reset_launches()
@@ -358,12 +540,8 @@ def phase_label(dev, report, kern):
     check(int((got >= 0).sum()) == int(mask.sum()), "labels lost pixels")
 
     # the stencil on tiles of the shape and values the labelling gives
-    # it (the masks' initial labels, padded with INACTIVE): the whole
-    # batch, and one frame
-    lin = torch.arange(SIZE * SIZE, dtype=torch.int32,
-                       device=dev).reshape(1, SIZE, SIZE)
-    tiles = F.pad(torch.where(mask, lin, INACTIVE), (1, 1, 1, 1),
-                  value=INACTIVE)
+    # it: the whole batch, and one frame
+    tiles = stencil_tiles(mask)
     out = {}
     for name, t in (("batch", tiles), ("frame", tiles[:1].contiguous())):
         ref = neighbor_min_plain(t)
@@ -377,6 +555,7 @@ def phase_label(dev, report, kern):
         out[name] = dict(
             shape=list(t.shape), max_abs_err=err,
             ms=time_ms(lambda: neighbor_min(t), iters=20),
+            ms_back_to_back=time_ms_back_to_back(lambda: neighbor_min(t)),
             plain_ms=time_ms(lambda: neighbor_min_plain(t), iters=20),
             library_ms=time_ms(lambda: -F.max_pool2d(-td, 3, 1, 1),
                                iters=20),
@@ -397,6 +576,7 @@ def phase_label(dev, report, kern):
         "library_note": "nearest call: -max_pool2d(-x.double(), 3, 1, 1), "
                         "zero-padded, not wrapped",
         "shape": out["batch"]["shape"],
+        "ms_back_to_back": out["batch"]["ms_back_to_back"],
     })
     print(f"phase 3 ok: label_components(use_pallas=True) "
           f"{call_s * 1e3:.1f} ms, {launches['neighbor_min']} steps, equal "

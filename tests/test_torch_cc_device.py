@@ -4,9 +4,12 @@ Pallas interpret mode). Labels, stencils and statistics must match bit
 for bit.
 
 The CUDA kernels themselves are tested in ``test_torch_ccl_kernel.py``."""
+import functools
+
 import numpy as np
 import pytest
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import torch
@@ -179,3 +182,81 @@ def test_label_components_use_pallas_equals_jax(case):
         np.testing.assert_array_equal(
             T.label_components(torch.as_tensor(masks[0]),
                                use_pallas=True).numpy(), got[0].numpy())
+
+
+_HARD_MASKS = dict(chip_smoke.hard_masks())
+_HARD_TILES = {name: t for name, t, _ in chip_smoke.hard_tiles()}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_hard_labels():
+    """The JAX package's labels of every mask of chip_smoke.hard_masks():
+    {name: (label_components_vmem in interpret mode, label_components)}.
+
+    Masks of one height are padded with background to one width and
+    labelled as one batch (one compilation per height, not per width),
+    and the labels y * Wp + x mapped back to y * W + x. Background
+    columns on the right change no component and no component's first
+    pixel; label_components_vmem pads every width to a multiple of 128
+    itself. Each entry is (B, H, W), as the mask."""
+    by_h = {}
+    for name, m in _HARD_MASKS.items():
+        by_h.setdefault(m.shape[1], []).append(name)
+    out = {}
+    for names in by_h.values():
+        wp = max(_HARD_MASKS[n].shape[2] for n in names)
+        batch = np.concatenate([
+            np.pad(_HARD_MASKS[n], ((0, 0), (0, 0),
+                                    (0, wp - _HARD_MASKS[n].shape[2])))
+            for n in names]).astype(np.uint8)
+        vmem = np.asarray(J.label_components_vmem(jnp.asarray(batch),
+                                                  interpret=True))
+        prop = np.stack([np.asarray(J.label_components(jnp.asarray(m)))
+                         for m in batch])
+        start = 0
+        for n in names:
+            b, _, w = _HARD_MASKS[n].shape
+            out[n] = tuple(np.where(lab[:, :, :w] >= 0,
+                                    lab[:, :, :w] // wp * w
+                                    + lab[:, :, :w] % wp, -1)
+                           for lab in (vmem[start:start + b],
+                                       prop[start:start + b]))
+            start += b
+    return out
+
+
+@pytest.fixture()
+def one_thread():
+    """These masks take the propagation labeler hundreds of steps of small
+    operations; one intra-op thread keeps them fast when the test
+    workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("name", list(_HARD_MASKS))
+def test_hard_masks_equal_jax(name, one_thread):
+    """chip_smoke.py's masks that break tiled labellers (diagonal-only
+    components, corner staircases, full and empty frames, H = 1, W = 1,
+    every width mod 16, frames of one tile): the port's plain union-find
+    and propagation labeler give the JAX package's labels, bit for bit."""
+    vmem, prop = _jax_hard_labels()[name]
+    np.testing.assert_array_equal(vmem, prop)
+    mask = torch.as_tensor(_HARD_MASKS[name])
+    np.testing.assert_array_equal(T.label_components_plain(mask).numpy(),
+                                  vmem)
+    np.testing.assert_array_equal(T.label_components(mask).numpy(), vmem)
+
+
+@pytest.mark.parametrize("name", list(_HARD_TILES))
+def test_hard_tiles_plain_equals_pallas_kernel(name):
+    """chip_smoke.py's tiles for the stencil's vector widths and strips:
+    the plain stencil equals the Pallas B2 in interpret mode, frame by
+    frame, wrapped border included."""
+    tiles = _HARD_TILES[name]
+    got = T.neighbor_min_plain(torch.as_tensor(tiles)).numpy()
+    for g, tile in zip(got, tiles):
+        np.testing.assert_array_equal(
+            g, np.asarray(_pallas_neighbor_min(jnp.asarray(tile))))

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from trex_tpu_torch import kernels
 from trex_tpu_torch.ops import cc_device as T
 from trex_tpu_torch.ops.device_pipeline import detect_batch
@@ -97,6 +98,10 @@ def test_cuda_kernel_serpentines(cuda_device):
 def test_cuda_failed_launch_raises_and_counts_nothing(cuda_device,
                                                       monkeypatch):
     class Refused:
+        @staticmethod
+        def trex_ccl_scratch_ints(*args):
+            return 1
+
         @staticmethod
         def trex_ccl_label(*args):
             return 9  # cudaErrorInvalidConfiguration
@@ -189,3 +194,35 @@ def test_cuda_stencil_failed_launch_raises(cuda_device, monkeypatch):
         T.neighbor_min(torch.zeros((1, 4, 4), dtype=torch.int32,
                                    device=cuda_device))
     assert kernels.launches["neighbor_min"] == before
+
+
+_HARD_MASKS = chip_smoke.hard_masks()
+_HARD_TILES = chip_smoke.hard_tiles()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mask", _HARD_MASKS,
+                         ids=[n for n, _ in _HARD_MASKS])
+def test_cuda_kernel_hard_masks(cuda_device, name, mask):
+    """Checkerboards, corner staircases, lines through every tile row,
+    full and empty frames, H = 1, W = 1, every width mod 16 and frames of
+    one tile."""
+    m = torch.as_tensor(mask)
+    got = T.label_components_vmem(m.to(cuda_device)).cpu()
+    assert torch.equal(got, T.label_components_plain(m))
+    if name == "all_foreground":
+        assert bool((got == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,tile,offset", _HARD_TILES,
+                         ids=[n for n, _, _ in _HARD_TILES])
+def test_cuda_stencil_hard_tiles(cuda_device, name, tile, offset):
+    """Widths 0 .. 3 mod 4, a height below one strip, an unaligned view:
+    the vector widths 2 and 1 of the same kernel."""
+    t = chip_smoke.on_card(tile, cuda_device, offset)
+    assert t.data_ptr() % 8 == (4 if offset else 0)
+    before = kernels.launches["neighbor_min"]
+    got = T.neighbor_min(t).cpu()
+    assert kernels.launches["neighbor_min"] == before + 1
+    assert torch.equal(got, T.neighbor_min_plain(torch.as_tensor(tile)))

@@ -42,6 +42,7 @@ def test_port_imports_without_jax_or_trex_tpu():
 def test_no_jax_import_lines():
     files = list((REPO / "trex_tpu_torch").rglob("*.py")) \
         + [REPO / "chip_smoke.py", REPO / "torch_profile.py",
+           REPO / "kernel_ab.py",
            REPO / "tests" / "test_torch_ccl_kernel.py"]
     for f in files:
         for line in f.read_text().splitlines():

@@ -12,8 +12,10 @@ the run-based detection alone, the tracking chunk
 engine over the same chunk (``DeviceTracker.track_frames``). For each it
 prints the host wall time, the summed device time of the kernels and the
 device's idle share over the call, the kernels with the most device time,
-and the PyTorch operators that launched most of it. Exits non-zero
-without CUDA.
+the PyTorch operators that launched most of it, and the port's own CUDA
+kernels (each pass of the labeler ``ccl_*`` and the stencil
+``neighbor_min*``) with their device time and launch count. Exits
+non-zero without CUDA.
 """
 from __future__ import annotations
 
@@ -24,14 +26,6 @@ import sys
 import time
 
 import chip_smoke as smoke
-
-
-def _device_time(e) -> float:
-    """Self device time of a profiler row, in microseconds."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(e, name):
-            return float(getattr(e, name))
-    return 0.0
 
 
 def profile_call(fn, top=12) -> dict:
@@ -50,21 +44,26 @@ def profile_call(fn, top=12) -> dict:
     rows = prof.key_averages()
     kern = [e for e in rows if e.device_type == DeviceType.CUDA]
     ops = [e for e in rows if e.device_type == DeviceType.CPU
-           and e.key.startswith("aten::") and _device_time(e) > 0]
-    device_us = sum(_device_time(e) for e in kern)
+           and e.key.startswith("aten::") and smoke.device_us(e) > 0]
+    device_us = sum(smoke.device_us(e) for e in kern)
+    port = [e for e in kern
+            if smoke.kernel_name(e.key).startswith(smoke.PORT_KERNELS)]
 
     def by(es):
-        return sorted(es, key=_device_time, reverse=True)[:top]
+        return sorted(es, key=smoke.device_us, reverse=True)[:top]
 
     return {
         "wall_ms": wall_us / 1e3,
         "device_ms": device_us / 1e3,
         "idle_share": (1.0 - device_us / wall_us) if device_us else None,
         "launches": sum(e.count for e in kern),
-        "kernels": [{"name": e.key[:90], "ms": _device_time(e) / 1e3,
+        "kernels": [{"name": e.key[:90], "ms": smoke.device_us(e) / 1e3,
                      "count": e.count} for e in by(kern)],
-        "ops": [{"name": e.key, "ms": _device_time(e) / 1e3,
+        "ops": [{"name": e.key, "ms": smoke.device_us(e) / 1e3,
                  "count": e.count} for e in by(ops)],
+        "port_kernels": [{"name": smoke.kernel_name(e.key),
+                          "ms": smoke.device_us(e) / 1e3, "count": e.count}
+                         for e in by(port)],
     }
 
 
@@ -124,6 +123,9 @@ def main():
               f"{r['launches']} kernel launches")
         for k in r["ops"][:8]:
             print(f"    {k['ms']:9.3f} ms  x{k['count']:<6} {k['name']}")
+        for k in r["port_kernels"]:
+            print(f"    {k['ms']:9.3f} ms  x{k['count']:<6} kernel "
+                  f"{k['name']}")
     print(report["card"])
     if args.out:
         with open(args.out, "w") as f:

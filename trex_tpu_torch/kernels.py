@@ -29,13 +29,15 @@ BUILD_DIR = _PKG.parent / "build" / "trex_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-# kernel name -> (source file, [(C symbol, argtypes)])
+# kernel name -> (source file, [(C symbol, argtypes, restype)])
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 SOURCES = {
-    "ccl": ("ccl.cu", [("trex_ccl_label", [_VP, _VP, _I, _I, _I, _VP])]),
+    "ccl": ("ccl.cu", [
+        ("trex_ccl_label", [_VP, _VP, _VP, _I, _I, _I, _VP], _I),
+        ("trex_ccl_scratch_ints", [_I, _I, _I], ctypes.c_longlong)]),
     "neighbor_min": ("neighbor_min.cu",
-                     [("trex_neighbor_min", [_VP, _VP, _I, _I, _I, _VP])]),
+                     [("trex_neighbor_min", [_VP, _VP, _I, _I, _I, _VP], _I)]),
 }
 
 launches: dict = {name: 0 for name in SOURCES}
@@ -109,10 +111,10 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(_lib_path(name)))
-        for sym, argtypes in SOURCES[name][1]:
+        for sym, argtypes, restype in SOURCES[name][1]:
             fn = getattr(lib, sym)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = restype
         _libs[name] = lib
     return lib
 

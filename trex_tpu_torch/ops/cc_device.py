@@ -26,6 +26,11 @@ from .. import kernels
 
 INACTIVE = 2 ** 30
 _I32_MAX = 2 ** 31 - 1
+# rows of one block of csrc/neighbor_min.cu (kStripRows * kWarps) and of
+# one tile of csrc/ccl.cu (kTileH): the launch grid's y extent is the
+# height over these, and must stay within 65535
+_NM_BLOCK_ROWS = 8 * 4
+_CCL_TILE_ROWS = 32
 
 
 def _row_run_min(labels: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
@@ -73,7 +78,7 @@ def neighbor_min(tiles: torch.Tensor) -> torch.Tensor:
     if tiles.device.type != "cuda":
         raise ValueError(f"unsupported device {tiles.device}")
     n, h, w = tiles.shape
-    if h * w >= 2 ** 31 or n > 65535 or -(-h // 8) > 65535:
+    if h * w >= 2 ** 31 or n > 65535 or -(-h // _NM_BLOCK_ROWS) > 65535:
         raise ValueError(f"tiles {tuple(tiles.shape)} exceed the kernel's "
                          "int32 indices or its launch grid")
     src = tiles.contiguous()
@@ -181,7 +186,7 @@ def label_components_vmem(mask: torch.Tensor) -> torch.Tensor:
     if mask.device.type != "cuda":
         raise ValueError(f"unsupported device {mask.device}")
     b, h, w = mask.shape
-    if h * w >= 2 ** 31 or b > 65535 or -(-h // 8) > 65535:
+    if h * w >= 2 ** 31 or b > 65535 or -(-h // _CCL_TILE_ROWS) > 65535:
         raise ValueError(f"mask {tuple(mask.shape)} exceeds the kernel's "
                          "int32 labels or its launch grid")
     # a bool tensor is already one 0/1 byte per pixel
@@ -189,8 +194,11 @@ def label_components_vmem(mask: torch.Tensor) -> torch.Tensor:
         else (mask > 0).to(torch.uint8)
     labels = torch.empty((b, h, w), dtype=torch.int32, device=mask.device)
     lib = kernels.library("ccl")
+    # per-tile bookkeeping between the kernel's passes; the kernel fills it
+    scratch = torch.empty(lib.trex_ccl_scratch_ints(b, h, w),
+                          dtype=torch.int32, device=mask.device)
     err = lib.trex_ccl_label(
-        m.data_ptr(), labels.data_ptr(), b, h, w,
+        m.data_ptr(), labels.data_ptr(), scratch.data_ptr(), b, h, w,
         torch.cuda.current_stream(mask.device).cuda_stream)
     kernels.check(err, "trex_ccl_label")
     kernels.launches["ccl"] += 1
