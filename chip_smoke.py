@@ -44,7 +44,22 @@ Phases, each raising on failure:
    at that density as well (``ROADMAP.md`` C1). On a small chunk that
    replays frames, the card equals the port's CPU path (which the tests
    hold to the JAX package's DeviceTracker).
-6. Report: frames per second of phases 2-5, the replay's assist frames
+6. The product-default configuration (``auto-split``): the settings of
+   phases 4-5 with ``match_mode=automatic`` (the auction with its
+   certificate) and ``track_do_history_split`` (the split on the card).
+   ``track_video_device`` on the 64-frame chunk, with the frames it
+   flags, the auction rounds a frame, the split targets a frame and the
+   CUDA launches a frame (in all, in the auction, in the split; over
+   frames 24-39, resumed from the carry of frame 23);
+   ``DeviceTracker.track_frames`` on the chunk's first 32 frames with its
+   assists, the frames its scans covered and the replay seconds; the
+   frames where it departs from the port's FastTracker
+   under the same settings are reported (``ROADMAP.md`` C1). Held to the
+   host FastTracker: a sparse full-size chunk (64 fish), a two-fish
+   crossing whose auction is flagged and replayed, and two fish that
+   merge into one blob, split on the card with no assist. On a small
+   chunk the card gives the port's CPU path's integer outputs.
+7. Report: frames per second of phases 2-6, the replay's assist frames
    and seconds, the card's name and power limit, and one JSON line with
    every kernel's launches on its path, error against its plain
    version, time, bound, the plain version's time and the nearest
@@ -651,6 +666,75 @@ def phase_track(dev, report):
     return bg, frames, hist
 
 
+def auto_settings(n_fish=N_FISH, **over):
+    """The product-default tracking configuration: track_settings with
+    the optimal matcher and the history split."""
+    return dict(track_settings(n_fish), match_mode="automatic",
+                track_do_history_split=True, **over)
+
+
+def graded_stamp(img, x, y, w=12, h=7, depth=110):
+    """A fish with a darker core (``tests/test_device_split.py``'s
+    stamp): threshold escalation separates two that overlap."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    e = ((yy - h / 2) / (h / 2)) ** 2 + ((xx - w / 2) / (w / 2)) ** 2
+    st = np.where(e <= 1.0, (depth * (1.0 - e * 0.75)).astype(int), 0)
+    region = img[y:y + h, x:x + w]
+    lim = (200 - st[:region.shape[0], :region.shape[1]]).astype(np.uint8)
+    np.minimum(region, lim, out=region)
+
+
+def auto_pair_frames(kind):
+    """Two fish in 256^2. ``x_crossing``: two fish of 10x6 px approach
+    on one row and step past each other to mirrored places above and
+    below it, so that both assignments of frame 10 are worth the same
+    and the auction defers it. ``merge``: two graded fish of different
+    shape merge at frame 11 and stay one blob, which the card splits."""
+    frames = []
+    for f in range(24 if kind == "x_crossing" else 40):
+        img = np.full((256, 256), 200, np.uint8)
+        if kind == "x_crossing":
+            k = f - 10
+            pos = [(100 + 2 * f, 100), (151 - 2 * f, 100)] if k < 0 \
+                else [(125 + 2 * k, 92), (125 - 2 * k, 107)]
+            for x, y in pos:
+                img[y:y + 6, x:x + 10] = 80
+        else:
+            graded_stamp(img, 121 - max(0, 12 - f), 100)
+            graded_stamp(img, 129 + max(0, 12 - f), 102, w=13, depth=100)
+        frames.append(img)
+    return np.full((256, 256), 200, np.uint8), np.stack(frames)
+
+
+def launches_by_range(fn, ranges):
+    """Run `fn()` under torch.profiler; returns (its result, the CUDA
+    kernels it launched, {range: kernels launched inside that
+    torch.profiler.record_function range}). The counts are None when the
+    profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync()
+    total = 0
+    per = dict.fromkeys(ranges, 0)
+    for e in prof.events():
+        # a range's own span on the device timeline is no launch
+        k = sum(kk.name not in per for kk in e.kernels)
+        if not k:
+            continue
+        total += k
+        p = e.cpu_parent
+        while p is not None and p.name not in per:
+            p = p.cpu_parent
+        if p is not None:
+            per[p.name] += k
+    if not total:
+        return out, None, dict.fromkeys(ranges)
+    return out, total, per
+
+
 def pair_frames(kind):
     """Two fish of 10x6 px in 256^2 (``tests/test_torch_engine.py``'s
     scenes): ``merge_heavy`` crosses once over 60 frames, ``assist_storm``
@@ -814,6 +898,175 @@ def phase_device_tracker(dev, report, bg, frames, hist):
           f"on {', '.join(agree)}", flush=True)
 
 
+def phase_auto_split(dev, report, bg, frames, dt_frames=32):
+    """The product-default configuration on the chunk of phase 4, and the
+    first `dt_frames` frames of it through DeviceTracker (32: over all 64
+    frames the assists relaunch the scan over 630 frames, 29 s on one
+    H100)."""
+    import torch
+
+    from trex_tpu_torch.ops.device_tracker import (
+        AUCTION_RANGE, SPLIT_RANGE, _detect_kwargs, default_split_spec,
+        frame_times, fused_scan_packed, make_aux, params_from_settings,
+        track_video_device, unpack_result)
+    from trex_tpu_torch.track.device_engine import DeviceTracker
+
+    settings = auto_settings()
+    spec = default_split_spec(settings)
+    T = frames.shape[0]
+    fr = torch.as_tensor(frames, device=dev)
+    bgt = torch.as_tensor(bg, device=dev)
+    track_video_device(fr[:4], bgt, settings, device=dev, **TRACK_CAPS)
+    sync()
+    t0 = time.perf_counter()
+    hist = track_video_device(fr, bgt, settings, device=dev, **TRACK_CAPS)
+    sync()
+    scan_s = time.perf_counter() - t0
+    stats = []
+    again = track_video_device(fr, bgt, settings, device=dev, stats=stats,
+                               **TRACK_CAPS)
+    for k in ("fish_row", "fish_seen", "needs_host", "fish_x"):
+        check(torch.equal(hist[k], again[k]),
+              f"auto-split track_video_device {k} differs between runs")
+    check(not bool(hist["detect_overflow"].any()), "detect overflow")
+    n_fish = int(hist["n_fish"])
+    check(0 < n_fish <= N_FISH, f"n_fish {n_fish}")
+    for k in ("fish_x", "fish_y", "fish_prob", "carry_vec"):
+        check(bool(torch.isfinite(hist[k]).all()), f"non-finite {k}")
+    flagged = (hist["needs_host"] | hist["detect_overflow"]).cpu().numpy()
+    rounds = [int(st["rounds"]) for st in stats]
+    n_split = [int(st["n_split"]) for st in stats]
+    check(sum(n_split) > 0, "the 256-fish chunk split no blob")
+    # launches a frame, in all and in the auction and the split, over 16
+    # frames from the middle of the chunk (the profiler's own cost grows
+    # with the events it records): one fused launch from frame 23's carry
+    P = params_from_settings(settings)
+    w0, w1 = 24, 40
+    aux = make_aux(hist["carry_vec"][w0 - 1].cpu().numpy(),
+                   frame_times(T, 25.0)[w0:w1], np.arange(w0, w1))
+    packed, launches, by_part = launches_by_range(
+        lambda: fused_scan_packed(fr[w0:w1], bgt, aux, P, split_spec=spec,
+                                  device=dev,
+                                  **_detect_kwargs(settings, TRACK_CAPS)),
+        (AUCTION_RANGE, SPLIT_RANGE))
+    window, _ = unpack_result(packed, w1 - w0, P)
+    check(np.array_equal(window["fish_row"],
+                         hist["fish_row"][w0:w1].cpu().numpy()),
+          "auto-split: the resumed window differs from the chunk")
+
+    # the product engine on the same chunk
+    dframes = frames[:dt_frames]
+    t0 = time.perf_counter()
+    tr = DeviceTracker(settings, bg, chunk=dt_frames, caps=TRACK_CAPS,
+                       device=dev).track_frames(dframes)
+    dt_s = time.perf_counter() - t0
+    check(sorted(tr.history) == list(range(dt_frames)),
+          "auto-split DeviceTracker left frames without a history entry")
+    first_flag = int(np.argmax(flagged[:dt_frames])) \
+        if flagged[:dt_frames].any() else dt_frames
+    check(tr.assist_frames[:1] == ([first_flag] if first_flag < dt_frames
+                                   else []),
+          "auto-split: the first assist is not the first flagged frame")
+    host, host_s = host_track(dframes, bg, settings)
+    differ = departures(host, tr, dt_frames)
+    replay_s = sum(tr.statistics[f].adding_seconds for f in tr.assist_frames)
+
+    # held to the host engine: a sparse full-size chunk, the crossing
+    # whose auction defers, the merge that splits on the card
+    held = {}
+    sbg, sframes = synth_frames(64, n_fish=64, seed=0)
+    cases = [("sparse_64x1024_64", sbg, sframes, auto_settings(64), 64,
+              TRACK_CAPS)]
+    pair = auto_settings(2, track_size_filter=[[10, 90]])
+    for kind in ("x_crossing", "merge"):
+        cases.append((kind, *auto_pair_frames(kind),
+                      pair if kind == "x_crossing" else
+                      auto_settings(2, track_size_filter=[[10, 120]]),
+                      16, None))
+    for name, hbg, hframes, hs, chunk, caps in cases:
+        n = len(hframes)
+        st = []
+        h = track_video_device(hframes, hbg, hs, device=dev, stats=st,
+                               **(caps or {}))
+        auction_flags = [i for i, x in enumerate(st)
+                         if bool(x.get("auction_marginal", False))]
+        d = DeviceTracker(hs, hbg, chunk=chunk, caps=caps,
+                          device=dev).track_frames(hframes)
+        ref, _ = host_track(hframes, hbg, hs)
+        bad = departures(ref, d, n)
+        check(not bad, f"auto-split DeviceTracker departs from the host "
+              f"FastTracker on {name} at frames {bad[:5]}")
+        check(sorted(d.history) == list(range(n)) and d.n_fish == ref.n_fish,
+              f"{name}: history frames or n_fish differ from the host")
+        splits = sum(int(x["n_split"]) for x in st)
+        if name == "x_crossing":
+            check(auction_flags == [10] and 10 in d.assist_frames,
+                  f"x_crossing: auction flags {auction_flags}, assists "
+                  f"{d.assist_frames}; the auction must defer frame 10 "
+                  "to the replay")
+        if name == "merge":
+            check(splits > 0 and d.assist_frames == []
+                  and not bool(h["needs_host"].any()),
+                  f"merge: {splits} splits, assists {d.assist_frames}; "
+                  "the merged blob must split on the card with no assist")
+        held[name] = dict(frames=n, n_fish=d.n_fish,
+                          assists=d.assist_frames, splits=splits,
+                          auction_flags=auction_flags)
+
+    # a small chunk: the card against the port's CPU path
+    sbg, sframes = synth_frames(16, n_fish=24, size=192, seed=3)
+    small = auto_settings(24)
+    caps = dict(max_runs=1024, max_pixels=1 << 14, max_blobs=64,
+                max_child_runs=1024, max_children=64)
+    g = track_video_device(sframes, sbg, small, device=dev, **caps)
+    c = track_video_device(sframes, sbg, small, device="cpu", **caps)
+    for k in ("fish_row", "fish_seen", "fish_child", "needs_host",
+              "n_assigned", "n_fish", "fish_x", "fish_y"):
+        check(np.array_equal(g[k].cpu().numpy(), c[k].numpy()),
+              f"auto-split small chunk {k}: card != CPU")
+
+    report["auto_split"] = dict(
+        frames=T, size=SIZE, fish=N_FISH, n_fish=n_fish, scan_s=scan_s,
+        scan_fps=T / scan_s, flagged_frames=int(flagged.sum()),
+        flagged_share=float(flagged.mean()),
+        auction_rounds_median=statistics.median(rounds),
+        auction_rounds_max=max(rounds),
+        auction_cap_hits=sum(bool(x["cap_hit"]) for x in stats),
+        split_targets_median=statistics.median(n_split),
+        split_targets_max=max(n_split), split_lanes=spec.max_splits,
+        frames_over_split_lanes=sum(v > spec.max_splits for v in n_split),
+        launch_window=[w0, w1],
+        launches_per_frame=None if launches is None
+        else launches / (w1 - w0),
+        auction_launches_per_frame=None if launches is None
+        else by_part[AUCTION_RANGE] / (w1 - w0),
+        split_launches_per_frame=None if launches is None
+        else by_part[SPLIT_RANGE] / (w1 - w0),
+        device_tracker=dict(
+            frames=dt_frames, s=dt_s, fps=dt_frames / dt_s,
+            assist_frames=tr.assist_frames,
+            frames_scanned=tr.frames_scanned, scan_s=tr.scan_seconds,
+            replay_s=replay_s, demoted=tr.demoted, n_fish=tr.n_fish,
+            host_fast_tracker_s=host_s, host_fps=dt_frames / host_s,
+            frames_differing_from_host=differ),
+        equal_to_host=held)
+    r = report["auto_split"]
+    print(f"phase 6 ok: auto-split scan {r['scan_fps']:.1f} frames/s, "
+          f"{r['flagged_frames']}/{T} flagged, auction rounds median "
+          f"{r['auction_rounds_median']} max {r['auction_rounds_max']} "
+          f"({r['auction_cap_hits']} at the cap), split targets median "
+          f"{r['split_targets_median']} max {r['split_targets_max']} "
+          f"({r['frames_over_split_lanes']} frames over "
+          f"{spec.max_splits} lanes), {r['launches_per_frame']} launches "
+          f"a frame ({r['auction_launches_per_frame']} auction, "
+          f"{r['split_launches_per_frame']} split); DeviceTracker "
+          f"{dt_frames / dt_s:.1f} frames/s, "
+          f"{len(tr.assist_frames)} assists, {tr.frames_scanned} frames "
+          f"scanned, replay {replay_s:.3f} s, {len(differ)} frames depart "
+          f"from the host FastTracker; equal to the host engine on "
+          f"{', '.join(held)}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the report as JSON here")
@@ -839,6 +1092,7 @@ def main():
     phase_label(dev, report, kern)
     chunk = phase_track(dev, report)
     phase_device_tracker(dev, report, *chunk)
+    phase_auto_split(dev, report, *chunk[:2])
     report["total_s"] = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -854,8 +1108,8 @@ def main():
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
     print(json.dumps({k: report[k] for k in (
-        "detect", "label", "track", "device_tracker", "build_s",
-        "total_s")}))
+        "detect", "label", "track", "device_tracker", "auto_split",
+        "build_s", "total_s")}))
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

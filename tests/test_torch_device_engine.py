@@ -22,8 +22,9 @@ from trex_tpu_torch.track.device_engine import (DeviceTracker,
                                                 export_positions,
                                                 positions_of)
 
-from test_torch_engine import (SCENES, as_dict, assert_history_equal,
-                               detect_kwargs)
+from test_torch_engine import (SCENES, as_dict,  # noqa: F401
+                               assert_history_equal, detect_kwargs,
+                               one_torch_thread)
 
 # assists and demotion of the JAX twin on the CPU, the same through both
 # ingestion paths

@@ -11,7 +11,8 @@ from trex_tpu_torch.track.device_engine import DeviceTracker
 from trex_tpu_torch.track.engine import EngineUnsupported
 
 from test_torch_device_engine import check_expected, compare_engines
-from test_torch_engine import SCENES, as_dict, settings
+from test_torch_engine import (SCENES, as_dict, one_torch_thread,  # noqa: F401
+                               settings)
 
 
 @pytest.mark.parametrize("name", list(SCENES))
@@ -48,8 +49,8 @@ def test_track_frames_resumes_across_calls():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("match_mode", "hungarian"),
-    ("track_do_history_split", True),
+    ("match_mode", "benchmark"),
+    ("track_ignore", [[[0, 0], [4, 0], [4, 4]]]),
     ("calculate_posture", True),
     ("track_speed_decay", 0.5),
 ])

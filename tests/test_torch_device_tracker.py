@@ -222,8 +222,7 @@ def test_resume_from_jax_carry():
 
 @pytest.mark.parametrize("key,value", [
     ("track_speed_decay", 0.8),
-    ("track_do_history_split", True),
-    ("match_mode", "automatic"),
+    ("track_speed_decay", 0.0),
     ("calculate_posture", True),
 ])
 def test_later_slice_configs_raise(key, value):

@@ -23,6 +23,20 @@ from trex_tpu_torch.ops.labeling import label_blobs
 TOL = 1e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread per test process while a port module runs: the
+    workers of a parallel run share the cores, and the port's CPU ops on
+    these small scenes gain nothing from more threads, which would only
+    spin against the other workers'."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def settings(n_fish, **over):
     """The JAX package's settings of tests/test_device_engine.py in the
     base configuration, with overrides."""
@@ -227,8 +241,8 @@ def test_start_frame_split_creates_both_fish():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("match_mode", "automatic"),
-    ("track_do_history_split", True),
+    ("match_mode", "benchmark"),
+    ("track_threshold_2", 30),
     ("calculate_posture", True),
     ("track_speed_decay", 0.7),
     ("manual_matches", {0: {0: 1}}),

@@ -57,21 +57,44 @@ def test_no_jax_import_lines():
 def test_entry_points_need_cuda_unless_cpu_asked():
     from trex_tpu_torch import resolve_device
     from trex_tpu_torch.ops.device_pipeline import detect_batch
-    from trex_tpu_torch.ops.device_tracker import track_video_device
+    from trex_tpu_torch.ops.device_tracker import (
+        _carry_to_vec, _detect_kwargs, _init_carry, default_split_spec,
+        fused_scan_packed, make_aux, params_from_settings, scan_packed,
+        track_video_device)
     from trex_tpu_torch.track.device_engine import DeviceTracker
 
     if torch.cuda.is_available():
         pytest.skip("CUDA present: the default device is valid")
     assert resolve_device("cpu") == torch.device("cpu")
     frames = np.full((1, 16, 16), 200, np.uint8)
-    settings = dict(match_mode="approximate", track_do_history_split=False,
-                    calculate_posture=False, track_max_individuals=2)
-    for call in (lambda: resolve_device(),
-                 lambda: detect_batch(frames, frames[0], threshold=15),
-                 lambda: track_video_device(frames, frames[0], settings),
-                 lambda: DeviceTracker(settings, frames[0])):
+    base = dict(match_mode="approximate", track_do_history_split=False,
+                calculate_posture=False, track_max_individuals=2)
+    # the product default: optimal matching and the history split
+    auto = dict(base, match_mode="automatic", track_do_history_split=True,
+                track_max_speed=300, frame_rate=25, cm_per_pixel=1.0,
+                track_threshold=20, track_background_subtraction=True)
+    P = params_from_settings(auto)
+    aux = make_aux(_carry_to_vec(_init_carry(P, device="cpu")).numpy(),
+                   [0.0], [0])
+    kw = _detect_kwargs(auto, {})
+    calls = [lambda: resolve_device(),
+             lambda: detect_batch(frames, frames[0], threshold=15)]
+    for s in (base, auto):
+        calls += [lambda s=s: track_video_device(frames, frames[0], s),
+                  lambda s=s: DeviceTracker(s, frames[0])]
+    calls += [lambda: scan_packed(np.zeros((1, 6)), aux, P, 1),
+              lambda: fused_scan_packed(frames, frames[0], aux, P,
+                                        split_spec=default_split_spec(auto),
+                                        **kw)]
+    for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+    # the same calls run when the CPU is asked for
+    scan_packed(np.zeros((1, 6)), aux, P, 1, device="cpu")
+    fused_scan_packed(frames, frames[0], aux, P,
+                      split_spec=default_split_spec(auto), device="cpu",
+                      **kw)
+    DeviceTracker(auto, frames[0], device="cpu").track_frames(frames)
 
 
 def test_stencil_on_other_devices_raises():
@@ -109,7 +132,8 @@ def test_package_lists_every_module():
                                                   "trex_tpu_torch.")}
     for name in ("device", "convert", "kernels", "config.defaults",
                  "ops.cc_device", "ops.device_pipeline", "ops.runcc",
-                 "ops.device_match", "ops.device_tracker", "ops.labeling",
+                 "ops.device_match", "ops.device_split",
+                 "ops.device_tracker", "ops.labeling",
                  "track.blob", "track.prefilter", "track.splitting",
                  "track.matching", "track.tracker", "track.engine",
                  "track.device_engine"):

@@ -189,6 +189,7 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     src = tmp_path / "native"
     src.mkdir()
     (src / "labeling.cpp").write_text("int broken(;\n")
+    (src / "tracker_core.cpp").write_text("")
     (src / "simd_clones.h").write_text("")
     monkeypatch.setattr(TL, "NATIVE", src)
     monkeypatch.setattr(TL, "BUILD_DIR", tmp_path / "build")

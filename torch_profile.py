@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's main path on one CUDA card.
 
-    python3 torch_profile.py [--out profile.json]
+    python3 torch_profile.py [--out profile.json] [--only NAME ...]
 
 Profiles, with ``torch.profiler`` over a warm call each, the entry points
 that ``chip_smoke.py`` drives at the same sizes: pixel-grid detection
@@ -9,7 +9,11 @@ that ``chip_smoke.py`` drives at the same sizes: pixel-grid detection
 propagation labelling of its masks (``label_components(use_pallas=True)``),
 the run-based detection alone, the tracking chunk
 (``track_video_device``, 64 frames of 1024^2, 256 fish) and the product
-engine over the same chunk (``DeviceTracker.track_frames``). For each it
+engine over the same chunk (``DeviceTracker.track_frames``), both in the
+base configuration and in the product default (``auto``: the optimal
+matcher and the history split on the card; the product engine over the
+chunk's first 32 frames, as ``chip_smoke.py`` phase 6 runs it).
+``--only`` profiles the named targets alone. For each it
 prints the host wall time, the summed device time of the kernels and the
 device's idle share over the call, the kernels with the most device time,
 the PyTorch operators that launched most of it, and the port's own CUDA
@@ -41,8 +45,14 @@ def profile_call(fn, top=12) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    from trex_tpu_torch.ops.device_tracker import AUCTION_RANGE, SPLIT_RANGE
+
+    names = (AUCTION_RANGE, SPLIT_RANGE)
     rows = prof.key_averages()
-    kern = [e for e in rows if e.device_type == DeviceType.CUDA]
+    # record_function ranges also show on the device timeline as spans,
+    # which are no kernels
+    kern = [e for e in rows if e.device_type == DeviceType.CUDA
+            and e.key not in names]
     ops = [e for e in rows if e.device_type == DeviceType.CPU
            and e.key.startswith("aten::") and smoke.device_us(e) > 0]
     device_us = sum(smoke.device_us(e) for e in kern)
@@ -52,7 +62,22 @@ def profile_call(fn, top=12) -> dict:
     def by(es):
         return sorted(es, key=smoke.device_us, reverse=True)[:top]
 
+    # launches and device time inside the scan's record_function ranges
+    # (the auction, the history split)
+    ranges = {r: {"launches": 0, "device_ms": 0.0} for r in names}
+    for e in prof.events():
+        ks = [k for k in e.kernels if k.name not in ranges]
+        if not ks:
+            continue
+        p = e.cpu_parent
+        while p is not None and p.name not in ranges:
+            p = p.cpu_parent
+        if p is not None:
+            ranges[p.name]["launches"] += len(ks)
+            ranges[p.name]["device_ms"] += sum(k.duration for k in ks) / 1e3
+
     return {
+        "ranges": ranges,
         "wall_ms": wall_us / 1e3,
         "device_ms": device_us / 1e3,
         "idle_share": (1.0 - device_us / wall_us) if device_us else None,
@@ -70,6 +95,7 @@ def profile_call(fn, top=12) -> dict:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the report as JSON here")
+    ap.add_argument("--only", nargs="+", help="profile these targets only")
     args = ap.parse_args()
 
     import torch
@@ -91,24 +117,30 @@ def main():
     settings = smoke.track_settings()
     kw = dict(threshold=15, absolute=False, track_threshold=20,
               max_blobs=256)
-    report = {}
-    report["detect_batch_pallas_32"] = profile_call(
-        lambda: detect_batch(fr[:32], bgt, use_pallas=True, device=dev,
-                             **kw))
     mask = ((bgt.to(torch.int16)[None] - fr[:32].to(torch.int16)) >= 15) \
         & (fr[:32] > 0)
-    report["label_components_pallas_32"] = profile_call(
-        lambda: label_components(mask, use_pallas=True))
-    report["detect_batch_runs_64"] = profile_call(
-        lambda: detect_batch_runs(
+    auto = smoke.auto_settings()
+    targets = {
+        "detect_batch_pallas_32": lambda: detect_batch(
+            fr[:32], bgt, use_pallas=True, device=dev, **kw),
+        "label_components_pallas_32": lambda: label_components(
+            mask, use_pallas=True),
+        "detect_batch_runs_64": lambda: detect_batch_runs(
             fr, bgt, device=dev,
-            **_detect_kwargs(settings, smoke.TRACK_CAPS)))
-    report["track_video_device_64"] = profile_call(
-        lambda: track_video_device(fr, bgt, settings, device=dev,
-                                   **smoke.TRACK_CAPS))
-    report["device_tracker_64"] = profile_call(
-        lambda: DeviceTracker(settings, bg, chunk=64, caps=smoke.TRACK_CAPS,
-                              device=dev).track_frames(frames))
+            **_detect_kwargs(settings, smoke.TRACK_CAPS)),
+        "track_video_device_64": lambda: track_video_device(
+            fr, bgt, settings, device=dev, **smoke.TRACK_CAPS),
+        "device_tracker_64": lambda: DeviceTracker(
+            settings, bg, chunk=64, caps=smoke.TRACK_CAPS,
+            device=dev).track_frames(frames),
+        "track_video_device_auto_64": lambda: track_video_device(
+            fr, bgt, auto, device=dev, **smoke.TRACK_CAPS),
+        "device_tracker_auto_32": lambda: DeviceTracker(
+            auto, bg, chunk=32, caps=smoke.TRACK_CAPS,
+            device=dev).track_frames(frames[:32]),
+    }
+    report = {name: profile_call(fn) for name, fn in targets.items()
+              if not args.only or name in args.only}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -121,6 +153,10 @@ def main():
               f"{r['device_ms']:.2f} ms, idle share "
               f"{'not measured' if share is None else f'{share:.3f}'}, "
               f"{r['launches']} kernel launches")
+        for rng, v in r["ranges"].items():
+            if v["launches"]:
+                print(f"    {v['device_ms']:9.3f} ms  x{v['launches']:<6} "
+                      f"range {rng}")
         for k in r["ops"][:8]:
             print(f"    {k['ms']:9.3f} ms  x{k['count']:<6} {k['name']}")
         for k in r["port_kernels"]:

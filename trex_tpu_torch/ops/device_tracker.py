@@ -1,12 +1,13 @@
-"""Device-resident tracking loop, base configuration (PyTorch).
+"""Device-resident tracking loop (PyTorch).
 
-Counterpart of ``trex_tpu/ops/device_tracker.py`` for the configuration
-``match_mode=approximate`` with no history split, no posture and no
-speed decay. The per-frame tracking recurrence runs over a chunk of
-detected frames with the tracker state as carry; the result layout
-(packed carry vectors, packed per-frame result) is byte-identical to
-the reference's, so a chunk can be resumed in either package from the
-other's carry.
+Counterpart of ``trex_tpu/ops/device_tracker.py`` for every match mode
+the engines accept (``approximate``, and the optimal ``automatic``,
+``hungarian`` and ``tree``) with or without the history split, at
+``track_speed_decay`` 1 and without posture. The per-frame tracking
+recurrence runs over a chunk of detected frames with the tracker state
+as carry; the result layout (packed carry vectors, packed per-frame
+result) is byte-identical to the reference's, so a chunk can be resumed
+in either package from the other's carry.
 
 Per frame (the reference's ``_scan_impl`` step):
 
@@ -14,20 +15,30 @@ Per frame (the reference's ``_scan_impl`` step):
   ``frame_rate`` frames, size filter on the track-threshold recount;
 - probability: p = tprob / (1 + d/global_td * cm/max_speed)^2 against
   blob bbox centres, distances measured from the last positions;
+- history split (``track_do_history_split``): with a SplitSpec and the
+  frame pixels (the fused path) the exact expectation
+  (``ops/device_split.py``) picks the blobs the host would split, the
+  threshold-escalation executor splits them from the pixels and the
+  pieces replace their parents at the parent's table position; without
+  them (host-built tables), a frame where >= 2 recent fish lie within
+  the split radius of one blob's runs is flagged;
 - first pass: greedy per blob in index order, highest-p unused active
-  fish, p > p_min (:func:`_greedy_pass`);
+  fish, p > p_min (:func:`_greedy_pass`), or for the optimal modes the
+  auction with its certificate (``ops/device_match.py``);
 - second pass: reactivation of inactive fish against blob centroids,
   then new-fish creation in blob order while under max_fish;
 - ``needs_host``: float32 decisions that could fall the other way in
-  the host's float64 (deferral bands), size-filter knife edges,
-  oversized blobs and the trusted-probability cut.
+  the host's float64 (deferral bands, uncertified auctions, marginal
+  split decisions), size-filter knife edges, oversized blobs (with the
+  split on the card only at the start frame), split capacity overflows
+  and the trusted-probability cut.
 
-The frame loop is a Python loop and the greedy pass syncs with the host
-once per round: correct and slow. Capturing a chunk in a CUDA graph or
-a persistent kernel is later work.
+The frame loop is a Python loop, and the greedy pass, the auction and
+the split executor sync with the host every few rounds: correct and
+slow. Capturing a chunk in a CUDA graph or a persistent kernel is later
+work.
 
-Configurations left to later slices (speed decay, history split,
-optimal matching, posture) raise NotImplementedError.
+Speed decay and posture raise NotImplementedError until their slices.
 """
 from __future__ import annotations
 
@@ -35,10 +46,14 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..config import SettingsView
 from ..device import resolve_device
-from .device_match import edge_boundary_marginal
+from .device_match import (GAP_GUARD, TIE_GUARD, auction_match,
+                           edge_boundary_marginal)
+from .device_split import (SplitSpec, _hypot, expectation_counts,
+                           spec_from_settings, split_execute_device)
 from .runcc import I32_MAX, detect_batch_runs
 
 _F32 = torch.float32
@@ -74,23 +89,22 @@ class TrackParams(NamedTuple):
 # f32 machine epsilon: unit for the f32-arithmetic error bounds that
 # widen the matching passes' deferral bands
 EPS32 = float(2.0 ** -23)
+# torch.profiler ranges of the frame step's optimal matcher and history
+# split, for launch counts by part
+AUCTION_RANGE = "trex.auction_match"
+SPLIT_RANGE = "trex.history_split"
 
 
 def _require_base(P: TrackParams) -> None:
-    """Raise for the configurations this slice of the port lacks."""
+    """Raise for the configurations the port does not track yet."""
     missing = []
     if P.do_decay:
         missing.append("track_speed_decay < 1 (decay slice)")
-    if P.do_history_split and P.split_radius > 0:
-        missing.append("track_do_history_split (device_split slice)")
-    if P.match_optimal:
-        missing.append("match_mode other than approximate "
-                       "(device_match slice)")
     if P.do_posture:
         missing.append("calculate_posture (device_posture slice)")
     if missing:
         raise NotImplementedError(
-            "trex_tpu_torch tracks only the base configuration so far; "
+            "trex_tpu_torch does not track this configuration yet; "
             "ported in a later slice: " + ", ".join(missing))
 
 
@@ -162,19 +176,6 @@ def _init_carry(P: TrackParams, start_frame=0, t0=0.0,
         prev_time=torch.as_tensor(t0, device=dev).to(_F32))
 
 
-def _hypot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The reference's hypot: hi * sqrt(1 + (lo/hi)^2) with |hi| >= |lo|
-    (``torch.hypot`` rounds differently)."""
-    a = a.abs()
-    b = b.abs()
-    is_inf = torch.isposinf(a) | torch.isposinf(b)
-    hi = torch.maximum(a, b)
-    lo = torch.minimum(a, b)
-    r = lo / torch.where(hi == 0, torch.ones_like(hi), hi)
-    x = torch.where(hi == 0, hi, hi * torch.sqrt(1 + r * r))
-    return torch.where(is_inf, torch.full_like(x, float("inf")), x)
-
-
 def _greedy_pass(Pmat, valid_b, taken_f, fish_of_blob, threshold):
     """Per-blob greedy: highest-probability unused fish, first-max
     (= lowest fish id) tie-break, blobs in index order.
@@ -210,9 +211,96 @@ def _greedy_pass(Pmat, valid_b, taken_f, fish_of_blob, threshold):
             return taken, fob
 
 
+def _split_on_card(carry, has, est_x, est_y, cx, cy, bcx, bcy, rec, bvalid,
+                   size, in_range, frame, at_start, runs, bbox, frame_img,
+                   background, S: SplitSpec, P: TrackParams):
+    """The exact history split of one frame on the card (the host's
+    _apply_history_split with _rebuild_with_splits): the expectation
+    picks the blobs the host would split, the executor splits them from
+    the frame's pixels, and the pieces replace their parents at the
+    parent's table position. Returns the rebuilt table (cx, cy, bcx,
+    bcy, rec, bvalid; width B + max_splits * max_pieces), the
+    permutation from it to the concatenated [table, pieces] rows, the
+    number of split rows, and the frame's needs_host contribution."""
+    B = cx.shape[0]
+    dev = cx.device
+    ry, rx0, rx1, rslot = runs
+    bx0i, by0i, bx1i, by1i = bbox
+    recent = has & (carry["last_frame"].to(_F32)
+                    >= frame - P.frame_rate * P.t_max)
+    # the host's candidate table drops `small` rows before its
+    # expectation (keep = in any range | big); for <= 1 range that is
+    # size >= lo
+    exp_ok = bvalid
+    if P.has_size_filter:
+        if len(P.size_ranges) <= 1:
+            exp_ok = exp_ok & (size >= P.size_min)
+        else:
+            exp_ok = exp_ok & (in_range | (size > P.size_max))
+    expect, marg = expectation_counts(
+        est_x, est_y, recent, ry, rx0, rx1, rslot,
+        bx0i.to(_F32), by0i.to(_F32), bx1i.to(_F32), by1i.to(_F32),
+        exp_ok, torch.tensor(P.split_radius, dtype=_F32, device=dev), B)
+    split_rows = (expect >= 2) & exp_ok & ~at_start
+    n_split = split_rows.sum(dtype=_I32)
+    too_big = split_rows & ((bx1i - bx0i + 3 > S.crop_w)
+                            | (by1i - by0i + 3 > S.crop_h))
+    needs_host = (marg & ~at_start) | too_big.any()
+    bidx = torch.arange(B, dtype=_I32, device=dev)
+    order = torch.argsort(torch.where(split_rows, bidx, B), stable=True)
+    MP = S.max_pieces
+    SM = min(S.max_splits, B)
+    needs_host = needs_host | (n_split > SM)
+    tgts = order[:SM].to(_I32)
+    rows_v = torch.zeros((SM, MP, 7), dtype=_F32, device=dev)
+    np_v = torch.zeros(SM, dtype=_I32, device=dev)
+    n_live = min(int(n_split), SM) if S.enabled else 0
+    if n_live:
+        # only the live lanes run: the reference's other lanes are
+        # masked out of every output (their piece counts and marginal
+        # flags), so their values never reach a valid row
+        t = tgts[:n_live]
+        r, n_out, m = split_execute_device(
+            frame_img, background, t, bx0i[t.long()], by0i[t.long()], ry,
+            rx0, rx1, rslot, expect[t.long()], S)
+        rows_v[:n_live] = r
+        np_v[:n_live] = n_out
+        needs_host = needs_host | m.any()
+    # without a split algorithm the parents drop with no pieces, like
+    # the host engine's _split_native returning []
+    pr = rows_v.reshape(SM * MP, 7)
+    pn = pr[:, 0]
+    psafe = torch.clamp_min(pn, 1.0)
+    k = torch.arange(MP, device=dev)[None, :]
+    live = k < np_v[:, None]
+    # a fractional sort key keeps the pieces in order at the parent's
+    # place (engine._rebuild_with_splits)
+    p_keys = torch.where(
+        live, tgts[:, None].to(_F32)
+        + (k + 1).to(_F32) / (np_v[:, None] + 2).to(_F32), float("inf"))
+    keys = torch.cat([torch.where(bvalid & ~split_rows, bidx.to(_F32),
+                                  float("inf")), p_keys.reshape(-1)])
+    perm = torch.argsort(keys, stable=True)
+    cx = torch.cat([cx, pr[:, 5] / psafe])[perm]
+    cy = torch.cat([cy, pr[:, 6] / psafe])[perm]
+    bcx = torch.cat([bcx, (pr[:, 1] + pr[:, 3] + 1) * 0.5])[perm]
+    bcy = torch.cat([bcy, (pr[:, 2] + pr[:, 4] + 1) * 0.5])[perm]
+    rec = torch.cat([rec, pn])[perm]
+    bvalid = torch.cat([bvalid & ~split_rows, live.reshape(-1)])[perm]
+    return cx, cy, bcx, bcy, rec, bvalid, perm, n_split, needs_host
+
+
 def _step(carry: dict, cx, cy, bcx, bcy, rec, bvalid, time, frame,
-          flag_size, P: TrackParams, t_max_t, min_frames_t):
-    """One frame of the tracking recurrence -> (new carry, outputs)."""
+          flag_size, P: TrackParams, t_max_t, min_frames_t, runs=None,
+          bbox=None, frame_img=None, background=None, split_spec=None,
+          stats=None):
+    """One frame of the tracking recurrence -> (new carry, outputs).
+
+    runs: the frame's track-mask run tables (y, x0, x1, slot) or None;
+    with `bbox` (x0, y0, x1, y1 int32), the frame's pixels and a
+    `split_spec`, history splits run on the card. `stats`, when given,
+    receives the frame's auction rounds, whether the auction deferred,
+    its split targets and whether the split deferred."""
     sq = P.cm_per_pixel * P.cm_per_pixel
     cms = P.cm_per_pixel / P.max_speed
     t_delta_frame = 1.0 / P.frame_rate
@@ -231,10 +319,33 @@ def _step(carry: dict, cx, cy, bcx, bcy, rec, bvalid, time, frame,
     size = rec * sq
     in_range = _in_size_ranges(size, P.size_ranges, P.size_min,
                                P.size_max)
+    at_start = frame == start_frame
+    use_split = split_spec is not None
     needs_host = (bvalid & (size > P.size_max)).any()
+    if use_split:
+        # oversized rows split (or drop) as on the host; only the start
+        # frame's big-blob split needs the host
+        needs_host = needs_host & at_start
     if flag_size.shape[0]:
         # `huge` parents never appear as child rows: escalate
         needs_host = needs_host | (flag_size * sq > P.size_max * 100).any()
+    perm = None
+    n_split = None
+    B0 = B
+    if use_split:
+        with record_function(SPLIT_RANGE):
+            (cx, cy, bcx, bcy, rec, bvalid, perm, n_split,
+             split_host) = _split_on_card(
+                carry, has, est_x, est_y, cx, cy, bcx, bcy, rec, bvalid,
+                size, in_range, frame, at_start, runs, bbox, frame_img,
+                background, split_spec, P)
+        needs_host = needs_host | split_host
+        if stats is not None:
+            stats["split_marginal"] = split_host
+        size = rec * sq
+        in_range = _in_size_ranges(size, P.size_ranges, P.size_min,
+                                   P.size_max)
+        B = cx.shape[0]
     bval = bvalid & in_range
     # size-filter knife edge: an f32 size within a few ulp of a bound
     # can sit on the other side of the cut in the host's f64
@@ -249,6 +360,31 @@ def _step(carry: dict, cx, cy, bcx, bcy, rec, bvalid, time, frame,
             if hi_b < float("inf"):
                 near_b = near_b | ((size - hi_b).abs() <= serr)
         needs_host = needs_host | (near_b & bvalid).any()
+
+    if not use_split and runs is not None and P.do_history_split \
+            and P.split_radius > 0:
+        # no split on the card: flag frames where >= 2 recent fish lie
+        # within the split radius of one blob's runs (a superset of the
+        # host expectation: exact point-to-run distances, no sampling,
+        # no clique resolution), for the host replay to split
+        ry, rx0, rx1, rslot = runs
+        recent = has & (carry["last_frame"].to(_F32)
+                        >= frame - P.frame_rate * P.t_max)
+        fx = est_x[:, None]
+        dxr = torch.minimum(torch.maximum(fx, rx0.to(_F32)[None, :]),
+                            rx1.to(_F32)[None, :]) - fx
+        dyr = ry.to(_F32)[None, :] - est_y[:, None]
+        d2 = dxr * dxr + dyr * dyr                        # (F, R)
+        slot = torch.clamp_max(rslot, B).long()
+        mind2 = torch.full((F, B + 1), float("inf"), dtype=_F32,
+                           device=dev).scatter_reduce_(
+            1, slot[None, :].expand_as(d2), d2, "amin")[:, :B]
+        # the radius widened by device_split.EPS_D keeps the trigger a
+        # superset of the host's float64 decision
+        r_eps = P.split_radius + 1e-3
+        near = (mind2 <= r_eps * r_eps) & recent[:, None]
+        contested = (near.sum(0) >= 2) & bvalid
+        needs_host = needs_host | (contested.any() & ~at_start)
 
     # time probability
     if P.time_prob_enabled:
@@ -296,15 +432,38 @@ def _step(carry: dict, cx, cy, bcx, bcy, rec, bvalid, time, frame,
         has & ((tdelta - P.t_max).abs() <= td_err)).any()
 
     fob = torch.full((B,), -1, dtype=_I32, device=dev)
-    _, fob = _greedy_pass(Pmat, bval, ~usable, fob, P.p_min)
-    # defer frames where the f32 p_min edge set or any per-blob ordering
-    # could differ from the host's f64 scan
-    cand = usable[:, None] & bval[None, :] & (Pmat > P.p_min - p_err)
-    col_err = torch.where(cand, p_err, 0.0).amax(0)
-    vals = torch.sort(torch.where(cand, Pmat, float("-inf")), 0).values
-    adj_tie = (vals[1:] - vals[:-1]) <= 2.0 * col_err[None, :]
-    needs_host = needs_host | (torch.isfinite(vals[:-1]) & adj_tie).any() \
-        | edge_boundary_marginal(Pmat, usable, bval, P.p_min, p_err)
+    if P.match_optimal:
+        # automatic/hungarian/tree: the optimal max-sum assignment (per-
+        # clique optima compose, so the auction solves the whole frame);
+        # near-ties and uncertified frames defer. An alternative the
+        # host's f64 values prefer shifts each edge by <= max p_err, so
+        # the tightness band widens by twice that
+        edge_ok = (Pmat > P.p_min) & usable[:, None] & bval[None, :]
+        pad = 2.0 * torch.where(edge_ok, p_err, 0.0).amax()
+        astats = {} if stats is not None else None
+        with record_function(AUCTION_RANGE):
+            fob, marg_m = auction_match(Pmat, edge_ok, gap_guard=GAP_GUARD,
+                                        tie_guard=TIE_GUARD + pad,
+                                        stats=astats)
+        needs_host = needs_host | marg_m | edge_boundary_marginal(
+            Pmat, usable, bval, P.p_min, p_err)
+        if stats is not None:
+            stats.update(rounds=astats["rounds"],
+                         cap_hit=astats["cap_hit"], auction_marginal=marg_m)
+    else:
+        _, fob = _greedy_pass(Pmat, bval, ~usable, fob, P.p_min)
+        # defer frames where the f32 p_min edge set or any per-blob
+        # ordering could differ from the host's f64 scan
+        cand = usable[:, None] & bval[None, :] & (Pmat > P.p_min - p_err)
+        col_err = torch.where(cand, p_err, 0.0).amax(0)
+        vals = torch.sort(torch.where(cand, Pmat, float("-inf")),
+                          0).values
+        adj_tie = (vals[1:] - vals[:-1]) <= 2.0 * col_err[None, :]
+        needs_host = needs_host \
+            | (torch.isfinite(vals[:-1]) & adj_tie).any() \
+            | edge_boundary_marginal(Pmat, usable, bval, P.p_min, p_err)
+    if stats is not None:
+        stats["n_split"] = n_split
     n_first = (fob >= 0).sum(dtype=_I32)
     first_fob = fob
 
@@ -357,10 +516,14 @@ def _step(carry: dict, cx, cy, bcx, bcy, rec, bvalid, time, frame,
     got = torch.zeros(F + 1, dtype=torch.bool, device=dev) \
         .scatter_(0, fish_idx, assigned)[:F]
     bi = torch.arange(B, dtype=_I32, device=dev)
+    # the row of the assigned blob in the detection table; with splits
+    # on the card rows index the permuted table, whose pieces (index >=
+    # the table's width) have no row there
+    orig_of_b = bi if perm is None else perm.to(_I32)
     fish_row = torch.full((F + 1,), -1, dtype=_I32, device=dev).scatter_(
-        0, fish_idx, torch.where(assigned, bi, -1))[:F]
-    # the base path has no split children
-    fish_child = torch.zeros(F, dtype=torch.bool, device=dev)
+        0, fish_idx, torch.where(assigned, orig_of_b, -1))[:F]
+    fish_child = torch.zeros(F + 1, dtype=torch.bool, device=dev) \
+        .scatter_(0, fish_idx, assigned & (orig_of_b >= B0))[:F]
     # assigned first-pass probability per fish (-1 for reactivations and
     # creations)
     first = first_fob >= 0
@@ -394,12 +557,22 @@ def _step(carry: dict, cx, cy, bcx, bcy, rec, bvalid, time, frame,
 
 
 def _scan_impl(det: dict, times: torch.Tensor, frames_idx: torch.Tensor,
-               P: TrackParams, carry0: dict) -> tuple[dict, dict]:
+               P: TrackParams, carry0: dict, frames=None, background=None,
+               split_spec: SplitSpec = None,
+               stats: list = None) -> tuple[dict, dict]:
     """Run the tracking recurrence over detected frames.
 
     det: stacked per-frame blob tables, (T, B) tensors "cx", "cy"
     (centroids), "bcx", "bcy" (bbox centres), "recount" (track-threshold
-    pixel count), "valid", and optionally "flag_size" (T, Bp).
+    pixel count), "valid", optionally "flag_size" (T, Bp), the (T, R)
+    track-mask run tables "runs_y", "runs_x0", "runs_x1", "runs_slot"
+    (slot = table row, B for padding) and the (T, B) int bboxes "bx0",
+    "by0", "bx1", "by1".
+
+    With `frames`/`background` (the chunk's pixels on the card) and a
+    `split_spec`, history splits run on the card; without them a
+    contested frame is flagged for the host. `stats`, when given, gets
+    one dict per frame (auction rounds, split targets).
 
     Returns (per-frame history, final carry): fish_x/fish_y/fish_seen/
     fish_row/fish_child/fish_prob (T, F), n_assigned (T,), needs_host
@@ -410,6 +583,13 @@ def _scan_impl(det: dict, times: torch.Tensor, frames_idx: torch.Tensor,
     flag = det.get("flag_size")
     if flag is None:
         flag = torch.zeros((T, 0), dtype=_F32, device=dev)
+    has_runs = "runs_slot" in det
+    use_split = (split_spec is not None and P.do_history_split
+                 and P.split_radius > 0 and has_runs
+                 and frames is not None and "bx0" in det)
+    if use_split:
+        frames = torch.as_tensor(frames, device=dev)
+        background = torch.as_tensor(background, device=dev)
     # divisors as device tensors: a CUDA division by a host scalar
     # multiplies by its reciprocal, which rounds differently
     t_max_t = torch.tensor(P.t_max, dtype=_F32, device=dev)
@@ -418,10 +598,22 @@ def _scan_impl(det: dict, times: torch.Tensor, frames_idx: torch.Tensor,
     carry = carry0
     outs = []
     for t in range(T):
+        kw = {}
+        if has_runs:
+            kw["runs"] = tuple(det[k][t] for k in ("runs_y", "runs_x0",
+                                                   "runs_x1", "runs_slot"))
+        if use_split:
+            kw.update(bbox=tuple(det[k][t] for k in ("bx0", "by0", "bx1",
+                                                     "by1")),
+                      frame_img=frames[t], background=background,
+                      split_spec=split_spec)
+        if stats is not None:
+            stats.append({})
+            kw["stats"] = stats[-1]
         carry, out = _step(
             carry, det["cx"][t], det["cy"][t], det["bcx"][t],
             det["bcy"][t], det["recount"][t], det["valid"][t], times[t],
-            frames_idx[t], flag[t], P, t_max_t, min_frames_t)
+            frames_idx[t], flag[t], P, t_max_t, min_frames_t, **kw)
         outs.append(out)
     hist = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
     hist["n_fish"] = carry["n_fish"]
@@ -429,13 +621,15 @@ def _scan_impl(det: dict, times: torch.Tensor, frames_idx: torch.Tensor,
 
 
 def track_scan(det: dict, times, frames_idx, P: TrackParams,
-               carry0: dict = None) -> dict:
+               carry0: dict = None, frames=None, background=None,
+               split_spec: SplitSpec = None, stats: list = None) -> dict:
     """Public scan entry: builds the initial carry when none is given
     and attaches the final carry under "final_carry"."""
     if carry0 is None:
         carry0 = _init_carry(P, frames_idx[0], times[0],
                              device=times.device)
-    hist, final = _scan_impl(det, times, frames_idx, P, carry0)
+    hist, final = _scan_impl(det, times, frames_idx, P, carry0, frames,
+                             background, split_spec, stats)
     hist["final_carry"] = final
     return hist
 
@@ -590,12 +784,13 @@ def make_aux(carry_vec: np.ndarray, times, frames_idx) -> np.ndarray:
         np.asarray(frames_idx, np.float32)])
 
 
-def scan_packed(det_packed, aux, P: TrackParams, B: int,
+def scan_packed(det_packed, aux, P: TrackParams, B: int, R: int = 0,
                 device=None) -> torch.Tensor:
     """One-array-in / one-array-out scan for host-built det tables.
-    det_packed is (T, 6B) float32: [cx, cy, bcx, bcy, recount, valid];
-    aux = make_aux(carry_vec, times, frame indices). (The reference's
-    trailing run tables feed only the history split, a later slice.)"""
+    det_packed is (T, 6B [+ 4R]) float32: [cx, cy, bcx, bcy, recount,
+    valid (+ runs_y, x0, x1, slot)]; aux = make_aux(carry_vec, times,
+    frame indices). The run tables feed the history split's contested
+    trigger."""
     _require_base(P)
     dev = resolve_device(device)
     det_packed = torch.as_tensor(det_packed, dtype=_F32, device=dev)
@@ -608,31 +803,41 @@ def scan_packed(det_packed, aux, P: TrackParams, B: int,
         bcy=det_packed[:, 3 * B:4 * B],
         recount=det_packed[:, 4 * B:5 * B],
         valid=det_packed[:, 5 * B:6 * B] > 0.5)
+    if R:
+        base = 6 * B
+        for i, k in enumerate(("runs_y", "runs_x0", "runs_x1",
+                               "runs_slot")):
+            det[k] = det_packed[:, base + i * R:base + (i + 1) * R].to(_I32)
     carry0, times, fidx = _aux_split(aux, T, P)
     hist, _ = _scan_impl(det, times, fidx, P, carry0)
     return _pack_result(hist, torch.zeros(T, dtype=torch.bool, device=dev))
 
 
 def fused_scan_packed(frames, background, aux, P: TrackParams,
-                      device=None, **kw) -> torch.Tensor:
+                      split_spec: SplitSpec = None, device=None,
+                      **kw) -> torch.Tensor:
     """Fused detect + scan with one packed output array (the raw-frames
     product path): ``kw`` are detect_batch_runs' threshold and capacity
-    options, ``aux = make_aux(carry_vec, times, frame indices)``."""
+    options, ``aux = make_aux(carry_vec, times, frame indices)``;
+    `split_spec` (``default_split_spec``) runs history splits on the
+    card."""
     _require_base(P)
     dev = resolve_device(device)
+    frames = torch.as_tensor(frames, device=dev)
+    background = torch.as_tensor(background, device=dev)
     out = detect_batch_runs(frames, background, device=dev, **kw)
     det = detections_from_runcc(out, P)
     aux = torch.as_tensor(aux, dtype=_F32, device=dev)
     carry0, times, fidx = _aux_split(aux, out["overflow"].shape[0], P)
-    hist, _ = _scan_impl(det, times, fidx, P, carry0)
+    hist, _ = _scan_impl(det, times, fidx, P, carry0, frames, background,
+                         split_spec)
     return _pack_result(hist, out["overflow"])
 
 
 def detections_from_runcc(out: dict, P: TrackParams) -> dict:
-    """Adapt detect_batch_runs output to the scan's blob tables (the
-    base configuration's: centroids, bbox centres, recount, valid; the
-    run and bbox tables that the history split and posture read come
-    with those slices).
+    """Adapt detect_batch_runs output to the scan's blob tables:
+    centroids, bbox centres, recount, valid, the int bboxes and the
+    track-mask run tables that the history split reads.
 
     With a track threshold, the tracked rows are the track-threshold
     children; `huge` parents (count > 100x the size maximum) raise the
@@ -667,7 +872,8 @@ def detections_from_runcc(out: dict, P: TrackParams) -> dict:
             cx=ch["sum_x"] / safe, cy=ch["sum_y"] / safe,
             bcx=(ch["x0"] + ch["x1"] + 1) * 0.5,
             bcy=(ch["y0"] + ch["y1"] + 1) * 0.5,
-            recount=cn, valid=cvalid)
+            recount=cn, valid=cvalid, **_bbox_runs(ch, out.get(
+                "child_runs")))
         if P.has_size_filter:
             d["flag_size"] = torch.where(pvalid, n, 0.0)
         return d
@@ -685,7 +891,18 @@ def detections_from_runcc(out: dict, P: TrackParams) -> dict:
         bcy=(det["y0"] + det["y1"] + 1) * 0.5,
         # without a track threshold there is no track_count: size-filter
         # on the detect count, like the host engine
-        recount=det.get("track_count", n), valid=pvalid)
+        recount=det.get("track_count", n), valid=pvalid,
+        **_bbox_runs(det, out.get("det_runs")))
+    return d
+
+
+def _bbox_runs(tab: dict, runs) -> dict:
+    """The int bbox columns of a blob table and its run tables."""
+    d = {k: tab[s].to(_I32) for k, s in (("bx0", "x0"), ("by0", "y0"),
+                                          ("bx1", "x1"), ("by1", "y1"))}
+    if runs is not None:
+        d.update(runs_y=runs["y"], runs_x0=runs["x0"], runs_x1=runs["x1"],
+                 runs_slot=runs["slot"])
     return d
 
 
@@ -707,22 +924,41 @@ def frame_times(T: int, frame_rate: float) -> np.ndarray:
     return np.arange(T, dtype=np.float32) / np.float32(frame_rate)
 
 
+def default_split_spec(settings, P: TrackParams = None):
+    """SplitSpec of the history split on the card, or None when history
+    splits are off (spec_from_settings with the capacity defaults)."""
+    if P is None:
+        P = params_from_settings(settings)
+    if not (P.do_history_split and P.split_radius > 0):
+        return None
+    # split lanes scale with the population: a dense 256-fish arena has
+    # more than 8 contested merges in most frames
+    return spec_from_settings(settings, max_splits=max(8, P.max_fish // 8))
+
+
 def track_video_device(frames, background, settings, device=None,
-                       **caps) -> dict:
+                       stats: list = None, **caps) -> dict:
     """Fused device pipeline: batched run-CC detection + scan tracking
-    over one chunk of raw frames. ``caps`` are detect_batch_runs'
-    capacity options. Returns the per-frame history (tensors) with
-    "final_carry" and "detect_overflow"."""
+    over one chunk of raw frames; with track_do_history_split, history
+    splits run on the card. ``caps`` are detect_batch_runs' capacity
+    options; `stats` as in _scan_impl.
+    Returns the per-frame history (tensors) with "final_carry" and
+    "detect_overflow"."""
     P = params_from_settings(settings)
     _require_base(P)
     dev = resolve_device(device)
     kw = _detect_kwargs(settings, caps)
     T = frames.shape[0]
     fr = float(SettingsView(settings)["frame_rate"] or 25)
+    frames = torch.as_tensor(frames, device=dev)
+    background = torch.as_tensor(background, device=dev)
     out = detect_batch_runs(frames, background, device=dev, **kw)
     det = detections_from_runcc(out, P)
     times = torch.as_tensor(frame_times(T, fr), device=dev)
     hist = track_scan(det, times,
-                      torch.arange(T, dtype=_I32, device=dev), P)
+                      torch.arange(T, dtype=_I32, device=dev), P,
+                      frames=frames, background=background,
+                      split_spec=default_split_spec(settings, P),
+                      stats=stats)
     hist["detect_overflow"] = out["overflow"]
     return hist

@@ -1,10 +1,13 @@
 """Connected-component blob extraction on the host (the replay's labeler).
 
 Counterpart of ``trex_tpu/ops/labeling.py``, reduced to what the host
-FastTracker replay calls. Binds the port's own copy of the native
-labeler, ``trex_tpu_torch/native/labeling.cpp``: line-run union-find
-labelling with 8-connectivity over thresholded background-difference
-images.
+FastTracker replay calls. Binds the port's own copies of the native
+sources in ``trex_tpu_torch/native/``: ``labeling.cpp`` (line-run
+union-find labelling with 8-connectivity over thresholded
+background-difference images, the history split's expectation and
+threshold-escalation executor) and ``tracker_core.cpp`` (the automatic
+mode's matching phases: caches, paired probabilities with per-clique
+matching, reactivation).
 
 The library is compiled with ``g++`` at first use into
 ``build/trex_tpu_torch/`` (a directory git ignores), under a name that
@@ -30,7 +33,7 @@ import numpy as np
 from ..kernels import BUILD_DIR
 
 NATIVE = Path(__file__).resolve().parents[1] / "native"
-SOURCES = ("labeling.cpp",)
+SOURCES = ("labeling.cpp", "tracker_core.cpp")
 HEADERS = ("simd_clones.h",)
 GXX_FLAGS = ["-O3", "-ffp-contract=off", "-std=c++20", "-shared", "-fPIC"]
 
@@ -109,6 +112,25 @@ _SIGNATURES = {
                                _i32, _i32, _i32, _f64p]),
     "trex_blob_dense": (None, [_i32p, _i64, _u8p, _i32, _i32, _i32, _i32,
                                _i32, _u8p, _u8p]),
+    "trex_expectation": (None, [_f64p, _i32, _i32p, _i64p, _i64p, _f64p,
+                                _i32, _f64, _i32p]),
+    "trex_split_execute": (_i32, [_i32p, _i64, _c, _c, _i32, _i32, _i32,
+                                  _i32, _i32, _f64, _f64, _f64, _f64p, _i32,
+                                  _i32, _f64p]),
+    "trex_split_execute_batch": (_i32, [_i32p, _c, _i64p, _i64p, _i64p,
+                                        _i32p, _i32, _c, _i32, _i32, _i32,
+                                        _i32, _f64, _f64, _f64, _f64p, _i32,
+                                        _i32, _f64p, _i32p]),
+    # tracker_core.cpp
+    "trex_track_caches": (None, [_i32, _i64, _f64, _i64, _i64p, _f64p,
+                                 _i64p, _i64p, _i32p, _i32, _i32, _f64,
+                                 _f64, _i32, _i32, _f64p, _f64p]),
+    "trex_track_match": (_i64, [_i32p, _i32, _f64p, _f64p, _f64p, _f64p,
+                                _f64p, _f64p, _i32, _f64, _f64, _i32, _i32p,
+                                _f64p, _i32p, _i32p, _f64p, _i64]),
+    "trex_track_reactivate": (None, [_i32p, _i32, _c, _f64p, _f64p, _f64p,
+                                     _i32p, _i32, _f64p, _f64p, _f64,
+                                     _i32p]),
 }
 
 _lib_obj = None
@@ -294,3 +316,104 @@ def blob_stats(lines: np.ndarray, line_start: np.ndarray,
         w, h, int(track_threshold), 1 if absolute else 0,
         stats.ctypes.data_as(_f64p))
     return stats
+
+
+def _ranges_array(ranges) -> np.ndarray:
+    return np.ascontiguousarray(
+        ranges if ranges is not None and len(ranges) else [],
+        np.float64).reshape(-1, 2)
+
+
+def expectation_native(fish: np.ndarray, lines: np.ndarray,
+                       row_lo: np.ndarray, row_hi: np.ndarray,
+                       bounds: np.ndarray, max_d: float) -> np.ndarray:
+    """History-split expectation counts (``trex_expectation``: bbox
+    proximity, grid-point sampling, mask distances, clique conflict
+    resolution). fish (F, 2) float64; lines (L, 3) int32; row_lo/row_hi
+    (N,) int64 per-blob ranges into `lines`; bounds (N, 4) float64
+    [x0, y0, x1, y1]. Returns (N,) int32."""
+    fish = np.ascontiguousarray(fish, np.float64)
+    lines = np.ascontiguousarray(lines, np.int32)
+    row_lo = np.ascontiguousarray(row_lo, np.int64)
+    row_hi = np.ascontiguousarray(row_hi, np.int64)
+    bounds = np.ascontiguousarray(bounds, np.float64)
+    out = np.zeros(len(bounds), np.int32)
+    if len(fish) == 0 or len(bounds) == 0:
+        return out
+    _lib().trex_expectation(
+        fish.ctypes.data_as(_f64p), len(fish), lines.ctypes.data_as(_i32p),
+        row_lo.ctypes.data_as(_i64p), row_hi.ctypes.data_as(_i64p),
+        bounds.ctypes.data_as(_f64p), len(bounds), float(max_d),
+        out.ctypes.data_as(_i32p))
+    return out
+
+
+def split_execute(lines: np.ndarray, pixels: np.ndarray,
+                  background: np.ndarray, initial: int, absolute: bool,
+                  expected: int, cm_sqr: float, max_shrink: float,
+                  shrink_limit: float, ranges,
+                  max_pieces: int = 64) -> np.ndarray:
+    """One-shot native blob split (``trex_split_execute``: escalation
+    scan, then the winning components). Returns (n_pieces, 7) float64
+    rows [num_pixels, x0, y0, x1, y1, sum_x, sum_y] in frame
+    coordinates, size-descending; empty when no split is acceptable."""
+    return SplitExecutor(background, ranges, max_pieces).run(
+        lines, pixels, initial, absolute, expected, cm_sqr, max_shrink,
+        shrink_limit)
+
+
+class SplitExecutor:
+    """``split_execute`` bound to one background and size filter: the
+    history split calls it for many blobs a frame."""
+
+    def __init__(self, background: np.ndarray, ranges,
+                 max_pieces: int = 64):
+        self._lib = _lib()
+        self._bg = np.ascontiguousarray(background, np.uint8)
+        self._h, self._w = self._bg.shape
+        self._r = _ranges_array(ranges)
+        self._max_pieces = max_pieces
+        self._out = np.empty((max_pieces, 7))
+
+    def run(self, lines: np.ndarray, pixels: np.ndarray, initial: int,
+            absolute: bool, expected: int, cm_sqr: float,
+            max_shrink: float, shrink_limit: float) -> np.ndarray:
+        lines = np.ascontiguousarray(lines, np.int32)
+        pixels = np.ascontiguousarray(pixels, np.uint8)
+        n = self._lib.trex_split_execute(
+            lines.ctypes.data_as(_i32p), len(lines),
+            pixels.ctypes.data_as(_c), self._bg.ctypes.data_as(_c),
+            self._w, self._h, int(initial), 1 if absolute else 0,
+            int(expected), float(cm_sqr), float(max_shrink),
+            float(shrink_limit), self._r.ctypes.data_as(_f64p),
+            self._r.shape[0], self._max_pieces,
+            self._out.ctypes.data_as(_f64p))
+        return self._out[:n].copy()
+
+    def run_batch(self, lines: np.ndarray, pixels: np.ndarray,
+                  line_lo, line_hi, pixel_lo, expected,
+                  initial: int, absolute: bool, cm_sqr: float,
+                  max_shrink: float, shrink_limit: float) -> list:
+        """Every table-backed split of a frame in one native call
+        (``trex_split_execute_batch``): job j splits
+        lines[line_lo[j]:line_hi[j]] with its pixels at pixel_lo[j].
+        Returns one (n_j, 7) float64 array per job, equal to `run`'s."""
+        lines = np.ascontiguousarray(lines, np.int32)
+        pixels = np.ascontiguousarray(pixels, np.uint8)
+        lo = np.ascontiguousarray(line_lo, np.int64)
+        hi = np.ascontiguousarray(line_hi, np.int64)
+        plo = np.ascontiguousarray(pixel_lo, np.int64)
+        exp = np.ascontiguousarray(expected, np.int32)
+        n_jobs = len(lo)
+        out = np.empty((n_jobs, self._max_pieces, 7))
+        counts = np.empty(n_jobs, np.int32)
+        self._lib.trex_split_execute_batch(
+            lines.ctypes.data_as(_i32p), pixels.ctypes.data_as(_c),
+            lo.ctypes.data_as(_i64p), hi.ctypes.data_as(_i64p),
+            plo.ctypes.data_as(_i64p), exp.ctypes.data_as(_i32p), n_jobs,
+            self._bg.ctypes.data_as(_c), self._w, self._h, int(initial),
+            1 if absolute else 0, float(cm_sqr), float(max_shrink),
+            float(shrink_limit), self._r.ctypes.data_as(_f64p),
+            self._r.shape[0], self._max_pieces, out.ctypes.data_as(_f64p),
+            counts.ctypes.data_as(_i32p))
+        return [out[j, :counts[j]].copy() for j in range(n_jobs)]

@@ -1,5 +1,4 @@
-"""DeviceTracker: the product tracking engine on the card, base
-configuration.
+"""DeviceTracker: the product tracking engine on the card.
 
 Counterpart of ``trex_tpu/track/device_engine.py::DeviceTracker``. The
 per-frame tracking recurrence runs as one scan per chunk on the card
@@ -7,7 +6,9 @@ per-frame tracking recurrence runs as one scan per chunk on the card
 compatibility: frames the scan flags ``needs_host`` are replayed one
 frame at a time through a host FastTracker whose per-fish state is
 spliced in from the device carry, and the scan resumes from the
-corrected carry at the next frame.
+corrected carry at the next frame. On the fused raw-frames path history
+splits run on the card (``ops/device_split.py``); the blob-list path
+ships no pixels, so its contested frames are replayed.
 
 Two ingestion paths:
 
@@ -38,12 +39,22 @@ from ..config import SettingsView
 from ..device import resolve_device
 from ..ops.device_tracker import (_detect_kwargs, carry_from_vec_np,
                                   carry_to_vec, carry_vec_size,
-                                  fused_scan_packed, make_aux,
-                                  params_from_settings, scan_packed,
-                                  unpack_result)
+                                  default_split_spec, fused_scan_packed,
+                                  make_aux, params_from_settings,
+                                  scan_packed, unpack_result)
 from ..ops.labeling import label_blobs_raw
-from .engine import FastTracker, raw_from_blobs
+from .engine import EngineUnsupported, FastTracker, raw_from_blobs
 from .tracker import FrameStatistics
+
+
+def check_device_supported(settings) -> None:
+    """The device engine's own limits beyond FastTracker's."""
+    s = SettingsView(settings)
+    if s["match_mode"] not in ("approximate", "automatic", "hungarian",
+                               "tree"):
+        raise EngineUnsupported(
+            "the device engine takes match_mode approximate, automatic, "
+            "hungarian or tree (benchmark needs the host engines)")
 
 
 def _probs_for(h, fish) -> np.ndarray:
@@ -61,20 +72,25 @@ class DeviceTracker:
     ``device=None`` runs on the CUDA card (and raises without one);
     ``device="cpu"`` runs the scan's plain PyTorch path, for the tests.
     ``scan_seconds`` sums the host wall time of the scan calls, each
-    ending in the copy of its packed result to the host."""
+    ending in the copy of its packed result to the host, and
+    ``frames_scanned`` the frames they scanned (each assist relaunches
+    the scan over the rest of its chunk)."""
 
     CHUNK = 256
 
     def __init__(self, settings, background: np.ndarray,
                  chunk: int = None, caps: dict = None, device=None):
+        check_device_supported(settings)
         self.settings = SettingsView(settings)
         self.device = resolve_device(device)
         self.background = np.asarray(background)
         self.caps = caps
         # host helper: candidate tables and the replay; raises
-        # EngineUnsupported outside the base configuration
+        # EngineUnsupported for the configurations the port lacks
         self._helper = FastTracker(self.settings, self.background)
         self.P = params_from_settings(self.settings)
+        # the history split on the card, for the fused raw-frames path
+        self.split_spec = default_split_spec(self.settings, self.P)
         self.F = self.P.max_fish
         self.chunk = chunk or self.CHUNK
 
@@ -86,6 +102,7 @@ class DeviceTracker:
         self.frame_times: dict[int, float] = {}
         self.assist_frames: list[int] = []
         self.scan_seconds = 0.0
+        self.frames_scanned = 0
 
         # every assist costs a host replay plus a fresh scan launch for
         # the rest of the chunk; past a quarter of at least 64 frames
@@ -112,11 +129,13 @@ class DeviceTracker:
                 seen=np.zeros((F, self.P.frame_rate)),
                 n_fish=0, start_frame=frame, prev_time=time))
 
-    def _scan(self, launch):
-        """Run one scan launch; returns its packed result on the host."""
+    def _scan(self, launch, span: int):
+        """Run one scan launch over `span` frames; returns its packed
+        result on the host."""
         t0 = _time.perf_counter()
         vec = launch().cpu().numpy()
         self.scan_seconds += _time.perf_counter() - t0
+        self.frames_scanned += span
         return vec
 
     # -- blob-list ingestion ---------------------------------------------
@@ -132,12 +151,27 @@ class DeviceTracker:
             self._flush()
         return self
 
+    @staticmethod
+    def _row_lines(t, r):
+        return np.asarray(t.objs[r].lines) if t.objs[r] is not None \
+            else t.lines[t.line_lo[r]:t.line_hi[r]]
+
     def _det_packed(self, tables: list):
-        """Per-frame candidate tables -> the packed (T, 6B) det array of
-        ``scan_packed``: [cx, cy, bcx, bcy, recount, valid], B the
-        largest table."""
+        """Per-frame candidate tables -> the packed (T, 6B [+ 4R]) det
+        array of ``scan_packed``: [cx, cy, bcx, bcy, recount, valid], B
+        the largest table, and with history splits on the track-mask run
+        tables [y, x0, x1, slot] (slot B pads), R the most runs of a
+        frame."""
         B = max(1, max(t.n for t in tables))
-        packed = np.zeros((len(tables), 6 * B), np.float32)
+        use_runs = self.P.do_history_split and self.P.split_radius > 0
+        R = 0
+        if use_runs:
+            R = max(1, max(sum(len(self._row_lines(t, r))
+                               for r in range(t.n)) for t in tables))
+        packed = np.zeros((len(tables), 6 * B + 4 * R), np.float32)
+        if use_runs:
+            packed[:, 6 * B:6 * B + R] = -1          # runs_y padding
+            packed[:, 6 * B + 3 * R:] = B            # runs_slot padding
         sq = self.P.cm_per_pixel * self.P.cm_per_pixel
         for i, t in enumerate(tables):
             n = t.n
@@ -147,7 +181,17 @@ class DeviceTracker:
             packed[i, 3 * B:3 * B + n] = (t.by0 + t.by1 + 1) * 0.5
             packed[i, 4 * B:4 * B + n] = t.recount / sq
             packed[i, 5 * B:5 * B + n] = 1.0
-        return packed, B
+            if use_runs and n:
+                L = np.concatenate([self._row_lines(t, r)
+                                    for r in range(n)])
+                m = len(L)
+                base = 6 * B
+                for c in range(3):
+                    packed[i, base + c * R:base + c * R + m] = L[:, c]
+                packed[i, base + 3 * R:base + 3 * R + m] = np.repeat(
+                    np.arange(n), [len(self._row_lines(t, r))
+                                   for r in range(n)])
+        return packed, B, R
 
     def _flush(self):
         buf, self._buf = self._buf, []
@@ -166,10 +210,10 @@ class DeviceTracker:
                     self._host_step(frames[k], times[k], raws[k])
                 break
             span = len(buf) - i
-            packed, B = self._det_packed(tables[i:])
+            packed, B, R = self._det_packed(tables[i:])
             aux = make_aux(self._carry_vec, times[i:], frames[i:])
-            vec = self._scan(lambda: scan_packed(packed, aux, self.P, B,
-                                                 device=self.device))
+            vec = self._scan(lambda: scan_packed(packed, aux, self.P, B, R,
+                                                 device=self.device), span)
             stop = self._commit_span(frames[i:], vec, span)
             if stop == span:
                 break
@@ -223,8 +267,9 @@ class DeviceTracker:
             j = min(T, i + self.chunk)
             aux = make_aux(self._carry_vec, times[i:j], idx[i:j])
             vec = self._scan(lambda: fused_scan_packed(
-                frames[i:j], bg_dev, aux, self.P, device=self.device,
-                **kw))
+                frames[i:j], bg_dev, aux, self.P,
+                split_spec=self.split_spec, device=self.device, **kw),
+                j - i)
             stop = self._commit_span(idx[i:j], vec, j - i)
             if stop == j - i:
                 i = j
@@ -279,6 +324,9 @@ class DeviceTracker:
         NEG = -(10 ** 9)
         eng.trk_start[:] = NEG
         eng.prev_trk_end[:] = NEG
+        # the native caches of the automatic replay walk the ring
+        eng.trk_ring[:] = 0
+        eng.trk_ring_n[:] = 0
         eng.closed_tracklets = [[] for _ in range(F)]
         for fid in range(int(c["n_fish"])):
             bits = seen[fid]
@@ -303,6 +351,9 @@ class DeviceTracker:
             if closed:
                 eng.prev_trk_end[fid] = closed[-1][1]
                 eng.closed_tracklets[fid] = closed
+                m = min(len(closed), eng.RING)
+                eng.trk_ring[fid, :m] = np.asarray(closed[-m:], np.int64)
+                eng.trk_ring_n[fid] = m
 
     def _assist(self, frame: int, time: float, raw: tuple):
         """Replay one flagged frame through the host engine and rebuild

@@ -1,38 +1,43 @@
-"""FastTracker: the struct-of-arrays host tracking engine, base
-configuration.
+"""FastTracker: the struct-of-arrays host tracking engine.
 
 Counterpart of ``trex_tpu/track/engine.py::FastTracker`` for the
-configuration the device engine replays through: ``match_mode=
-approximate``, no history split, no posture, ``track_speed_decay`` 1 and
-no archive mode. It keeps all per-fish state in flat numpy arrays and
-takes the reference's Python paths (``_caches_py``, ``_match_py``,
-``_reactivate_py``), which is what the JAX package's engine runs for
-any match mode but ``automatic``. Host code stays numpy, as it is there.
+configurations the device engine replays through: every ``match_mode``
+but ``benchmark`` (``approximate``, ``hungarian``, ``tree`` and the
+product default ``automatic``), with or without the history split, at
+``track_speed_decay`` 1, without posture and without archive mode. It
+keeps all per-fish state in flat numpy arrays. ``automatic`` takes the
+native phases of ``native/tracker_core.cpp`` (caches, paired
+probabilities with per-clique matching, reactivation) and the native
+split executor, as the JAX package's engine does; the other modes take
+the Python paths. Host code stays numpy, as it is there.
 
 Per frame (``add_frame``): candidate table from the labeler's flat
 arrays (Tracker::prefilter, with the track-threshold re-split of
 partially passing blobs), the start-frame split of oversized blobs, the
-time probability from recent samples, the first pass (probability
-matrix over bbox centres, greedy matching), then the second pass
-(reactivation of inactive fish against centroids, then new fish in blob
-order while under ``track_max_individuals``).
+history split of blobs that more tracked fish expect than they hold
+(HistorySplit), the time probability from recent samples, the first
+pass (probability matrix over bbox centres, matching by ``match_mode``),
+then the second pass (reactivation of inactive fish against centroids,
+then new fish in blob order while under ``track_max_individuals``).
 
-Any other configuration raises ``EngineUnsupported`` in the
-constructor.
+Speed decay and posture raise ``EngineUnsupported`` in the constructor
+until their slices of the port (``ROADMAP.md``).
 """
 from __future__ import annotations
 
+import ctypes
 import time as _time
 from dataclasses import dataclass
 
 import numpy as np
 
 from ..config import SettingsView
-from ..ops.labeling import blob_stats
+from ..ops.labeling import (SplitExecutor, _f64p, _i32p, _i64p, _lib,
+                            blob_stats, expectation_native)
 from .blob import TrackBlob
 from .matching import MatchResult, PairedProbabilities, match
 from .prefilter import SizeFilters, threshold_components
-from .splitting import split_blob
+from .splitting import _initial_threshold, split_blob
 from .tracker import FrameStatistics
 
 
@@ -57,6 +62,10 @@ def check_supported(settings) -> None:
          "track_background_subtraction off")
     want(not int(s["match_topk"] or 0), "match_topk")
     want(int(s["track_max_individuals"]) > 0, "unbounded individuals")
+    want(s["match_mode"] in ("automatic", "approximate", "hungarian",
+                             "tree"),
+         f"match_mode {s['match_mode']!r} (benchmark needs the object "
+         "tracker)")
     want(not (s["track_only_categories"] or []), "track_only_categories")
     want(not s["track_consistent_categories"],
          "track_consistent_categories")
@@ -65,14 +74,12 @@ def check_supported(settings) -> None:
     for flag in ("auto_train", "auto_apply", "auto_categorize",
                  "auto_tags"):
         want(not s[flag], flag)
-    # the base configuration; the rest are later slices (ROADMAP.md)
-    want(s["match_mode"] == "approximate",
-         f"match_mode {s['match_mode']!r} (only 'approximate' is ported)")
-    want(not s["track_do_history_split"],
-         "track_do_history_split (not ported yet)")
-    want(not s["calculate_posture"], "calculate_posture (not ported yet)")
+    # later slices of the port (ROADMAP.md)
+    want(not s["calculate_posture"],
+         "calculate_posture (ported with the device_posture slice)")
     decay = min(1.0, max(0.0, float(s["track_speed_decay"])))
-    want(decay ** 4 >= 1.0, "track_speed_decay < 1 (not ported yet)")
+    want(decay ** 4 >= 1.0,
+         "track_speed_decay < 1 (ported with the decay slice)")
 
 
 @dataclass
@@ -152,6 +159,16 @@ class FastTracker:
         self.prev_trk_end = np.full(F, -(10 ** 9), np.int64)
         self.closed_tracklets: list[list[list[int]]] = [
             [] for _ in range(F)]
+        # ring of the latest closed tracklets for the native recent-
+        # samples walk: only tracklets that reach into the last
+        # ~frame_rate frames matter, and each spans >= 2 frames with its
+        # gap
+        self.RING = 16
+        self.trk_ring = np.zeros((F, self.RING, 2), np.int64)
+        self.trk_ring_n = np.zeros(F, np.int32)
+        # the native phases have automatic matching's semantics
+        self.use_native = self.mode == "automatic"
+        self._split_executor = None  # SplitExecutor, made at first use
 
         self.start_frame = -1
         self.end_frame = -1
@@ -282,7 +299,247 @@ class FastTracker:
                           np.asarray(rec_l, np.float64), cx, cy, bx0, by0,
                           bx1, by1, lo, hi, objs, lines, plo, phi, pixels)
 
+    # -- history split ---------------------------------------------------
+    def _grid_points(self, table: _CandTable, rows: np.ndarray):
+        """Sampled mask points of the given rows (PPFrame::
+        fill_proximity_grid: first, last and even-y lines, all lines
+        below 4; per line both ends, the middle and interior points every
+        floor(max(1, width * 0.1)) px when that step is >= 5) in one pass
+        over the rows' lines. Returns (points (N, 2), row slot (N,))."""
+        line_arrays = [
+            np.asarray(table.objs[r].lines)
+            if table.objs[r] is not None
+            else table.lines[table.line_lo[r]:table.line_hi[r]]
+            for r in rows.tolist()]
+        counts = np.fromiter((len(a) for a in line_arrays), np.int64,
+                             len(line_arrays))
+        L = np.concatenate(line_arrays).astype(np.float64)
+        ends = np.cumsum(counts)
+        starts = ends - counts
+        line_owner = np.repeat(np.arange(len(counts)), counts)
+        keep = L[:, 0] % 2 == 0
+        keep[np.repeat(counts < 4, counts)] = True
+        keep[starts] = True
+        keep[ends - 1] = True
+        Lk = L[keep]
+        ok_owner = line_owner[keep]
+        y = Lk[:, 0]
+        x0 = Lk[:, 1]
+        x1 = Lk[:, 2]
+        pts = np.concatenate([
+            np.stack([x0, y], 1), np.stack([x1, y], 1),
+            np.stack([x0 + (x1 - x0) * 0.5, y], 1)])
+        owner = np.concatenate([ok_owner] * 3)
+        steps = np.maximum(
+            1.0, (table.bx1[rows] - table.bx0[rows] + 1) * 0.1
+        ).astype(np.int64)
+        step_of = steps[ok_owner]
+        wide = np.flatnonzero((step_of >= 5) & (x1 - x0 >= 2 * step_of))
+        if wide.size:
+            extra = []
+            extra_owner = []
+            for i in wide.tolist():
+                st = step_of[i]
+                xs = np.arange(x0[i] + st, x1[i] - st + 1e-9, st)
+                extra.append(np.stack([xs, np.full(xs.size, y[i])], 1))
+                extra_owner.append(np.full(xs.size, ok_owner[i], np.int64))
+            pts = np.concatenate([pts] + extra)
+            owner = np.concatenate([owner] + extra_owner)
+        return pts, owner
+
+    def _split_expectation(self, table: _CandTable, fish_pos: np.ndarray,
+                           max_d: float) -> dict[int, int]:
+        """HistorySplit expectation {row: pieces} over the table, in the
+        native ``trex_expectation`` (``_split_expectation_py`` is its
+        numpy twin)."""
+        if not len(fish_pos) or not table.n:
+            return {}
+        lines = table.lines
+        row_lo = table.line_lo
+        row_hi = table.line_hi
+        if any(o is not None for o in table.objs):
+            # object-backed rows (re-split children, split pieces): their
+            # lines go into a side buffer that their ranges point at
+            extra = [np.asarray(o.lines, np.int32)
+                     for o in table.objs if o is not None]
+            off = len(lines)
+            lines = np.concatenate([lines] + extra)
+            row_lo = row_lo.copy()
+            row_hi = row_hi.copy()
+            for i, o in enumerate(table.objs):
+                if o is not None:
+                    row_lo[i] = off
+                    row_hi[i] = off + len(o.lines)
+                    off += len(o.lines)
+        bounds = np.stack([table.bx0, table.by0, table.bx1, table.by1],
+                          axis=1)
+        expect = expectation_native(fish_pos, lines, row_lo, row_hi,
+                                    bounds, max_d)
+        return {int(b): int(expect[b]) for b in np.flatnonzero(expect)}
+
+    def _expectation_prefilter(self, table: _CandTable,
+                               fish_pos: np.ndarray, max_d: float):
+        """Bbox proximity: None when no blob has two near fish, else
+        (near (fish, blob) of the involved fish, blobs near them, the
+        involved fish)."""
+        if not len(fish_pos) or not table.n:
+            return None
+        fx = fish_pos[:, 0][:, None]
+        fy = fish_pos[:, 1][:, None]
+        dx = np.maximum(0, np.maximum(table.bx0[None, :] - fx,
+                                      fx - table.bx1[None, :]))
+        dy = np.maximum(0, np.maximum(table.by0[None, :] - fy,
+                                      fy - table.by1[None, :]))
+        near = np.hypot(dx, dy) <= max_d
+        contested = near.sum(axis=0) >= 2
+        if not contested.any():
+            return None
+        involved = near[:, contested].any(axis=1)
+        fish_ids = np.flatnonzero(involved)
+        cand = near[involved]
+        return cand, np.flatnonzero(cand.any(axis=0)), fish_ids
+
+    def _split_expectation_py(self, table: _CandTable,
+                              fish_pos: np.ndarray,
+                              max_d: float) -> dict[int, int]:
+        """Numpy twin of ``_split_expectation``."""
+        pre = self._expectation_prefilter(table, fish_pos, max_d)
+        if pre is None:
+            return {}
+        cand, cand_blobs, fish_ids = pre
+        pts, owner = self._grid_points(table, cand_blobs)
+        fpos = fish_pos[fish_ids]
+        d2 = (pts[None, :, 0] - fpos[:, 0, None]) ** 2 \
+            + (pts[None, :, 1] - fpos[:, 1, None]) ** 2
+        md2 = np.full((len(fish_ids), len(cand_blobs)), np.inf)
+        np.minimum.at(md2, (slice(None), owner), d2)
+        md = np.sqrt(md2)
+        slot_of = {int(b): si for si, b in enumerate(cand_blobs)}
+        edges: dict[int, list] = {}
+        fr_rows, bi_cols = np.nonzero(cand)
+        for fr, bi in zip(fr_rows.tolist(), bi_cols.tolist()):
+            dist = md[fr, slot_of[bi]]
+            if dist <= max_d:
+                edges.setdefault(int(fish_ids[fr]), []).append(
+                    (float(dist), bi))
+        for es in edges.values():
+            es.sort()
+        return _resolve_expectation(edges)
+
+    def _apply_history_split(self, table: _CandTable,
+                             fish_pos: np.ndarray) -> _CandTable:
+        """Split the blobs the expectation names, then apply the final
+        size filter (HistorySplit.cpp:364-373)."""
+        s = self.settings
+        # the radius reads the raw track_max_speed like HistorySplit: 0
+        # means no history split (self.max_speed's 1e9 stand-in is for
+        # the matching distance only)
+        max_d = (float(s["track_max_speed"]) / self.cm) \
+            / max(1.0, float(self.frame_rate)) * 0.5
+        expect = self._split_expectation(table, fish_pos, max_d)
+        drop = np.zeros(table.n, bool)
+        insert: dict[int, list] = {}
+        # table-backed native jobs go in one batched call; `insert` keeps
+        # the expectation's order either way
+        batch_ok = self.use_native and s["blob_split_algorithm"] != "none"
+        jobs: list[tuple[int, int]] = []
+        for bi, want in expect.items():
+            if want < 2:
+                continue
+            drop[bi] = True
+            if batch_ok and table.objs[bi] is None \
+                    and table.pixel_lo[bi] >= 0:
+                jobs.append((bi, want))
+                insert[bi] = []  # placeholder keeps the dict order
+                continue
+            if self.use_native:
+                parts = self._split_native(table, bi, want)
+            else:
+                parts = split_blob(table.blob(bi), want, self.background, s)
+                for p in parts:
+                    p.recount(self.track_thr, self.background, s)
+            if parts:
+                insert[bi] = parts
+        if jobs:
+            for (bi, _), parts in zip(jobs,
+                                      self._split_native_batch(table, jobs)):
+                if parts:
+                    insert[bi] = parts
+                else:
+                    del insert[bi]
+        if not drop.any():
+            keep = _in_range_rows(table.recount, self.fish_size.ranges) \
+                if self.fish_size else np.ones(table.n, bool)
+            return _filter_table(table, keep)
+        return _rebuild_with_splits(table, drop, insert, self.fish_size,
+                                    self.cm_sqr)
+
+    def _executor(self) -> SplitExecutor:
+        if self._split_executor is None:
+            self._split_executor = SplitExecutor(self.background,
+                                                 self.fish_size.ranges)
+        return self._split_executor
+
+    def _split_args(self):
+        s = self.settings
+        return (_initial_threshold(s), self.absolute, self.cm_sqr,
+                float(s["blob_split_max_shrink"]),
+                float(s["blob_split_global_shrink_limit"]))
+
+    def _split_native_batch(self, table: _CandTable, jobs: list) -> list:
+        """Every table-backed split of a frame in one native call: one
+        _StatPiece list per (row, want) job, equal to _split_native's."""
+        bis = np.array([b for b, _ in jobs], np.int64)
+        initial, absolute, cm_sqr, shrink, limit = self._split_args()
+        rows = self._executor().run_batch(
+            table.lines, table.pixels, table.line_lo[bis],
+            table.line_hi[bis], table.pixel_lo[bis],
+            np.array([w for _, w in jobs], np.int32), initial, absolute,
+            cm_sqr, shrink, limit)
+        return [[_StatPiece(r, self.cm_sqr) for r in rr] for rr in rows]
+
+    def _split_native(self, table: _CandTable, bi: int,
+                      want: int) -> list:
+        """Native split of table row bi into stat pieces."""
+        if table.objs[bi] is not None:
+            lines, pixels = table.objs[bi].lines, table.objs[bi].pixels
+        else:
+            lines = table.lines[table.line_lo[bi]:table.line_hi[bi]]
+            if table.pixel_lo[bi] < 0:
+                return []
+            pixels = table.pixels[table.pixel_lo[bi]:table.pixel_hi[bi]]
+        if pixels is None or self.settings["blob_split_algorithm"] \
+                == "none":
+            return []
+        initial, absolute, cm_sqr, shrink, limit = self._split_args()
+        rows = self._executor().run(lines, pixels, initial, absolute, want,
+                                    cm_sqr, shrink, limit)
+        return [_StatPiece(r, self.cm_sqr) for r in rows]
+
     # -- caches (track_speed_decay 1: estimate = last position) ---------
+    def _caches(self, frame: int, time: float):
+        if self.use_native:
+            return self._caches_native(frame, time)
+        return self._caches_py(frame, time)
+
+    def _caches_native(self, frame: int, time: float):
+        F = self.n_fish
+        tdelta = np.empty(F)
+        tprob = np.empty(F)
+        if F:
+            _lib().trex_track_caches(
+                F, int(frame), float(time), int(self.start_frame),
+                self.last_frame.ctypes.data_as(_i64p),
+                self.last_time.ctypes.data_as(_f64p),
+                self.trk_start.ctypes.data_as(_i64p),
+                self.trk_ring.ctypes.data_as(_i64p),
+                self.trk_ring_n.ctypes.data_as(_i32p),
+                self.RING, self.frame_rate, self.t_max, self.p_min,
+                self.minimum_frames, int(self.time_prob_enabled),
+                tdelta.ctypes.data_as(_f64p), tprob.ctypes.data_as(_f64p))
+        has = self.last_frame[:F] > -(10 ** 8)
+        return has, tdelta, tprob
+
     def _caches_py(self, frame: int, time: float):
         F = self.n_fish
         last_f = self.last_frame[:F]
@@ -368,8 +625,15 @@ class FastTracker:
         breaks = ~ok
         for k in np.flatnonzero(breaks & ~fresh).tolist():
             fid = int(fids[k])
-            self.closed_tracklets[fid].append(
-                [int(self.trk_start[fid]), int(self.last_frame[fid])])
+            ts = int(self.trk_start[fid])
+            te = int(self.last_frame[fid])
+            self.closed_tracklets[fid].append([ts, te])
+            n = int(self.trk_ring_n[fid])
+            if n == self.RING:
+                self.trk_ring[fid, :-1] = self.trk_ring[fid, 1:]
+                n -= 1
+            self.trk_ring[fid, n] = (ts, te)
+            self.trk_ring_n[fid] = n + 1
         bf = fids[breaks]
         self.prev_trk_end[bf] = np.where(
             fresh[breaks], -(10 ** 9), self.last_frame[bf])
@@ -423,6 +687,50 @@ class FastTracker:
                 pob[bi] = pmap[(fid, bi)]
         return fob, pob
 
+    def _match_native(self, uf: np.ndarray, tdelta: np.ndarray,
+                      tprob: np.ndarray, table: _CandTable, B: int,
+                      est_x: np.ndarray, est_y: np.ndarray):
+        """``trex_track_match``: probabilities, singleton cliques and
+        cliques of up to 8 fish natively; the larger cliques come back as
+        pending edges for ``match``. On pending-edge overflow the whole
+        frame takes ``_match_py``."""
+        uf32 = np.ascontiguousarray(uf, np.int32)
+        bcx = np.ascontiguousarray((table.bx0 + table.bx1 + 1) * 0.5)
+        bcy = np.ascontiguousarray((table.by0 + table.by1 + 1) * 0.5)
+        fob32 = np.empty(B, np.int32)
+        pob = np.empty(B)
+        cap = 65536
+        buf = getattr(self, "_pend_buf", None)
+        if buf is None:
+            buf = self._pend_buf = (np.empty(cap, np.int32),
+                                    np.empty(cap, np.int32), np.empty(cap))
+        pend_f, pend_b, pend_p = buf
+        est_x = np.ascontiguousarray(est_x)
+        est_y = np.ascontiguousarray(est_y)
+        n_pend = _lib().trex_track_match(
+            uf32.ctypes.data_as(_i32p), len(uf32),
+            est_x.ctypes.data_as(_f64p), est_y.ctypes.data_as(_f64p),
+            tdelta.ctypes.data_as(_f64p), tprob.ctypes.data_as(_f64p),
+            bcx.ctypes.data_as(_f64p), bcy.ctypes.data_as(_f64p), B,
+            self.p_min, self.cm / self.max_speed, 8,
+            fob32.ctypes.data_as(_i32p), pob.ctypes.data_as(_f64p),
+            pend_f.ctypes.data_as(_i32p), pend_b.ctypes.data_as(_i32p),
+            pend_p.ctypes.data_as(_f64p), len(pend_f))
+        if n_pend < 0:  # pending-edge overflow
+            return self._match_py(uf, tdelta, tprob, table, B, est_x,
+                                  est_y)
+        fob = fob32.astype(np.int64)
+        if n_pend:
+            paired = _bulk_paired(pend_f[:n_pend], pend_b[:n_pend],
+                                  pend_p[:n_pend])
+            result = match(paired, mode=self.mode)
+            pmap = {(int(f), int(b)): float(p) for f, b, p in
+                    zip(pend_f[:n_pend], pend_b[:n_pend], pend_p[:n_pend])}
+            for bi, fid in result.pairings.items():
+                fob[bi] = fid
+                pob[bi] = pmap[(fid, bi)]
+        return fob, pob
+
     # -- main ------------------------------------------------------------
     def add_frame(self, frame: int, time: float, lines, pixels,
                   line_start, pixel_start, stats) -> MatchResult:
@@ -434,7 +742,7 @@ class FastTracker:
         table, big_rows = self.build_candidates(
             lines, pixels, line_start, pixel_start, stats)
 
-        has, tdelta, tprob = self._caches_py(frame, time)
+        has, tdelta, tprob = self._caches(frame, time)
         F = self.n_fish
         # global frame-to-frame delta: position probabilities divide the
         # distance from the estimate by ONE frame time for every fish
@@ -443,9 +751,17 @@ class FastTracker:
         global_td = (time - prev_t) if prev_t is not None else 0.0
         speed_td = np.full(F, global_td if global_td > 0 else np.inf)
         est_x, est_y = self._position_estimates()
+        # the history split measures from recently seen fish only
+        pos_ok = has & (self.last_frame[:F]
+                        >= frame - self.frame_rate * self.t_max)
+        fish_pos = np.stack([est_x[:F][pos_ok], est_y[:F][pos_ok]], 1) \
+            if pos_ok.any() else np.zeros((0, 2))
 
         if big_rows and frame == self.start_frame:
             table = self._split_big_start(table, np.asarray(big_rows))
+        if frame != self.start_frame and self.settings[
+                "track_do_history_split"]:
+            table = self._apply_history_split(table, fish_pos)
 
         B = table.n
         assigned_fish: set[int] = set()
@@ -457,8 +773,10 @@ class FastTracker:
             usable = has & (tprob > 0) & (tdelta < self.t_max)
             uf = np.flatnonzero(usable)
             if len(uf):
-                fob, pob = self._match_py(uf, speed_td, tprob, table, B,
-                                          est_x, est_y)
+                match_fn = self._match_native if self.use_native \
+                    else self._match_py
+                fob, pob = match_fn(uf, speed_td, tprob, table, B, est_x,
+                                    est_y)
                 bs = np.flatnonzero(fob >= 0)
                 if len(bs):
                     fids = fob[bs]
@@ -518,6 +836,26 @@ class FastTracker:
             newly.append((int(cand_f[k]), int(free[j])))
         return newly
 
+    def _reactivate_native(self, cand_f: np.ndarray, free: np.ndarray,
+                           table: _CandTable, tdelta: np.ndarray):
+        """``trex_track_reactivate``: the same greedy as _reactivate_py."""
+        cand32 = np.ascontiguousarray(cand_f, np.int32)
+        hh = np.ascontiguousarray(self.n_basic[cand_f] > 0, np.uint8)
+        free32 = np.ascontiguousarray(free, np.int32)
+        cx = np.ascontiguousarray(table.cx)
+        cy = np.ascontiguousarray(table.cy)
+        fob = np.full(table.n, -1, np.int32)
+        _lib().trex_track_reactivate(
+            cand32.ctypes.data_as(_i32p), len(cand32),
+            hh.ctypes.data_as(ctypes.c_char_p),
+            self.last_x.ctypes.data_as(_f64p),
+            self.last_y.ctypes.data_as(_f64p),
+            tdelta.ctypes.data_as(_f64p), free32.ctypes.data_as(_i32p),
+            len(free32), cx.ctypes.data_as(_f64p),
+            cy.ctypes.data_as(_f64p), self.p_min,
+            fob.ctypes.data_as(_i32p))
+        return [(int(fob[b]), int(b)) for b in free.tolist() if fob[b] >= 0]
+
     def _second_pass(self, table: _CandTable, free: np.ndarray,
                      frame: int, time: float, tdelta: np.ndarray,
                      assigned_fish: set, assigned_blob: np.ndarray,
@@ -530,7 +868,9 @@ class FastTracker:
                              len(assigned_fish))] = False
         cand_f = np.flatnonzero(mask)
         if len(cand_f) and len(free):
-            newly = self._reactivate_py(cand_f, free, table, tdelta)
+            react = self._reactivate_native if self.use_native \
+                else self._reactivate_py
+            newly = react(cand_f, free, table, tdelta)
             for _, bi in newly:
                 assigned_blob[bi] = True
             if newly:
@@ -591,7 +931,8 @@ class FastTracker:
             drop[bi] = True
             if kept:
                 insert[bi] = kept
-        return _rebuild_with_splits(table, drop, insert)
+        return _rebuild_with_splits(table, drop, insert, self.fish_size,
+                                    self.cm_sqr, start_frame=True)
 
     # -- compatibility surface -------------------------------------------
     def add_frame_blobs(self, frame: int, time: float,
@@ -659,19 +1000,27 @@ def _filter_table(t: _CandTable, keep: np.ndarray) -> _CandTable:
 
 
 def _rebuild_with_splits(t: _CandTable, drop: np.ndarray,
-                         insert: dict[int, list]) -> _CandTable:
+                         insert: dict[int, list], fish_size: SizeFilters,
+                         cm_sqr: float,
+                         start_frame: bool = False) -> _CandTable:
     """Replace dropped rows by their split pieces, in order, at the
-    parent's place. At the start frame the pieces are pre-filtered, so
-    no final size filter applies."""
-    base = _filter_table(t, ~drop)
-    base_pos = np.flatnonzero(~drop).astype(np.float64)
+    parent's place, and apply the final size filter (HistorySplit.cpp:
+    364-373). At the start frame the pieces are pre-filtered and no
+    final filter applies."""
+    keep = ~drop
+    if not start_frame and fish_size:
+        keep &= _in_range_rows(t.recount, fish_size.ranges)
+    base = _filter_table(t, keep)
+    base_pos = np.flatnonzero(keep).astype(np.float64)
     prow: list = []
     pobj: list = []
     for bi in sorted(insert):
         for k, p in enumerate(insert[bi]):
-            # a fractional position keeps the pieces in order
-            prow.append(bi + (k + 1) / (len(insert[bi]) + 2))
-            pobj.append(p)
+            if start_frame or not fish_size \
+                    or fish_size.in_range_of_one(p.recount(-1)):
+                # a fractional position keeps the pieces in order
+                prow.append(bi + (k + 1) / (len(insert[bi]) + 2))
+                pobj.append(p)
     if not pobj:
         return base
     m = len(pobj)
@@ -689,24 +1038,114 @@ def _rebuild_with_splits(t: _CandTable, drop: np.ndarray,
         pixel_lo=none, pixel_hi=none, pixels=t.pixels)
     order = np.argsort(np.concatenate([base_pos, np.asarray(prow)]),
                        kind="stable")
-    objs = base.objs + pieces.objs
+    return _concat_tables(base, pieces, order)
+
+
+def _concat_tables(a: _CandTable, b: _CandTable,
+                   order: np.ndarray) -> _CandTable:
+    objs = a.objs + b.objs
 
     def cat(name):
-        return np.concatenate([getattr(base, name),
-                               getattr(pieces, name)])[order]
+        return np.concatenate([getattr(a, name), getattr(b, name)])[order]
     return _CandTable(
         n=len(order), cnt=cat("cnt"), recount=cat("recount"),
         cx=cat("cx"), cy=cat("cy"), bx0=cat("bx0"), by0=cat("by0"),
         bx1=cat("bx1"), by1=cat("by1"), line_lo=cat("line_lo"),
         line_hi=cat("line_hi"), objs=[objs[i] for i in order.tolist()],
-        lines=t.lines, pixel_lo=cat("pixel_lo"), pixel_hi=cat("pixel_hi"),
-        pixels=t.pixels)
+        lines=a.lines, pixel_lo=cat("pixel_lo"), pixel_hi=cat("pixel_hi"),
+        pixels=a.pixels)
+
+
+class _StatPiece:
+    """A split piece backed by the native executor's stats only (no
+    pixel data); at the chosen split threshold every pixel passes the
+    track threshold, so recount == num_pixels * cm^2."""
+
+    __slots__ = ("num_pixels", "_rec", "center", "bounds", "lines")
+
+    def __init__(self, row: np.ndarray, cm_sqr: float):
+        n, x0, y0, x1, y1, sx, sy = row
+        self.num_pixels = int(n)
+        self._rec = float(n) * cm_sqr
+        self.center = (sx / n, sy / n)
+        self.bounds = (int(x0), int(y0), int(x1 - x0 + 1),
+                       int(y1 - y0 + 1))
+        self.lines = None
+
+    def recount(self, *args, **kwargs) -> float:
+        return self._rec
+
+
+def _resolve_expectation(edges: dict[int, list]) -> dict[int, int]:
+    """Conflict resolution over proximity cliques (HistorySplit.cpp:
+    170-320): `edges` maps a fish to its (distance, blob) list sorted by
+    distance; returns {blob: expected pieces}."""
+    parent: dict = {}
+
+    def find(x):
+        while parent.setdefault(x, x) != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    def union(a, b):
+        ra, rb = find(a), find(b)
+        if ra != rb:
+            parent[rb] = ra
+
+    for fi, es in edges.items():
+        for _, bi in es:
+            union(("f", fi), ("b", bi))
+    cliques: dict = {}
+    for fi in edges:
+        cliques.setdefault(find(("f", fi)), ([], set()))[0].append(fi)
+    for fi, es in edges.items():
+        root = find(("f", fi))
+        for _, bi in es:
+            cliques[root][1].add(bi)
+
+    expect: dict[int, int] = {}
+    for fish_list, blob_set in cliques.values():
+        if len(fish_list) <= len(blob_set):
+            continue
+        combos = {fi: list(edges[fi]) for fi in fish_list}
+        assign_fish = {fi: combos[fi][0] for fi in fish_list}
+        assign_blob: dict[int, tuple] = {}
+        queue = list(fish_list)
+        while queue:
+            fi = queue.pop(0)
+            combo = combos[fi]
+            if not combo:
+                continue
+            d, b = combo[0]
+            if b not in assign_blob:
+                assign_blob[b] = (fi, d)
+                continue
+            owner, od = assign_blob[b]
+            if owner != fi:
+                if od <= d:
+                    combo.pop(0)
+                    queue.append(fi)
+                else:
+                    assign_blob[b] = (fi, d)
+                    queue.append(owner)
+        for fi in fish_list:
+            if combos[fi]:
+                continue
+            d, b = assign_fish[fi]
+            if b in assign_blob:
+                expect[b] = expect.get(b, 0) + 1
+                del assign_blob[b]
+            expect[b] = expect.get(b, 0) + 1
+    return expect
 
 
 def _bulk_paired(fish_ids: np.ndarray, blob_ids: np.ndarray,
                  probs: np.ndarray) -> PairedProbabilities:
-    """PairedProbabilities from parallel fish-major edge arrays (as
-    np.nonzero yields them), blob slots in first-occurrence order."""
+    """PairedProbabilities from parallel edge arrays, blob slots in
+    first-occurrence order. The edges may come fish-major (np.nonzero)
+    or clique-major (the native pending edges): a stable sort keeps each
+    fish's edge order either way."""
     pp = PairedProbabilities()
     uf, f_inv = np.unique(fish_ids, return_inverse=True)
     ub, b_first = np.unique(blob_ids, return_index=True)
@@ -716,7 +1155,9 @@ def _bulk_paired(fish_ids: np.ndarray, blob_ids: np.ndarray,
     slot_of[order] = np.arange(len(ub))
     b_slot = slot_of[np.searchsorted(ub, blob_ids)]
     pp._fish = [int(f) for f in uf]
+    pp._fish_index = {int(f): i for i, f in enumerate(uf)}
     pp._blobs = [int(b) for b in ub_ordered]
+    pp._blob_index = {int(b): i for i, b in enumerate(ub_ordered)}
     # bucket edges per fish; a stable sort keeps each fish's edge order
     order = np.argsort(f_inv, kind="stable")
     f_sorted = f_inv[order]

@@ -1,6 +1,6 @@
 """Per-frame tracking statistics (counterpart of the
 ``FrameStatistics`` record of ``trex_tpu/track/tracker.py``, with the
-fields the base configuration fills)."""
+fields the port's engines fill)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
