@@ -59,7 +59,25 @@ Phases, each raising on failure:
    crossing whose auction is flagged and replayed, and two fish that
    merge into one blob, split on the card with no assist. On a small
    chunk the card gives the port's CPU path's integer outputs.
-7. Report: frames per second of phases 2-6, the replay's assist frames
+7. Posture on the card (``posture``): the chunk of phase 4 with
+   ``calculate_posture`` as ``bench.py``'s posture variant sets it
+   (threshold 15, outline resample 0.5), in the base configuration and
+   in the product default. ``fused_scan_packed`` over the 64 frames with
+   and without the posture pass: frames per second, active lanes and the
+   share with a posture, the frames posture flags by cause (a split
+   child, a blob too big for the crop, a capacity overflow), the most
+   escalation rounds and trace points of any lane, the CUDA launches and
+   device time inside the ``trex.posture`` range, and the pass's peak
+   memory. ``DeviceTracker.track_frames`` over 64 frames (base) and 16
+   (product default) with its assists, frames scanned, replay seconds
+   and postures. Held to the port's FastTracker on the card, under
+   ``tests/test_device_posture.py::_compare_posture``'s rule (equal
+   ``ok``, length within 0.05 px, angle within 1e-3 rad): the
+   asymmetric four-fish scene of that file on the fused path (no assist)
+   and on the blob path, whose export has postures. On a small chunk the
+   card gives the port's CPU path's integer outputs and posture flags,
+   the lengths and angles within the same rule.
+8. Report: frames per second of phases 2-7, the replay's assist frames
    and seconds, the card's name and power limit, and one JSON line with
    every kernel's launches on its path, error against its plain
    version, time, bound, the plain version's time and the nearest
@@ -709,8 +727,8 @@ def auto_pair_frames(kind):
 def launches_by_range(fn, ranges):
     """Run `fn()` under torch.profiler; returns (its result, the CUDA
     kernels it launched, {range: kernels launched inside that
-    torch.profiler.record_function range}). The counts are None when the
-    profiler sees no device activity."""
+    torch.profiler.record_function range}, {range: their device ms}).
+    The counts are None when the profiler sees no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -719,20 +737,22 @@ def launches_by_range(fn, ranges):
         sync()
     total = 0
     per = dict.fromkeys(ranges, 0)
+    ms = dict.fromkeys(ranges, 0.0)
     for e in prof.events():
         # a range's own span on the device timeline is no launch
-        k = sum(kk.name not in per for kk in e.kernels)
-        if not k:
+        ks = [kk for kk in e.kernels if kk.name not in per]
+        if not ks:
             continue
-        total += k
+        total += len(ks)
         p = e.cpu_parent
         while p is not None and p.name not in per:
             p = p.cpu_parent
         if p is not None:
-            per[p.name] += k
+            per[p.name] += len(ks)
+            ms[p.name] += sum(kk.duration for kk in ks) / 1e3
     if not total:
-        return out, None, dict.fromkeys(ranges)
-    return out, total, per
+        return out, None, dict.fromkeys(ranges), dict.fromkeys(ranges)
+    return out, total, per, ms
 
 
 def pair_frames(kind):
@@ -944,7 +964,7 @@ def phase_auto_split(dev, report, bg, frames, dt_frames=32):
     w0, w1 = 24, 40
     aux = make_aux(hist["carry_vec"][w0 - 1].cpu().numpy(),
                    frame_times(T, 25.0)[w0:w1], np.arange(w0, w1))
-    packed, launches, by_part = launches_by_range(
+    packed, launches, by_part, _ = launches_by_range(
         lambda: fused_scan_packed(fr[w0:w1], bgt, aux, P, split_spec=spec,
                                   device=dev,
                                   **_detect_kwargs(settings, TRACK_CAPS)),
@@ -1067,6 +1087,312 @@ def phase_auto_split(dev, report, bg, frames, dt_frames=32):
           f"{', '.join(held)}", flush=True)
 
 
+def posture_settings(base):
+    """``bench.py``'s posture variant over `base` settings:
+    calculate_posture with track_posture_threshold 15 and outline
+    resample 0.5 (``bench_tracking_device_variant(posture=True)``)."""
+    return dict(base, calculate_posture=True, track_posture_threshold=15,
+                outline_resample=0.5)
+
+
+def asym_scene(n=4, n_frames=30, seed=3):
+    """``tests/test_device_posture.py``'s ``_asym_frames`` scene (moving
+    fish with a thick head, so the direction fix has something to orient)
+    with its ``_posture_settings``: (background, frames, settings)."""
+    rng = np.random.default_rng(seed)
+    bg = np.full((256, 256), 200, np.uint8)
+    pos = np.array([[40.0 + 50 * i, 60.0 + 40 * i] for i in range(n)])
+    vel = rng.normal(0, 2.0, (n, 2))
+    frames = []
+    for _ in range(n_frames):
+        img = bg.copy()
+        for x, y in pos:
+            xi, yi = int(x), int(y)
+            img[yi:yi + 6, xi:xi + 14] = 90
+            img[yi + 1:yi + 5, xi:xi + 8] = 70
+        frames.append(img)
+        pos = np.clip(pos + vel, 10, 230)
+    settings = dict(track_max_individuals=n, track_max_speed=300,
+                    cm_per_pixel=1.0, frame_rate=25, track_threshold=20,
+                    track_threshold_is_absolute=False,
+                    track_background_subtraction=True,
+                    track_size_filter=[[10, 200]], calculate_posture=True,
+                    track_posture_threshold=15, outline_resample=0.5,
+                    match_mode="automatic")
+    return bg, np.stack(frames), settings
+
+
+def posture_departures(host, tracker, n_frames, tol_len=0.05,
+                       tol_ang=1e-3):
+    """Frames where `tracker`'s posture history breaks
+    ``tests/test_device_posture.py::_compare_posture``'s rule against
+    `host`'s: a fish missing, another ``ok``, or with ``ok`` a length
+    off by `tol_len` px or an angle by `tol_ang` rad or more."""
+    out = []
+    for f in range(n_frames):
+        hh = host.posture_history.get(f)
+        if hh is None:
+            continue
+        hd = tracker.posture_history.get(f, {"fish": [], "ok": [],
+                                             "midline_length": [],
+                                             "angle": []})
+        dm = {int(i): (bool(o), float(ln), float(a)) for i, o, ln, a in
+              zip(hd["fish"], hd["ok"], hd["midline_length"], hd["angle"])}
+        for i, o, ln, a in zip(hh["fish"], hh["ok"], hh["midline_length"],
+                               hh["angle"]):
+            d = dm.get(int(i))
+            da = abs(d[2] - a) if d is not None else 0.0
+            if d is None or d[0] != bool(o) or (o and (
+                    abs(d[1] - ln) >= tol_len
+                    or min(da, 2 * np.pi - da) >= tol_ang)):
+                out.append(f)
+                break
+    return out
+
+
+def posture_aux(P, T):
+    """The aux vector of a chunk of `T` frames from frame 0 with a fresh
+    carry, its posture section included when `P` has posture on."""
+    from trex_tpu_torch.ops.device_tracker import (
+        _carry_to_vec, _init_carry, carry_to_vec, frame_times, make_aux)
+
+    init = _init_carry(P, 0, 0.0, device="cpu")
+    vec = carry_to_vec(dict(init, posture_dir=np.zeros((P.max_fish, 2)))) \
+        if P.do_posture else _carry_to_vec(init).numpy()
+    return make_aux(vec, frame_times(T, 25.0), np.arange(T))
+
+
+def posture_chunk(dev, settings, fr, bgt):
+    """``fused_scan_packed`` over the chunk with the posture pass and
+    without it (``calculate_posture`` off), warm; then the posture pass
+    alone under torch.profiler, over the same chunk's detections and
+    assignments (profiling the scan too would cost the profiler tens of
+    seconds). Returns the report and the unpacked history with
+    posture."""
+    import torch
+
+    from trex_tpu_torch.ops.device_posture import spec_from_settings
+    from trex_tpu_torch.ops.device_tracker import (
+        POSTURE_RANGE, _aux_split, _detect_kwargs, _posture_scan, _scan_impl,
+        default_split_spec, detections_from_runcc, fused_scan_packed,
+        params_from_settings, unpack_result)
+    from trex_tpu_torch.ops.runcc import detect_batch_runs
+
+    T = fr.shape[0]
+    P = params_from_settings(settings)
+    P0 = params_from_settings(dict(settings, calculate_posture=False))
+    spec = spec_from_settings(settings, crop_h=96, crop_w=96)
+    split = default_split_spec(settings, P)
+    kw = _detect_kwargs(settings, TRACK_CAPS)
+    aux0 = posture_aux(P0, T)
+    aux = posture_aux(P, T)
+
+    def run(p, a, **extra):
+        return fused_scan_packed(fr, bgt, a, p, split_spec=split,
+                                 device=dev, **extra, **kw)
+
+    fused_scan_packed(fr[:4], bgt, aux, P, split_spec=split,
+                      posture_spec=spec, device=dev, **kw)  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    plain = run(P0, aux0).cpu().numpy()
+    scan_s = time.perf_counter() - t0
+    sync()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    packed = run(P, aux, posture_spec=spec, posture_stats=stats)
+    packed = packed.cpu().numpy()
+    posture_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    det = detections_from_runcc(detect_batch_runs(fr, bgt, device=dev, **kw),
+                                P)
+    carry0, pdir0, times, fidx = _aux_split(
+        torch.as_tensor(aux, device=dev), T, P)
+    hist, _ = _scan_impl(det, times, fidx, P, carry0, fr, bgt, split)
+    sync()
+    t0 = time.perf_counter()
+    again, launches, by_part, part_ms = launches_by_range(
+        lambda: _posture_scan(fr, bgt, det, dict(hist), pdir0, P, spec),
+        (POSTURE_RANGE,))
+    profile_s = time.perf_counter() - t0
+    h, _ = unpack_result(packed, T, P)
+    check(np.array_equal(again["p_ok"].cpu().numpy(), h["p_ok"]),
+          "posture: the profiled pass differs from the timed one")
+    h0, _ = unpack_result(plain, T, P0)
+    for k in ("fish_row", "fish_seen", "fish_child", "n_assigned",
+              "fish_x", "fish_y"):
+        check(np.array_equal(h[k], h0[k]),
+              f"posture: the posture pass changed the scan's {k}")
+    check(not (h0["needs_host"] & ~h["needs_host"]).any(),
+          "posture: a frame the scan flags lost its flag")
+    for k in ("p_len", "p_ang"):
+        check(bool(np.isfinite(h[k]).all()), f"posture: non-finite {k}")
+    check(h["p_ok"].any() and (h["p_len"][h["p_ok"]] > 1).all(),
+          "posture: no midline, or one of length <= 1 px")
+    assigned = h["fish_row"] >= 0
+    causes = {k: int(stats[k].sum()) for k in ("child", "too_big",
+                                                 "overflow")}
+    flagged = h["needs_host"] & ~h0["needs_host"]
+    return dict(
+        frames=T, scan_s=scan_s, scan_fps=T / scan_s, posture_s=posture_s,
+        posture_fps=T / posture_s,
+        posture_pass_ms_per_frame=(posture_s - scan_s) / T * 1e3,
+        profile_s=profile_s,
+        assigned_lanes=int(assigned.sum()),
+        active_lanes=stats["active_lanes"], ok_lanes=stats["ok_lanes"],
+        ok_share=stats["ok_lanes"] / max(1, stats["active_lanes"]),
+        flagged_frames=int(h["needs_host"].sum()),
+        flagged_by_scan=int(h0["needs_host"].sum()),
+        flagged_by_posture_only=int(flagged.sum()),
+        frames_by_cause=causes,
+        escalation_rounds_max=len(stats["round_lanes"]),
+        round_lanes=stats["round_lanes"],
+        trace_points_max=stats["trace_points_max"],
+        walk_segments_max=stats["walk_segments_max"],
+        posture_launches_per_frame=None if launches is None
+        else by_part[POSTURE_RANGE] / T,
+        posture_device_ms_per_frame=None if launches is None
+        else part_ms[POSTURE_RANGE] / T,
+        peak_mem_mb=peak / 2 ** 20), h
+
+
+def phase_posture(dev, report, bg, frames, dt_frames=(64, 16)):
+    """Posture on the card over the chunk of phase 4, in the base
+    configuration and the product default; DeviceTracker over the first
+    `dt_frames` frames of each (the product default's assists relaunch
+    the scan and its posture pass over the rest of the chunk)."""
+    import tempfile
+
+    import torch
+
+    from trex_tpu_torch.ops.device_posture import spec_from_settings
+    from trex_tpu_torch.ops.device_tracker import (
+        _detect_kwargs, fused_scan_packed, params_from_settings,
+        unpack_result)
+    from trex_tpu_torch.ops.labeling import label_blobs
+    from trex_tpu_torch.track.blob import TrackBlob
+    from trex_tpu_torch.track.device_engine import (DeviceTracker,
+                                                    export_positions,
+                                                    positions_of)
+
+    fr = torch.as_tensor(frames, device=dev)
+    bgt = torch.as_tensor(bg, device=dev)
+    out = {}
+    clock = {}
+    t_phase = time.perf_counter()
+    for (name, base), n_dt in zip((("base", track_settings()),
+                                   ("auto", auto_settings())), dt_frames):
+        settings = posture_settings(base)
+        r, _ = posture_chunk(dev, settings, fr, bgt)
+        t0 = time.perf_counter()
+        tr = DeviceTracker(settings, bg, chunk=n_dt, caps=TRACK_CAPS,
+                           device=dev).track_frames(frames[:n_dt])
+        dt_s = time.perf_counter() - t0
+        check(sorted(tr.history) == list(range(n_dt))
+              and sorted(tr.posture_history) == list(range(n_dt)),
+              f"posture {name}: DeviceTracker left frames without history")
+        r["device_tracker"] = dict(
+            frames=n_dt, s=dt_s, fps=n_dt / dt_s,
+            assist_frames=tr.assist_frames,
+            frames_scanned=tr.frames_scanned, scan_s=tr.scan_seconds,
+            replay_s=sum(tr.statistics[f].adding_seconds
+                         for f in tr.assist_frames),
+            postures=sum(int(np.sum(h["ok"]))
+                         for h in tr.posture_history.values()))
+        out[name] = r
+        clock[name] = time.perf_counter() - t_phase
+
+    # held to the host engine, on the card: the asymmetric scene on the
+    # fused path (posture on the card, no assist) and on the blob path
+    # (the host's native chain per committed span)
+    abg, aframes, asettings = asym_scene()
+    n = len(aframes)
+    host, _ = host_track(aframes, abg, asettings)
+    fused = DeviceTracker(asettings, abg, chunk=8,
+                          device=dev).track_frames(aframes)
+    check(not fused.assist_frames, f"posture: the asymmetric scene "
+          f"replayed frames {fused.assist_frames}")
+    blobs = DeviceTracker(asettings, abg, chunk=16, device=dev)
+    kw = _detect_kwargs(asettings, {})
+    for f in range(n):
+        blobs.add_frame_blobs(f, f / 25.0, [
+            TrackBlob(b.lines, b.pixels, stats=b.stats)
+            for b in label_blobs(aframes[f], abg, threshold=kw[
+                "detect_threshold"], absolute=kw["detect_absolute"],
+                track_threshold=kw["track_threshold"],
+                track_absolute=kw["track_absolute"])])
+    blobs.finalize()
+    for label, d in (("fused", fused), ("blob", blobs)):
+        bad = posture_departures(host, d, n)
+        check(not bad and departures(host, d, n) == []
+              and len(d.posture_history) == len(host.posture_history),
+              f"posture: the {label} path departs from the host "
+              f"FastTracker at frames {bad[:5]}")
+    clock["held"] = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory() as tmp:
+        export_positions(fused, Path(tmp) / "pos.npz")
+        pos = dict(np.load(Path(tmp) / "pos.npz"))
+    check(set(pos) >= set(positions_of(fused)) and pos["posture_ok"].any()
+          and (pos["midline_length"][pos["posture_ok"]] > 1).all(),
+          "posture: export_positions has no posture, or a length <= 1")
+
+    # a small chunk: the card against the port's CPU path
+    sbg, sframes = synth_frames(16, n_fish=24, size=192, seed=3)
+    small = posture_settings(auto_settings(24))
+    caps = dict(max_runs=1024, max_pixels=1 << 14, max_blobs=64,
+                max_child_runs=1024, max_children=64)
+    P = params_from_settings(small)
+    spec = spec_from_settings(small, crop_h=96, crop_w=96)
+    aux = posture_aux(P, 16)
+    res = {}
+    for d in (dev, "cpu"):
+        res[str(d)] = unpack_result(fused_scan_packed(
+            sframes, sbg, aux, P, posture_spec=spec, device=d,
+            **_detect_kwargs(small, caps)), 16, P)[0]
+    g, c = res[str(dev)], res["cpu"]
+    for k in ("fish_row", "fish_seen", "fish_child", "needs_host",
+              "n_assigned", "fish_x", "fish_y", "p_ok"):
+        check(np.array_equal(g[k], c[k]), f"posture small chunk {k}: "
+              "card != CPU")
+    ok = c["p_ok"]
+    len_err = float(np.abs(g["p_len"] - c["p_len"])[ok].max(initial=0.0))
+    da = np.abs(g["p_ang"] - c["p_ang"])[ok]
+    ang_err = float(np.minimum(da, 2 * np.pi - da).max(initial=0.0))
+    check(ok.any() and len_err < 0.05 and ang_err < 1e-3,
+          f"posture small chunk: {int(ok.sum())} postures, length error "
+          f"{len_err}, angle error {ang_err}")
+    out.update(
+        equal_to_host=dict(frames=n, assists_fused=fused.assist_frames,
+                           assists_blob=blobs.assist_frames,
+                           postures=sum(int(np.sum(h["ok"])) for h in
+                                        fused.posture_history.values())),
+        small_chunk=dict(postures=int(ok.sum()), max_len_err=len_err,
+                         max_ang_err=ang_err),
+        clock_s=dict(clock, small=time.perf_counter() - t_phase))
+    report["posture"] = out
+    for name in ("base", "auto"):
+        r = out[name]
+        dt = r["device_tracker"]
+        print(f"phase 7 {name}: scan {r['scan_fps']:.1f} frames/s, with "
+              f"posture {r['posture_fps']:.1f}; {r['active_lanes']} active "
+              f"lanes, {r['ok_share']:.3f} with a posture; flagged "
+              f"{r['flagged_frames']}/{r['frames']} ({r['flagged_by_scan']} "
+              f"by the scan; by cause {r['frames_by_cause']}); rounds "
+              f"{r['escalation_rounds_max']}, trace points max "
+              f"{r['trace_points_max']}; {r['posture_launches_per_frame']} "
+              f"launches and {r['posture_device_ms_per_frame']} device ms a "
+              f"frame in trex.posture; peak {r['peak_mem_mb']:.0f} MiB; "
+              f"DeviceTracker {dt['fps']:.1f} frames/s over {dt['frames']}, "
+              f"{len(dt['assist_frames'])} assists, {dt['frames_scanned']} "
+              f"frames scanned, replay {dt['replay_s']:.3f} s, "
+              f"{dt['postures']} postures", flush=True)
+    print(f"phase 7 ok: equal to the host engine on the asymmetric scene "
+          f"(fused and blob paths); small chunk card == CPU, length error "
+          f"{len_err:.2e}, angle error {ang_err:.2e}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the report as JSON here")
@@ -1093,6 +1419,7 @@ def main():
     chunk = phase_track(dev, report)
     phase_device_tracker(dev, report, *chunk)
     phase_auto_split(dev, report, *chunk[:2])
+    phase_posture(dev, report, *chunk[:2])
     report["total_s"] = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1109,7 +1436,7 @@ def main():
             json.dump(report, f, indent=1)
     print(json.dumps({k: report[k] for k in (
         "detect", "label", "track", "device_tracker", "auto_split",
-        "build_s", "total_s")}))
+        "posture", "build_s", "total_s")}))
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -51,11 +51,14 @@ def test_track_frames_resumes_across_calls():
 @pytest.mark.parametrize("key,value", [
     ("match_mode", "benchmark"),
     ("track_ignore", [[[0, 0], [4, 0], [4, 4]]]),
-    ("calculate_posture", True),
+    ("posture_closing_steps", 1),
     ("track_speed_decay", 0.5),
 ])
 def test_unsupported_configs_raise_in_constructor(key, value):
-    d = as_dict(settings(2))
+    """With posture on (the default), which closing steps keep off the
+    engine, as in the JAX package."""
+    d = as_dict(settings(2, calculate_posture=True))
+    DeviceTracker(d, np.zeros((8, 8), np.uint8), device="cpu")
     d[key] = value
     with pytest.raises(EngineUnsupported):
         DeviceTracker(d, np.zeros((8, 8), np.uint8), device="cpu")

@@ -220,10 +220,22 @@ def test_resume_from_jax_carry():
     _compare_hist(ref, got)
 
 
+def test_track_video_device_with_posture_equals_jax():
+    """track_video_device runs no posture in the JAX package either:
+    with calculate_posture on, the history equals the JAX twin's."""
+    n_fish, frames, bg = _dense_scene()
+    s = _settings(n_fish)
+    s.set("calculate_posture", True)
+    ref = jax.device_get(J.track_video_device(frames, bg, s, **CAPS))
+    got = T.track_video_device(frames, bg, _as_dict(s), device="cpu",
+                               **CAPS)
+    assert T.params_from_settings(_as_dict(s)).do_posture
+    _compare_hist(ref, got)
+
+
 @pytest.mark.parametrize("key,value", [
     ("track_speed_decay", 0.8),
     ("track_speed_decay", 0.0),
-    ("calculate_posture", True),
 ])
 def test_later_slice_configs_raise(key, value):
     s = _as_dict(_settings(2))

@@ -243,13 +243,16 @@ def test_start_frame_split_creates_both_fish():
 @pytest.mark.parametrize("key,value", [
     ("match_mode", "benchmark"),
     ("track_threshold_2", 30),
-    ("calculate_posture", True),
+    ("posture_closing_steps", 1),
     ("track_speed_decay", 0.7),
     ("manual_matches", {0: {0: 1}}),
     ("track_threshold", 0),
 ])
 def test_unsupported_configs_raise_in_constructor(key, value):
-    d = as_dict(settings(2))
+    """With posture on (the default), which closing steps keep off the
+    engine, as in the JAX package."""
+    d = as_dict(settings(2, calculate_posture=True))
+    check_supported(d)
     d[key] = value
     with pytest.raises(EngineUnsupported):
         check_supported(d)

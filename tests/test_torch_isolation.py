@@ -118,6 +118,8 @@ def test_host_labeler_built_from_the_port():
     from trex_tpu_torch.ops import labeling
 
     assert labeling.NATIVE == REPO / "trex_tpu_torch" / "native"
+    assert labeling.SOURCES == ("labeling.cpp", "tracker_core.cpp",
+                                "posture_chain.cpp")
     assert sorted(p.name for p in labeling.NATIVE.iterdir()) \
         == sorted(labeling.SOURCES + labeling.HEADERS)
     lib = labeling._lib()
@@ -133,8 +135,16 @@ def test_package_lists_every_module():
     for name in ("device", "convert", "kernels", "config.defaults",
                  "ops.cc_device", "ops.device_pipeline", "ops.runcc",
                  "ops.device_match", "ops.device_split",
-                 "ops.device_tracker", "ops.labeling",
+                 "ops.device_posture", "ops.device_tracker", "ops.labeling",
                  "track.blob", "track.prefilter", "track.splitting",
                  "track.matching", "track.tracker", "track.engine",
-                 "track.device_engine"):
+                 "track.device_engine", "track.posture"):
         assert f"trex_tpu_torch.{name}" in mods
+
+
+@pytest.mark.parametrize("name", ["labeling.cpp", "tracker_core.cpp",
+                                  "posture_chain.cpp", "simd_clones.h"])
+def test_native_copies_equal_the_jax_package_sources(name):
+    """The port's native sources are byte-equal copies of native/."""
+    assert (REPO / "trex_tpu_torch" / "native" / name).read_bytes() \
+        == (REPO / "native" / name).read_bytes()

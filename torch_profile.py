@@ -12,7 +12,10 @@ the run-based detection alone, the tracking chunk
 engine over the same chunk (``DeviceTracker.track_frames``), both in the
 base configuration and in the product default (``auto``: the optimal
 matcher and the history split on the card; the product engine over the
-chunk's first 32 frames, as ``chip_smoke.py`` phase 6 runs it).
+chunk's first 32 frames, as ``chip_smoke.py`` phase 6 runs it), and
+with posture (``chip_smoke.posture_settings``: ``fused_scan_packed``
+with the posture pass over the 64 frames in both configurations, the
+product engine over the first 32 frames in the base one).
 ``--only`` profiles the named targets alone. For each it
 prints the host wall time, the summed device time of the kernels and the
 device's idle share over the call, the kernels with the most device time,
@@ -45,9 +48,11 @@ def profile_call(fn, top=12) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    from trex_tpu_torch.ops.device_tracker import AUCTION_RANGE, SPLIT_RANGE
+    from trex_tpu_torch.ops.device_tracker import (AUCTION_RANGE,
+                                                   POSTURE_RANGE,
+                                                   SPLIT_RANGE)
 
-    names = (AUCTION_RANGE, SPLIT_RANGE)
+    names = (AUCTION_RANGE, SPLIT_RANGE, POSTURE_RANGE)
     rows = prof.key_averages()
     # record_function ranges also show on the device timeline as spans,
     # which are no kernels
@@ -62,8 +67,8 @@ def profile_call(fn, top=12) -> dict:
     def by(es):
         return sorted(es, key=smoke.device_us, reverse=True)[:top]
 
-    # launches and device time inside the scan's record_function ranges
-    # (the auction, the history split)
+    # launches and device time inside the record_function ranges (the
+    # auction, the history split, the posture pass)
     ranges = {r: {"launches": 0, "device_ms": 0.0} for r in names}
     for e in prof.events():
         ks = [k for k in e.kernels if k.name not in ranges]
@@ -105,7 +110,12 @@ def main():
         return 1
     from trex_tpu_torch.ops.cc_device import label_components
     from trex_tpu_torch.ops.device_pipeline import detect_batch
+    from trex_tpu_torch.ops.device_posture import (
+        spec_from_settings as posture_spec)
     from trex_tpu_torch.ops.device_tracker import (_detect_kwargs,
+                                                   default_split_spec,
+                                                   fused_scan_packed,
+                                                   params_from_settings,
                                                    track_video_device)
     from trex_tpu_torch.ops.runcc import detect_batch_runs
     from trex_tpu_torch.track.device_engine import DeviceTracker
@@ -120,6 +130,16 @@ def main():
     mask = ((bgt.to(torch.int16)[None] - fr[:32].to(torch.int16)) >= 15) \
         & (fr[:32] > 0)
     auto = smoke.auto_settings()
+
+    def posture_scan(base):
+        s = smoke.posture_settings(base)
+        P = params_from_settings(s)
+        aux = smoke.posture_aux(P, len(frames))
+        return lambda: fused_scan_packed(
+            fr, bgt, aux, P, split_spec=default_split_spec(s, P),
+            posture_spec=posture_spec(s, crop_h=96, crop_w=96), device=dev,
+            **_detect_kwargs(s, smoke.TRACK_CAPS))
+
     targets = {
         "detect_batch_pallas_32": lambda: detect_batch(
             fr[:32], bgt, use_pallas=True, device=dev, **kw),
@@ -138,6 +158,11 @@ def main():
         "device_tracker_auto_32": lambda: DeviceTracker(
             auto, bg, chunk=32, caps=smoke.TRACK_CAPS,
             device=dev).track_frames(frames[:32]),
+        "fused_scan_posture_64": posture_scan(settings),
+        "fused_scan_posture_auto_64": posture_scan(auto),
+        "device_tracker_posture_32": lambda: DeviceTracker(
+            smoke.posture_settings(settings), bg, chunk=32,
+            caps=smoke.TRACK_CAPS, device=dev).track_frames(frames[:32]),
     }
     report = {name: profile_call(fn) for name, fn in targets.items()
               if not args.only or name in args.only}

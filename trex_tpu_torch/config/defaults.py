@@ -3,8 +3,9 @@
 Copied from ``trex_tpu/config/params_table.json`` (the ``default``
 column) for the keys that the device tracker's ``params_from_settings``
 and ``_detect_kwargs``, the host ``FastTracker`` (``check_supported``,
-its constructor, the prefilter and the start-frame split) and
-``DeviceTracker`` read. The port's functions take ``settings`` as any
+its constructor, the prefilter and the start-frame split),
+``DeviceTracker`` and the posture chain (``ops/device_posture.py``,
+``track/posture.py``) read. The port's functions take ``settings`` as any
 mapping (a plain ``dict`` works) and fall back to these values.
 """
 from __future__ import annotations
@@ -56,6 +57,17 @@ DEFAULTS: dict = {
     "track_posture_threshold": 0,
     "blob_split_max_shrink": 0.2,
     "blob_split_global_shrink_limit": 0.2,
+    # posture (ops/device_posture.py, track/posture.py)
+    "outline_resample": 1.0,
+    "outline_smooth_samples": 4,
+    "outline_smooth_step": 1,
+    "outline_approximate": 3,
+    "outline_curvature_range_ratio": 0.03,
+    "midline_walk_offset": 0.025,
+    "midline_stiff_percentage": 0.15,
+    "midline_resolution": 25,
+    "midline_invert": False,
+    "midline_start_with_head": False,
 }
 
 

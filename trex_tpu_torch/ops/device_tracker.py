@@ -2,8 +2,8 @@
 
 Counterpart of ``trex_tpu/ops/device_tracker.py`` for every match mode
 the engines accept (``approximate``, and the optimal ``automatic``,
-``hungarian`` and ``tree``) with or without the history split, at
-``track_speed_decay`` 1 and without posture. The per-frame tracking
+``hungarian`` and ``tree``) with or without the history split and with
+or without posture, at ``track_speed_decay`` 1. The per-frame tracking
 recurrence runs over a chunk of detected frames with the tracker state
 as carry; the result layout (packed carry vectors, packed per-frame
 result) is byte-identical to the reference's, so a chunk can be resumed
@@ -33,12 +33,20 @@ Per frame (the reference's ``_scan_impl`` step):
   split on the card only at the start frame), split capacity overflows
   and the trusted-probability cut.
 
-The frame loop is a Python loop, and the greedy pass, the auction and
-the split executor sync with the host every few rounds: correct and
-slow. Capturing a chunk in a CUDA graph or a persistent kernel is later
-work.
+With ``calculate_posture`` the fused path runs the posture pass after
+the scan, in the same call (``_posture_scan``, ``ops/device_posture.py``):
+every (frame, fish) assignment of the chunk through one batch of the
+posture chain, then the frame-sequential orientation select; frames
+whose assignments include a split child, a blob too big for the crop or
+a capacity overflow are flagged ``needs_host``. The packed result and
+carry then carry the posture fields and the per-fish direction section.
 
-Speed decay and posture raise NotImplementedError until their slices.
+The frame loop is a Python loop, and the greedy pass, the auction, the
+split executor and the posture loops sync with the host every few
+rounds: correct and slow. Capturing a chunk in a CUDA graph or a
+persistent kernel is later work.
+
+Speed decay raises NotImplementedError until its slice.
 """
 from __future__ import annotations
 
@@ -52,6 +60,8 @@ from ..config import SettingsView
 from ..device import resolve_device
 from .device_match import (GAP_GUARD, TIE_GUARD, auction_match,
                            edge_boundary_marginal)
+from .device_posture import (PostureSpec, posture_lanes_batched,
+                             posture_select_scan)
 from .device_split import (SplitSpec, _hypot, expectation_counts,
                            spec_from_settings, split_execute_device)
 from .runcc import I32_MAX, detect_batch_runs
@@ -90,22 +100,18 @@ class TrackParams(NamedTuple):
 # widen the matching passes' deferral bands
 EPS32 = float(2.0 ** -23)
 # torch.profiler ranges of the frame step's optimal matcher and history
-# split, for launch counts by part
+# split and of the chunk's posture pass, for launch counts by part
 AUCTION_RANGE = "trex.auction_match"
 SPLIT_RANGE = "trex.history_split"
+POSTURE_RANGE = "trex.posture"
 
 
 def _require_base(P: TrackParams) -> None:
     """Raise for the configurations the port does not track yet."""
-    missing = []
     if P.do_decay:
-        missing.append("track_speed_decay < 1 (decay slice)")
-    if P.do_posture:
-        missing.append("calculate_posture (device_posture slice)")
-    if missing:
         raise NotImplementedError(
             "trex_tpu_torch does not track this configuration yet; "
-            "ported in a later slice: " + ", ".join(missing))
+            "ported in a later slice: track_speed_decay < 1 (decay slice)")
 
 
 def _in_size_ranges(size, ranges: tuple, lo: float, hi: float):
@@ -640,12 +646,23 @@ def track_scan(det: dict, times, frames_idx, P: TrackParams,
 # ---------------------------------------------------------------------------
 
 def carry_vec_size(P: TrackParams) -> int:
-    """Width of the packed carry: five (F,) rows, the (F, frame_rate)
-    seen ring, then n_fish, start_frame, prev_time. (Decay and posture
-    append sections in later slices.)"""
+    """Width of the packed carry: the tracking scan's section, then with
+    posture the (F, 2) previous-midline-direction section. (Decay adds
+    its section in a later slice.)"""
+    return _track_vec_size(P) + (2 * P.max_fish if P.do_posture else 0)
+
+
+def _track_vec_size(P: TrackParams) -> int:
+    """Width of the tracking scan's carry: five (F,) rows, the (F,
+    frame_rate) seen ring, then n_fish, start_frame, prev_time."""
     _require_base(P)
     F = P.max_fish
     return 5 * F + F * P.frame_rate + 3
+
+
+def n_fish_index(P: TrackParams) -> int:
+    """Position of n_fish in the packed carry."""
+    return 5 * P.max_fish + P.max_fish * P.frame_rate
 
 
 def _carry_to_vec(c: dict) -> torch.Tensor:
@@ -659,10 +676,11 @@ def _carry_to_vec(c: dict) -> torch.Tensor:
 
 
 def carry_to_vec(carry) -> np.ndarray:
-    """Host-side carry dict (numpy or tensors) -> 1-D float32 vector."""
+    """Host-side carry dict (numpy or tensors) -> 1-D float32 vector;
+    a "posture_dir" (F, 2) entry becomes the trailing posture section."""
     c = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
              else np.asarray(v)) for k, v in carry.items()}
-    return np.concatenate([
+    parts = [
         c["last_x"].astype(np.float32),
         c["last_y"].astype(np.float32),
         c["last_time"].astype(np.float32),
@@ -670,7 +688,10 @@ def carry_to_vec(carry) -> np.ndarray:
         c["n_basic"].astype(np.float32),
         c["seen"].astype(np.float32).reshape(-1),
         np.asarray([float(c["n_fish"]), float(c["start_frame"]),
-                    float(c["prev_time"])], np.float32)])
+                    float(c["prev_time"])], np.float32)]
+    if "posture_dir" in c:
+        parts.append(c["posture_dir"].astype(np.float32).reshape(-1))
+    return np.concatenate(parts)
 
 
 def carry_from_vec_np(vec: np.ndarray, P: TrackParams) -> dict:
@@ -695,11 +716,15 @@ def carry_from_vec_np(vec: np.ndarray, P: TrackParams) -> dict:
         seen=take(F * W).reshape(F, W) > 0.5,
         n_fish=int(vec[o]), start_frame=int(vec[o + 1]),
         prev_time=float(vec[o + 2]))
+    o += 3
+    if P.do_posture:
+        out["posture_dir"] = take(2 * F).reshape(F, 2).astype(np.float64)
     return out
 
 
 def _carry_from_vec(vec: torch.Tensor, P: TrackParams) -> dict:
-    """Packed float32 carry tensor -> the scan's carry dict."""
+    """Packed float32 carry tensor -> the scan's carry dict (the tracking
+    section; a posture section after it is not read)."""
     _require_base(P)
     F = P.max_fish
     W = P.frame_rate
@@ -716,10 +741,12 @@ def _carry_from_vec(vec: torch.Tensor, P: TrackParams) -> dict:
         prev_time=tail[2].clone())
 
 
-def _pack_result(hist: dict, overflow) -> torch.Tensor:
+def _pack_result(hist: dict, overflow, P: TrackParams) -> torch.Tensor:
     """Per-frame history -> the 1-D float32 result of the packed entry
     points; ``needs_host`` and detect overflow share one flags row
-    (needs_host + 2 * overflow)."""
+    (needs_host + 2 * overflow). With posture, the posture lengths,
+    angles and flags follow, and each frame's carry row ends with its
+    posture-direction section."""
     parts = [
         hist["fish_x"].to(_F32).reshape(-1),
         hist["fish_y"].to(_F32).reshape(-1),
@@ -729,8 +756,16 @@ def _pack_result(hist: dict, overflow) -> torch.Tensor:
         hist["fish_prob"].to(_F32).reshape(-1),
         hist["n_assigned"].to(_F32),
         hist["needs_host"].to(_F32) + 2.0 * overflow.to(_F32),
-        hist["carry_vec"].reshape(-1),
     ]
+    carry = hist["carry_vec"]
+    if P.do_posture:
+        T, F = hist["fish_x"].shape
+        parts += [hist["p_len"].to(_F32).reshape(-1),
+                  hist["p_ang"].to(_F32).reshape(-1),
+                  hist["p_ok"].to(_F32).reshape(-1)]
+        carry = torch.cat([carry, hist["p_dir"].to(_F32).reshape(T, 2 * F)],
+                          1)
+    parts.append(carry.reshape(-1))
     return torch.cat(parts)
 
 
@@ -762,19 +797,27 @@ def unpack_result(vec: np.ndarray, T: int, P: TrackParams):
                 n_assigned=n_assigned,
                 needs_host=(flags % 2) >= 1,
                 detect_overflow=flags >= 2)
+    if P.do_posture:
+        hist["p_len"] = take(T * F).reshape(T, F).astype(np.float64)
+        hist["p_ang"] = take(T * F).reshape(T, F).astype(np.float64)
+        hist["p_ok"] = take(T * F).reshape(T, F) > 0.5
     cs = carry_vec_size(P)
     carry_rows = take(T * cs).reshape(T, cs)
-    hist["n_fish"] = np.int32(carry_rows[-1, 5 * F + F * P.frame_rate])
+    hist["n_fish"] = np.int32(carry_rows[-1, n_fish_index(P)])
     return hist, carry_rows
 
 
 def _aux_split(aux: torch.Tensor, T: int, P: TrackParams):
-    """aux -> (tracking carry dict, times, frame indices)."""
+    """aux -> (tracking carry dict, posture_dir (F, 2) or None, times,
+    frame indices). The posture section is not part of the tracking
+    scan's carry: the posture pass reads it."""
+    base = _track_vec_size(P)
     cs = carry_vec_size(P)
-    carry0 = _carry_from_vec(aux[:cs], P)
+    carry0 = _carry_from_vec(aux[:base], P)
+    pdir0 = aux[base:cs].reshape(P.max_fish, 2) if P.do_posture else None
     times = aux[cs:cs + T]
     fidx = aux[cs + T:cs + 2 * T].to(_I32)
-    return carry0, times, fidx
+    return carry0, pdir0, times, fidx
 
 
 def make_aux(carry_vec: np.ndarray, times, frames_idx) -> np.ndarray:
@@ -790,7 +833,9 @@ def scan_packed(det_packed, aux, P: TrackParams, B: int, R: int = 0,
     det_packed is (T, 6B [+ 4R]) float32: [cx, cy, bcx, bcy, recount,
     valid (+ runs_y, x0, x1, slot)]; aux = make_aux(carry_vec, times,
     frame indices). The run tables feed the history split's contested
-    trigger."""
+    trigger. Without pixels there is no posture on this path: its
+    fields stay empty and the carry's posture section rides through
+    (the DeviceTracker runs posture on the host)."""
     _require_base(P)
     dev = resolve_device(device)
     det_packed = torch.as_tensor(det_packed, dtype=_F32, device=dev)
@@ -808,19 +853,83 @@ def scan_packed(det_packed, aux, P: TrackParams, B: int, R: int = 0,
         for i, k in enumerate(("runs_y", "runs_x0", "runs_x1",
                                "runs_slot")):
             det[k] = det_packed[:, base + i * R:base + (i + 1) * R].to(_I32)
-    carry0, times, fidx = _aux_split(aux, T, P)
+    carry0, pdir0, times, fidx = _aux_split(aux, T, P)
     hist, _ = _scan_impl(det, times, fidx, P, carry0)
-    return _pack_result(hist, torch.zeros(T, dtype=torch.bool, device=dev))
+    if P.do_posture:
+        _no_posture(hist, pdir0, P)
+    return _pack_result(hist, torch.zeros(T, dtype=torch.bool, device=dev),
+                        P)
+
+
+def _no_posture(hist: dict, pdir0, P: TrackParams) -> None:
+    """Empty posture fields; the direction section carries on as given."""
+    T = hist["fish_x"].shape[0]
+    F = P.max_fish
+    dev = pdir0.device
+    hist["p_len"] = torch.zeros((T, F), dtype=_F32, device=dev)
+    hist["p_ang"] = torch.zeros((T, F), dtype=_F32, device=dev)
+    hist["p_ok"] = torch.zeros((T, F), dtype=torch.bool, device=dev)
+    hist["p_dir"] = pdir0[None].expand(T, F, 2)
+
+
+def _posture_scan(frames, background, det, hist, pdir0, P: TrackParams,
+                  spec: PostureSpec, stats: dict = None):
+    """Posture pass over the scan's assignments (the host engine's
+    _run_posture_batch): every (frame, fish) lane of the chunk through
+    one batch of the chain (posture_lanes_batched), then the
+    frame-sequential orientation select (posture_select_scan). A frame
+    whose assigned lanes include a split child (no run tables), a blob
+    too big for the crop or a capacity overflow needs the host.
+
+    `stats`, when given, gets the active lanes, the lanes with a
+    posture, the frames flagged by each cause ((T,) bool: "child",
+    "too_big", "overflow") and the chain's loop counts."""
+    with record_function(POSTURE_RANGE):
+        B = det["bx0"].shape[1]
+        f_row = hist["fish_row"]                          # (T, F)
+        assigned = f_row >= 0
+        bi = f_row.clamp(0, B - 1).to(_I32)
+        box = {k: torch.gather(det[k], 1, bi.long())
+               for k in ("bx0", "by0", "bx1", "by1")}
+        too_big = (box["bx1"] - box["bx0"] + 3 > spec.crop_w) \
+            | (box["by1"] - box["by0"] + 3 > spec.crop_h)
+        active = assigned & ~hist["fish_child"] & ~too_big
+        out = posture_lanes_batched(
+            frames, background, bi, box["bx0"], box["by0"], det["runs_y"],
+            det["runs_x0"], det["runs_x1"], det["runs_slot"], active, spec,
+            stats)
+        p_len, p_ang, p_ok, p_dir, _ = posture_select_scan(
+            out, pdir0.to(_F32), spec)
+        host = (assigned & (hist["fish_child"] | too_big
+                            | out["overflow"])).any(1)
+        hist.update(p_len=p_len, p_ang=p_ang, p_ok=p_ok, p_dir=p_dir)
+        hist["needs_host"] = hist["needs_host"] | host
+    if stats is not None:
+        stats.update(
+            active_lanes=int(active.sum()), ok_lanes=int(p_ok.sum()),
+            child=(assigned & hist["fish_child"]).any(1).cpu().numpy(),
+            too_big=(assigned & too_big).any(1).cpu().numpy(),
+            overflow=(assigned & out["overflow"]).any(1).cpu().numpy())
+    return hist
 
 
 def fused_scan_packed(frames, background, aux, P: TrackParams,
-                      split_spec: SplitSpec = None, device=None,
-                      **kw) -> torch.Tensor:
+                      split_spec: SplitSpec = None,
+                      posture_spec: PostureSpec = None, device=None,
+                      posture_stats: dict = None, **kw) -> torch.Tensor:
     """Fused detect + scan with one packed output array (the raw-frames
     product path): ``kw`` are detect_batch_runs' threshold and capacity
     options, ``aux = make_aux(carry_vec, times, frame indices)``;
     `split_spec` (``default_split_spec``) runs history splits on the
-    card."""
+    card, `posture_spec` (``ops/device_posture.spec_from_settings``) the
+    posture pass after the scan. The JAX package's ``two_stage`` option
+    splits this call in two programs to dodge an XLA compile problem;
+    the port has the one path, posture after the scan in the same call.
+    `posture_stats`, when given, receives _posture_scan's stats.
+
+    With posture on and no enabled spec, as in the JAX package, the
+    posture fields stay empty and every frame with an assignment needs
+    the host."""
     _require_base(P)
     dev = resolve_device(device)
     frames = torch.as_tensor(frames, device=dev)
@@ -828,10 +937,19 @@ def fused_scan_packed(frames, background, aux, P: TrackParams,
     out = detect_batch_runs(frames, background, device=dev, **kw)
     det = detections_from_runcc(out, P)
     aux = torch.as_tensor(aux, dtype=_F32, device=dev)
-    carry0, times, fidx = _aux_split(aux, out["overflow"].shape[0], P)
+    carry0, pdir0, times, fidx = _aux_split(aux, out["overflow"].shape[0],
+                                            P)
     hist, _ = _scan_impl(det, times, fidx, P, carry0, frames, background,
                          split_spec)
-    return _pack_result(hist, out["overflow"])
+    if P.do_posture:
+        if posture_spec is not None and posture_spec.enabled:
+            hist = _posture_scan(frames, background, det, hist, pdir0, P,
+                                 posture_spec, posture_stats)
+        else:
+            _no_posture(hist, pdir0, P)
+            hist["needs_host"] = hist["needs_host"] \
+                | (hist["fish_row"] >= 0).any(1)
+    return _pack_result(hist, out["overflow"], P)
 
 
 def detections_from_runcc(out: dict, P: TrackParams) -> dict:

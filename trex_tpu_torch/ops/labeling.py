@@ -7,7 +7,9 @@ union-find labelling with 8-connectivity over thresholded
 background-difference images, the history split's expectation and
 threshold-escalation executor) and ``tracker_core.cpp`` (the automatic
 mode's matching phases: caches, paired probabilities with per-clique
-matching, reactivation).
+matching, reactivation) and ``posture_chain.cpp`` (the batched posture
+chain of ``track/posture.py``, which calls ``labeling.cpp``'s labeler,
+boundary trace and outline resample).
 
 The library is compiled with ``g++`` at first use into
 ``build/trex_tpu_torch/`` (a directory git ignores), under a name that
@@ -33,7 +35,7 @@ import numpy as np
 from ..kernels import BUILD_DIR
 
 NATIVE = Path(__file__).resolve().parents[1] / "native"
-SOURCES = ("labeling.cpp", "tracker_core.cpp")
+SOURCES = ("labeling.cpp", "tracker_core.cpp", "posture_chain.cpp")
 HEADERS = ("simd_clones.h",)
 GXX_FLAGS = ["-O3", "-ffp-contract=off", "-std=c++20", "-shared", "-fPIC"]
 
@@ -131,6 +133,12 @@ _SIGNATURES = {
     "trex_track_reactivate": (None, [_i32p, _i32, _c, _f64p, _f64p, _f64p,
                                      _i32p, _i32, _f64p, _f64p, _f64,
                                      _i32p]),
+    # posture_chain.cpp
+    "trex_posture_batch": (None, [_i32p, _i64p, _c, _i64p, _i64, _c, _i32,
+                                  _i32, _i32, _i32, _f64, _f64, _i32, _i32,
+                                  _f64, _i32, _f64, _f64, _i32, _i32, _f64p,
+                                  _c, _f64p, _f64p, _f64p, _f64p, _i32p,
+                                  _i32]),
 }
 
 _lib_obj = None

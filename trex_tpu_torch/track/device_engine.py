@@ -8,7 +8,11 @@ frame at a time through a host FastTracker whose per-fish state is
 spliced in from the device carry, and the scan resumes from the
 corrected carry at the next frame. On the fused raw-frames path history
 splits run on the card (``ops/device_split.py``); the blob-list path
-ships no pixels, so its contested frames are replayed.
+ships no pixels, so its contested frames are replayed. With
+``calculate_posture`` the fused path takes its postures from the card's
+posture pass, and the blob-list path runs the host's native posture
+chain over each committed span, walking the carry's posture-direction
+section forward.
 
 Two ingestion paths:
 
@@ -37,13 +41,16 @@ import torch
 
 from ..config import SettingsView
 from ..device import resolve_device
-from ..ops.device_tracker import (_detect_kwargs, carry_from_vec_np,
-                                  carry_to_vec, carry_vec_size,
+from ..ops.device_posture import spec_from_settings as posture_spec
+from ..ops.device_tracker import (_detect_kwargs, _track_vec_size,
+                                  carry_from_vec_np, carry_to_vec,
                                   default_split_spec, fused_scan_packed,
-                                  make_aux, params_from_settings,
-                                  scan_packed, unpack_result)
+                                  make_aux, n_fish_index,
+                                  params_from_settings, scan_packed,
+                                  unpack_result)
 from ..ops.labeling import label_blobs_raw
-from .engine import EngineUnsupported, FastTracker, raw_from_blobs
+from .engine import (EngineUnsupported, FastTracker, posture_of_pairs,
+                     raw_from_blobs)
 from .tracker import FrameStatistics
 
 
@@ -55,6 +62,10 @@ def check_device_supported(settings) -> None:
         raise EngineUnsupported(
             "the device engine takes match_mode approximate, automatic, "
             "hungarian or tree (benchmark needs the host engines)")
+    if s["calculate_posture"] and int(s["posture_closing_steps"]):
+        raise EngineUnsupported(
+            "posture_closing_steps needs the per-blob host chain (ported "
+            "with the posture-closing slice)")
 
 
 def _probs_for(h, fish) -> np.ndarray:
@@ -91,6 +102,12 @@ class DeviceTracker:
         self.P = params_from_settings(self.settings)
         # the history split on the card, for the fused raw-frames path
         self.split_spec = default_split_spec(self.settings, self.P)
+        # posture on the card, for the fused raw-frames path (the blob
+        # path runs the host's native chain per committed span)
+        self.posture_spec = posture_spec(self.settings, crop_h=96,
+                                         crop_w=96) \
+            if self.P.do_posture else None
+        self.posture_history: dict[int, dict] = {}
         self.F = self.P.max_fish
         self.chunk = chunk or self.CHUNK
 
@@ -121,13 +138,15 @@ class DeviceTracker:
         if self._carry_vec is None:
             self.start_frame = frame
             F = self.F
-            self._carry_vec = carry_to_vec(dict(
-                last_x=np.zeros(F), last_y=np.zeros(F),
-                last_time=np.zeros(F),
-                last_frame=np.full(F, -(10 ** 9), np.float64),
-                n_basic=np.zeros(F),
-                seen=np.zeros((F, self.P.frame_rate)),
-                n_fish=0, start_frame=frame, prev_time=time))
+            c = dict(last_x=np.zeros(F), last_y=np.zeros(F),
+                     last_time=np.zeros(F),
+                     last_frame=np.full(F, -(10 ** 9), np.float64),
+                     n_basic=np.zeros(F),
+                     seen=np.zeros((F, self.P.frame_rate)),
+                     n_fish=0, start_frame=frame, prev_time=time)
+            if self.P.do_posture:
+                c["posture_dir"] = np.zeros((F, 2))
+            self._carry_vec = carry_to_vec(c)
 
     def _scan(self, launch, span: int):
         """Run one scan launch over `span` frames; returns its packed
@@ -214,7 +233,10 @@ class DeviceTracker:
             aux = make_aux(self._carry_vec, times[i:], frames[i:])
             vec = self._scan(lambda: scan_packed(packed, aux, self.P, B, R,
                                                  device=self.device), span)
-            stop = self._commit_span(frames[i:], vec, span)
+            stop, hist = self._commit_span(frames[i:], vec, span)
+            # no pixels on the card on this path: posture runs on the
+            # host over the committed span
+            self._host_posture_span(frames[i:], tables[i:], hist, stop)
             if stop == span:
                 break
             j = i + stop
@@ -268,9 +290,10 @@ class DeviceTracker:
             aux = make_aux(self._carry_vec, times[i:j], idx[i:j])
             vec = self._scan(lambda: fused_scan_packed(
                 frames[i:j], bg_dev, aux, self.P,
-                split_spec=self.split_spec, device=self.device, **kw),
-                j - i)
-            stop = self._commit_span(idx[i:j], vec, j - i)
+                split_spec=self.split_spec, posture_spec=self.posture_spec,
+                device=self.device, **kw), j - i)
+            stop, _ = self._commit_span(idx[i:j], vec, j - i,
+                                        posture_from_hist=True)
             if stop == j - i:
                 i = j
                 continue
@@ -280,25 +303,52 @@ class DeviceTracker:
         self.end_frame = int(idx[-1])
         return self
 
-    def _commit_span(self, frames, vec, span: int) -> int:
+    def _commit_span(self, frames, vec, span: int,
+                     posture_from_hist: bool = False):
         """Commit a scan's frames up to the first flagged one (needs_host,
         or a detect overflow of the fused path) and resume the carry from
         the row before it. Returns the number committed (``span`` when no
-        frame is flagged)."""
+        frame is flagged) and the unpacked history."""
         hist, carry_rows = unpack_result(vec, span, self.P)
         flags = hist["needs_host"] | hist["detect_overflow"]
         stop = int(np.argmax(flags)) if flags.any() else span
         if stop:
-            # n_fish as of the commit horizon, not the chunk's end (the
-            # carry's n_fish sits three before its end)
+            # n_fish as of the commit horizon, not the chunk's end
             hist["n_fish"] = np.int32(
-                carry_rows[stop - 1][carry_vec_size(self.P) - 3])
+                carry_rows[stop - 1][n_fish_index(self.P)])
             self._carry_vec = carry_rows[stop - 1]
-        self._commit_history(frames[:stop], hist, stop)
+        self._commit_history(frames[:stop], hist, stop, posture_from_hist)
         self._frames_done += stop
-        return stop
+        return stop, hist
 
     # -- host assist (per-frame replay) ----------------------------------
+
+    def _host_posture_span(self, frames, tables, hist, stop: int):
+        """Posture of `stop` committed blob-path frames on the host (the
+        native chain FastTracker runs), walking the carry's posture-
+        direction section forward and writing it back, so that the next
+        scan and the replay start from the directions after the span."""
+        if not self.P.do_posture or not stop:
+            return
+        eng = self._helper
+        F = self.F
+        base = _track_vec_size(self.P)
+        # carry rows of the unpacked result can be read-only views
+        self._carry_vec = np.array(self._carry_vec, np.float32)
+        pdir = self._carry_vec[base:base + 2 * F].reshape(F, 2) \
+            .astype(np.float64)
+        rows_h = np.asarray(hist["fish_row"])
+        for k in range(stop):
+            t = tables[k]
+            rows = rows_h[k]
+            pairs = [(fid, int(rows[fid]))
+                     for fid in np.flatnonzero(rows >= 0).tolist()
+                     if rows[fid] < t.n]
+            h = posture_of_pairs(self.settings, self.background, t, pairs,
+                                 pdir, eng._row_prediction)
+            if h is not None:
+                self.posture_history[int(frames[k])] = h
+        self._carry_vec[base:base + 2 * F] = pdir.astype(np.float32).ravel()
 
     def _sync_helper_state(self, frame: int, time: float):
         """Inject the device carry into the host FastTracker."""
@@ -312,6 +362,8 @@ class DeviceTracker:
         eng.last_time[:] = np.asarray(c["last_time"], np.float64)
         eng.last_frame[:] = np.asarray(c["last_frame"], np.int64)
         eng.n_basic[:] = np.asarray(c["n_basic"], np.int64)
+        if self.P.do_posture:
+            eng._posture_dir[:F] = np.asarray(c["posture_dir"])
         eng.frame_times = dict(self.frame_times)
         eng.frame_times[frame - 1] = float(c["prev_time"])
         eng.frame_times[frame] = time
@@ -367,14 +419,17 @@ class DeviceTracker:
         got = self._harvest_host_frame(frame)
         prev = carry_from_vec_np(self._carry_vec, self.P)
         F = self.F
-        self._carry_vec = carry_to_vec(dict(
+        c = dict(
             last_x=eng.last_x[:F], last_y=eng.last_y[:F],
             last_time=eng.last_time[:F],
             last_frame=np.clip(eng.last_frame[:F], -(10 ** 9), None),
             n_basic=eng.n_basic[:F],
             seen=np.concatenate([prev["seen"][:, 1:], got[:, None]], 1),
             n_fish=eng.n_fish, start_frame=self.start_frame,
-            prev_time=time))
+            prev_time=time)
+        if self.P.do_posture:
+            c["posture_dir"] = eng._posture_dir[:F]
+        self._carry_vec = carry_to_vec(c)
         st = self.statistics[frame]
         self.statistics[frame] = FrameStatistics(
             number_fish=st.number_fish,
@@ -395,6 +450,10 @@ class DeviceTracker:
         }
         self.statistics[frame] = eng.statistics[frame]
         self.n_fish = max(self.n_fish, eng.n_fish)
+        if self.P.do_posture:
+            ph = eng.posture_history.get(frame)
+            if ph is not None:
+                self.posture_history[frame] = ph
         return got
 
     def _maybe_demote(self, frame: int, time: float) -> bool:
@@ -419,7 +478,10 @@ class DeviceTracker:
 
     # -- result harvesting ------------------------------------------------
 
-    def _commit_history(self, frames, hist, stop: int):
+    def _commit_history(self, frames, hist, stop: int,
+                        posture_from_hist: bool = False):
+        """Copy `stop` scanned frames into the history tables, and with
+        `posture_from_hist` their postures from the card's posture pass."""
         fx = np.asarray(hist["fish_x"])
         fy = np.asarray(hist["fish_y"])
         seen = np.asarray(hist["fish_seen"])
@@ -436,6 +498,14 @@ class DeviceTracker:
             }
             self.statistics[f] = FrameStatistics(
                 number_fish=int(n_assigned[k]))
+            if posture_from_hist and self.P.do_posture:
+                pf = np.flatnonzero(np.asarray(hist["fish_row"][k]) >= 0)
+                self.posture_history[f] = {
+                    "fish": pf.astype(np.int64),
+                    "ok": np.asarray(hist["p_ok"][k])[pf],
+                    "midline_length": np.asarray(hist["p_len"][k])[pf],
+                    "angle": np.asarray(hist["p_ang"][k])[pf],
+                }
         if stop:
             self.n_fish = max(self.n_fish, int(hist["n_fish"]))
 
@@ -446,7 +516,9 @@ class DeviceTracker:
 
 def positions_of(tracker) -> dict:
     """Dense (T, F) position history from any history engine
-    (FastTracker and DeviceTracker share the history-dict schema)."""
+    (FastTracker and DeviceTracker share the history-dict schema), with
+    midline_length, midline_angle and posture_ok when the tracker has a
+    posture history."""
     F = tracker.F
     if tracker.start_frame < 0:
         return dict(frames=np.zeros(0, np.int64), fish_x=np.zeros((0, F)),
@@ -466,7 +538,23 @@ def positions_of(tracker) -> dict:
         fx[i, fid[ok]] = np.asarray(h["x"])[ok]
         fy[i, fid[ok]] = np.asarray(h["y"])[ok]
         seen[i, fid[ok]] = True
-    return dict(frames=frames, fish_x=fx, fish_y=fy, fish_seen=seen)
+    out = dict(frames=frames, fish_x=fx, fish_y=fy, fish_seen=seen)
+    ph = getattr(tracker, "posture_history", None)
+    if ph:
+        plen = np.zeros((T, F))
+        pang = np.zeros((T, F))
+        pok = np.zeros((T, F), bool)
+        for i, f in enumerate(frames):
+            h = ph.get(int(f))
+            if not h:
+                continue
+            fid = np.asarray(h["fish"], np.int64)
+            keep = fid < F
+            pok[i, fid[keep]] = np.asarray(h["ok"])[keep]
+            plen[i, fid[keep]] = np.asarray(h["midline_length"])[keep]
+            pang[i, fid[keep]] = np.asarray(h["angle"])[keep]
+        out.update(midline_length=plen, midline_angle=pang, posture_ok=pok)
+    return out
 
 
 def export_positions(tracker, path) -> None:

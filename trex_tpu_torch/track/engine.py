@@ -4,12 +4,15 @@ Counterpart of ``trex_tpu/track/engine.py::FastTracker`` for the
 configurations the device engine replays through: every ``match_mode``
 but ``benchmark`` (``approximate``, ``hungarian``, ``tree`` and the
 product default ``automatic``), with or without the history split, at
-``track_speed_decay`` 1, without posture and without archive mode. It
+``track_speed_decay`` 1, with or without posture, without archive mode. It
 keeps all per-fish state in flat numpy arrays. ``automatic`` takes the
 native phases of ``native/tracker_core.cpp`` (caches, paired
 probabilities with per-clique matching, reactivation) and the native
 split executor, as the JAX package's engine does; the other modes take
-the Python paths. Host code stays numpy, as it is there.
+the Python paths. Host code stays numpy, as it is there. With
+``calculate_posture`` every assignment of a frame gets its posture from
+one call of the native batch chain (``track/posture.py``), the previous
+midline direction of each fish orienting the next.
 
 Per frame (``add_frame``): candidate table from the labeler's flat
 arrays (Tracker::prefilter, with the track-threshold re-split of
@@ -18,10 +21,11 @@ history split of blobs that more tracked fish expect than they hold
 (HistorySplit), the time probability from recent samples, the first
 pass (probability matrix over bbox centres, matching by ``match_mode``),
 then the second pass (reactivation of inactive fish against centroids,
-then new fish in blob order while under ``track_max_individuals``).
+then new fish in blob order while under ``track_max_individuals``),
+then posture.
 
-Speed decay and posture raise ``EngineUnsupported`` in the constructor
-until their slices of the port (``ROADMAP.md``).
+Speed decay and posture closing steps raise ``EngineUnsupported`` in the
+constructor until their slices of the port (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from ..ops.labeling import (SplitExecutor, _f64p, _i32p, _i64p, _lib,
 from .blob import TrackBlob
 from .matching import MatchResult, PairedProbabilities, match
 from .prefilter import SizeFilters, threshold_components
+from .posture import _get_native_posture, compute_posture_rows
 from .splitting import _initial_threshold, split_blob
 from .tracker import FrameStatistics
 
@@ -75,8 +80,11 @@ def check_supported(settings) -> None:
                  "auto_tags"):
         want(not s[flag], flag)
     # later slices of the port (ROADMAP.md)
-    want(not s["calculate_posture"],
-         "calculate_posture (ported with the device_posture slice)")
+    if s["calculate_posture"]:
+        # the native batch chain covers the closing-free configuration
+        want(int(s["posture_closing_steps"]) == 0,
+             "posture_closing_steps (ported with the posture-closing "
+             "slice)")
     decay = min(1.0, max(0.0, float(s["track_speed_decay"])))
     want(decay ** 4 >= 1.0,
          "track_speed_decay < 1 (ported with the decay slice)")
@@ -176,6 +184,18 @@ class FastTracker:
         self.statistics: dict[int, FrameStatistics] = {}
         # per frame: fish ids, x, y, prob
         self.history: dict[int, dict] = {}
+        # batched native posture: per frame {fish, ok, midline_length,
+        # angle}, and per fish the last midline direction for the next
+        # frame's orientation
+        self.do_posture = bool(s["calculate_posture"])
+        self.posture_history: dict[int, dict] = {}
+        self._posture_dir = np.zeros((F, 2))
+        if self.do_posture:
+            try:
+                _get_native_posture()
+            except (OSError, AttributeError) as e:
+                raise EngineUnsupported(
+                    f"posture needs the native batch chain: {e}")
 
     # -- candidate construction (Tracker::prefilter) --------------------
     def build_candidates(self, lines: np.ndarray, pixels: np.ndarray,
@@ -767,6 +787,7 @@ class FastTracker:
         assigned_fish: set[int] = set()
         assigned_blob = np.zeros(B, bool)
         result = MatchResult(mode=self.mode)
+        posture_rows: list[tuple[int, int]] = []
 
         if F and B:
             # active set only: fish seen less than t_max ago
@@ -782,6 +803,7 @@ class FastTracker:
                     fids = fob[bs]
                     assigned_blob[bs] = True
                     assigned_fish.update(fids.tolist())
+                    posture_rows.extend(zip(fids.tolist(), bs.tolist()))
                     self._assign(fids, frame, time, table.cx[bs],
                                  table.cy[bs])
                     self.history[frame] = {
@@ -798,7 +820,10 @@ class FastTracker:
         if len(free):
             inactive_ok = (~has) | (tdelta >= self.t_max)
             self._second_pass(table, free, frame, time, speed_td,
-                              assigned_fish, assigned_blob, inactive_ok)
+                              assigned_fish, assigned_blob, inactive_ok,
+                              posture_rows)
+        if self.do_posture and posture_rows:
+            self._run_posture_batch(frame, table, posture_rows)
 
         self.end_frame = frame
         self.statistics[frame] = FrameStatistics(
@@ -859,9 +884,10 @@ class FastTracker:
     def _second_pass(self, table: _CandTable, free: np.ndarray,
                      frame: int, time: float, tdelta: np.ndarray,
                      assigned_fish: set, assigned_blob: np.ndarray,
-                     inactive_ok: np.ndarray):
+                     inactive_ok: np.ndarray, posture_rows: list):
         """Reactivation (Tracker.cpp:1846-1975), then new individuals.
-        Only inactive fish (gap >= t_max, or never assigned) take part."""
+        Only inactive fish (gap >= t_max, or never assigned) take part.
+        Each assignment joins `posture_rows` as (fish, row)."""
         mask = inactive_ok[:self.n_fish].copy()
         if assigned_fish:
             mask[np.fromiter(assigned_fish, np.int64,
@@ -876,6 +902,7 @@ class FastTracker:
             if newly:
                 fids = np.asarray([f for f, _ in newly])
                 rows = np.asarray([r for _, r in newly])
+                posture_rows.extend(newly)
                 self._assign(fids, frame, time, table.cx[rows],
                              table.cy[rows])
                 assigned_fish.update(fids.tolist())
@@ -888,6 +915,7 @@ class FastTracker:
                 break
             fid = self.n_fish
             self.n_fish += 1
+            posture_rows.append((fid, bi))
             self._assign(np.asarray([fid]), frame, time, table.cx[[bi]],
                          table.cy[[bi]])
             assigned_blob[bi] = True
@@ -904,6 +932,21 @@ class FastTracker:
         h["x"] = np.concatenate([h["x"], xs])
         h["y"] = np.concatenate([h["y"], ys])
         h["prob"] = np.concatenate([h["prob"], np.zeros(len(fids))])
+
+    def _run_posture_batch(self, frame: int, table: _CandTable,
+                           pairs: list):
+        """Posture of this frame's (fish, row) assignments in one native
+        call, each fish's previous midline direction orienting its
+        midline (:func:`posture_of_pairs`)."""
+        h = posture_of_pairs(self.settings, self.background, table, pairs,
+                             self._posture_dir, self._row_prediction)
+        if h is not None:
+            self.posture_history[frame] = h
+
+    def _row_prediction(self, table: _CandTable, r: int):
+        """The pose or outline prediction of a table row: none, until the
+        YOLO slice brings predictions to the port."""
+        return None
 
     def _split_big_start(self, table: _CandTable,
                          big_rows: np.ndarray) -> _CandTable:
@@ -978,6 +1021,50 @@ def raw_from_blobs(blobs: list, background: np.ndarray, track_thr: int,
         stats = blob_stats(lines, line_start, pixels, pixel_start,
                            background, track_thr, absolute)
     return lines, pixels, line_start, pixel_start, stats
+
+
+def posture_of_pairs(settings, background, table: _CandTable, pairs: list,
+                     pdir: np.ndarray, row_prediction):
+    """Posture of a frame's (fish, row) pairs through the native batch
+    chain (``track/posture.compute_posture_rows``): the movement direction
+    of each fish is its previous midline direction `pdir` negated
+    (run_postures' movement_direction), and `pdir` (F, 2) is updated in
+    place. Rows without pixel data get no posture. Returns the frame's
+    posture history entry {fish, ok, midline_length, angle}, or None
+    when no row has pixels."""
+    line_arrays = []
+    pixel_arrays = []
+    fids = []
+    preds = []
+    for fid, r in pairs:
+        if table.objs[r] is not None:
+            b = table.objs[r]
+            if b.lines is None or getattr(b, "pixels", None) is None:
+                continue
+            line_arrays.append(np.asarray(b.lines, np.int32))
+            pixel_arrays.append(b.pixels)
+        else:
+            if table.pixel_lo[r] < 0:
+                continue
+            line_arrays.append(table.lines[table.line_lo[r]:table.line_hi[r]])
+            pixel_arrays.append(
+                table.pixels[table.pixel_lo[r]:table.pixel_hi[r]])
+        fids.append(fid)
+        preds.append(row_prediction(table, r))
+    if not fids:
+        return None
+    fid_arr = np.asarray(fids, np.int64)
+    ok, lens, angles, out_dirs, _, dir_reset = compute_posture_rows(
+        settings, background, line_arrays, pixel_arrays, preds,
+        -pdir[fid_arr])
+    # outline-only rows reset the stored direction (run_postures reads
+    # prev.midline, which is None for those)
+    pdir[fid_arr[dir_reset]] = 0.0
+    good = np.flatnonzero(ok)
+    if len(good):
+        pdir[fid_arr[good]] = out_dirs[good]
+    return {"fish": fid_arr, "ok": np.asarray(ok, bool),
+            "midline_length": lens, "angle": angles}
 
 
 def _in_close(recount: np.ndarray, fish_size: SizeFilters) -> np.ndarray:
