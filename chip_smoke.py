@@ -77,16 +77,39 @@ Phases, each raising on failure:
    and on the blob path, whose export has postures. On a small chunk the
    card gives the port's CPU path's integer outputs and posture flags,
    the lengths and angles within the same rule.
-8. Report: frames per second of phases 2-7, the replay's assist frames
+8. Speed decay (``decay``): the chunk of phase 4 with
+   ``track_speed_decay`` 0.7 (the reference's golden-fixture setting) in
+   the base configuration and the product default.
+   ``track_video_device`` over the 64 frames with its frames per second,
+   the frames it flags and how many of them a broken motion window
+   flagged, and the CUDA launches a frame over frames 24-31 with and
+   without decay; ``DeviceTracker.track_frames`` over 64 frames (base)
+   and 32 (product default) with its assists, frames scanned and replay
+   seconds. On small chunks that replay frames the card gives the port's
+   CPU path's integer outputs and flags, the carry's motion window and
+   accumulated walk bit for bit, and the same DeviceTracker history;
+   the DeviceTracker is held to the port's FastTracker on the sparse
+   64-fish chunk of phase 5 (``_compare_history``'s rule).
+9. Archive mode (``archive``): ``DeviceTracker(keep_individuals=True)``
+   on the blob path (``add_frame_blobs`` of host-labelled frames) over
+   the chunk of phase 4 with posture (base configuration): frames per
+   second, host seconds a frame besides the scans and the labelling,
+   the seconds of ``build_individuals``, the individuals and posture
+   records. Held to the port's ``FastTracker(keep_individuals=True)``
+   under ``tests/test_archive.py::_assert_individuals_equal``'s rule and
+   with equal posture records on the sparse 64-fish chunk and on the
+   asymmetric scene; on the 256-fish chunk the individuals that depart
+   are reported (``ROADMAP.md`` C1).
+10. Report: frames per second of phases 2-9, the replay's assist frames
    and seconds, the card's name and power limit, and one JSON line with
-   every kernel's launches on its path, error against its plain
-   version, time, bound, the plain version's time and the nearest
-   library call's time; for B1 also the device time of each of its
-   passes under ``torch.profiler``. A kernel's ``ms`` is the median of
-   single calls, each synchronised, so it holds the wrapper's host time
-   before the launch; ``ms_back_to_back`` is the time per call over 20
-   calls launched back to back, which hides that host time. The last
-   line is ``{"ok": true, "device": {...}}``.
+    every kernel's launches on its path, error against its plain
+    version, time, bound, the plain version's time and the nearest
+    library call's time; for B1 also the device time of each of its
+    passes under ``torch.profiler``. A kernel's ``ms`` is the median of
+    single calls, each synchronised, so it holds the wrapper's host time
+    before the launch; ``ms_back_to_back`` is the time per call over 20
+    calls launched back to back, which hides that host time. The last
+    line is ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or without the
 trex_tpu_torch package beside it.
@@ -1393,6 +1416,331 @@ def phase_posture(dev, report, bg, frames, dt_frames=(64, 16)):
           f"{len_err:.2e}, angle error {ang_err:.2e}", flush=True)
 
 
+def decay_settings(base, decay=0.7):
+    """`base` with ``track_speed_decay`` (0.7 is the golden fixture's,
+    ``videos/test.settings`` of the reference)."""
+    return dict(base, track_speed_decay=decay)
+
+
+def phase_decay(dev, report, bg, frames, dt_frames=(64, 32)):
+    """Speed decay on the card: the chunk of phase 4 with
+    ``track_speed_decay`` 0.7 in the base configuration and the product
+    default. ``track_video_device`` over the 64 frames (frames/s, flagged
+    frames and how many a broken motion window flagged, launches a frame
+    against the same window without decay); DeviceTracker over the first
+    `dt_frames` frames of each. Held: the card to the port's CPU path on
+    a small chunk that replays frames (integer outputs, flags, and the
+    carry's motion window and accumulated walk bit for bit), and the
+    DeviceTracker to the port's FastTracker on the sparse 64-fish chunk
+    (``_compare_history``'s rule)."""
+    import torch
+
+    from trex_tpu_torch.ops.device_tracker import (
+        DECAY_WIN, _detect_kwargs, _track_vec_size, default_split_spec,
+        frame_times, fused_scan_packed, make_aux, params_from_settings,
+        track_video_device)
+    from trex_tpu_torch.track.device_engine import DeviceTracker
+
+    fr = torch.as_tensor(frames, device=dev)
+    bgt = torch.as_tensor(bg, device=dev)
+    T = frames.shape[0]
+    out = {}
+    for (name, base), n_dt in zip((("base", track_settings()),
+                                   ("auto", auto_settings())), dt_frames):
+        settings = decay_settings(base)
+        P = params_from_settings(settings)
+        check(P.do_decay, "decay: the settings do not decay")
+        track_video_device(fr[:4], bgt, settings, device=dev, **TRACK_CAPS)
+        sync()
+        stats = []
+        t0 = time.perf_counter()
+        hist = track_video_device(fr, bgt, settings, device=dev,
+                                  stats=stats, **TRACK_CAPS)
+        sync()
+        scan_s = time.perf_counter() - t0
+        check(not bool(hist["detect_overflow"].any()), "detect overflow")
+        n_fish = int(hist["n_fish"])
+        check(0 < n_fish <= N_FISH, f"decay {name}: n_fish {n_fish}")
+        for k in ("fish_x", "fish_y", "fish_prob", "carry_vec"):
+            check(bool(torch.isfinite(hist[k]).all()),
+                  f"decay {name}: non-finite {k}")
+        flagged = (hist["needs_host"] | hist["detect_overflow"]) \
+            .cpu().numpy()
+        by_decay = [bool(st["decay_flag"]) for st in stats]
+        # launches a frame over 8 frames from the middle of the chunk, with
+        # and without decay, each resumed from frame 23's carry
+        w0, w1 = 24, 32
+        launches = {}
+        for label, st in (("decay", settings),
+                          ("no_decay", dict(base))):
+            Pw = params_from_settings(st)
+            h = hist if label == "decay" else track_video_device(
+                fr[:w0], bgt, st, device=dev, **TRACK_CAPS)
+            aux = make_aux(h["carry_vec"][w0 - 1].cpu().numpy(),
+                           frame_times(T, 25.0)[w0:w1], np.arange(w0, w1))
+            _, n, _, _ = launches_by_range(
+                lambda: fused_scan_packed(
+                    fr[w0:w1], bgt, aux, Pw,
+                    split_spec=default_split_spec(st, Pw), device=dev,
+                    **_detect_kwargs(st, TRACK_CAPS)), ())
+            launches[label] = None if n is None else n / (w1 - w0)
+        t0 = time.perf_counter()
+        tr = DeviceTracker(settings, bg, chunk=n_dt, caps=TRACK_CAPS,
+                           device=dev).track_frames(frames[:n_dt])
+        dt_s = time.perf_counter() - t0
+        check(sorted(tr.history) == list(range(n_dt)),
+              f"decay {name}: DeviceTracker left frames without history")
+        first_flag = int(np.argmax(flagged[:n_dt])) \
+            if flagged[:n_dt].any() else n_dt
+        check(tr.assist_frames[:1] == ([first_flag] if first_flag < n_dt
+                                       else []),
+              f"decay {name}: the first assist is not the first flagged "
+              "frame")
+        out[name] = dict(
+            frames=T, n_fish=n_fish, scan_s=scan_s, scan_fps=T / scan_s,
+            flagged_frames=int(flagged.sum()),
+            flagged_by_decay_window=int(sum(by_decay)),
+            flagged_share=float(flagged.mean()),
+            launch_window=[w0, w1],
+            launches_per_frame=launches["decay"],
+            launches_per_frame_no_decay=launches["no_decay"],
+            device_tracker=dict(
+                frames=n_dt, s=dt_s, fps=n_dt / dt_s,
+                assist_frames=tr.assist_frames,
+                frames_scanned=tr.frames_scanned, scan_s=tr.scan_seconds,
+                replay_s=sum(tr.statistics[f].adding_seconds
+                             for f in tr.assist_frames),
+                demoted=tr.demoted, n_fish=tr.n_fish))
+        r = out[name]
+        dt = r["device_tracker"]
+        print(f"phase 8 {name}: decay scan {r['scan_fps']:.1f} frames/s, "
+              f"{r['flagged_frames']}/{T} flagged "
+              f"({r['flagged_by_decay_window']} by a broken window), "
+              f"{r['launches_per_frame']} launches a frame "
+              f"({r['launches_per_frame_no_decay']} without decay); "
+              f"DeviceTracker {dt['fps']:.1f} frames/s over {n_dt}, "
+              f"{len(dt['assist_frames'])} assists, "
+              f"{dt['frames_scanned']} frames scanned, replay "
+              f"{dt['replay_s']:.3f} s", flush=True)
+
+    # a small chunk that replays frames: the card against the CPU path
+    sbg, sframes = synth_frames(24, n_fish=40, size=160, seed=0)
+    caps = dict(max_runs=1024, max_pixels=1 << 14, max_blobs=64,
+                max_child_runs=1024, max_children=64)
+    small = {}
+    for name, base in (("base", track_settings(40)),
+                       ("auto", auto_settings(40))):
+        st = decay_settings(base)
+        P = params_from_settings(st)
+        g = track_video_device(sframes, sbg, st, device=dev, **caps)
+        c = track_video_device(sframes, sbg, st, device="cpu", **caps)
+        for k in ("fish_row", "fish_seen", "fish_child", "needs_host",
+                  "n_assigned", "n_fish", "fish_x", "fish_y"):
+            check(np.array_equal(g[k].cpu().numpy(), c[k].numpy()),
+                  f"decay small chunk {name} {k}: card != CPU")
+        w = _track_vec_size(P) - (5 * DECAY_WIN + 3) * P.max_fish
+        gw = g["carry_vec"][:, w:].cpu().numpy()
+        cw = c["carry_vec"][:, w:].numpy()
+        diff = np.argwhere(gw != cw)[:3]
+        vals = [(float(gw[tuple(d)]), float(cw[tuple(d)])) for d in diff]
+        check(not len(diff), f"decay small chunk {name}: the carry's "
+              f"window or walk, card != CPU, first (frame, offset) "
+              f"{diff.tolist()}: {vals} (the walk starts at offset "
+              f"{5 * DECAY_WIN * P.max_fish})")
+        gd = DeviceTracker(st, sbg, chunk=8, caps=caps,
+                           device=dev).track_frames(sframes)
+        cd = DeviceTracker(st, sbg, chunk=8, caps=caps,
+                           device="cpu").track_frames(sframes)
+        check(gd.assist_frames == cd.assist_frames and gd.n_fish
+              == cd.n_fish, f"decay small chunk {name} DeviceTracker: "
+              "card != CPU")
+        for f in range(len(sframes)):
+            for k in ("fish", "x", "y"):
+                check(np.array_equal(gd.history[f][k], cd.history[f][k]),
+                      f"decay small chunk {name} DeviceTracker frame {f} "
+                      f"{k}: card != CPU")
+        small[name] = dict(flagged=int(c["needs_host"].sum()),
+                           assists=gd.assist_frames)
+    check(any(v["assists"] for v in small.values()),
+          "decay: the small chunks replayed no frame")
+
+    # held to the host engine on the card: the sparse full-size chunk
+    sbg, sframes = synth_frames(64, n_fish=64, seed=0)
+    held = {}
+    for name, base in (("base", track_settings(64)),
+                       ("auto", auto_settings(64))):
+        st = decay_settings(base)
+        n = len(sframes)
+        d = DeviceTracker(st, sbg, chunk=n, caps=TRACK_CAPS,
+                          device=dev).track_frames(sframes)
+        h, _ = host_track(sframes, sbg, st)
+        bad = departures(h, d, n)
+        check(not bad, f"decay {name}: DeviceTracker departs from the host "
+              f"FastTracker on the sparse chunk at frames {bad[:5]}")
+        check(sorted(d.history) == list(range(n)) and d.n_fish == h.n_fish,
+              f"decay {name}: history frames or n_fish differ from the "
+              "host")
+        held[name] = dict(frames=n, n_fish=d.n_fish,
+                          assists=d.assist_frames)
+    out.update(small_chunk=small, equal_to_host=held)
+    report["decay"] = out
+    print(f"phase 8 ok: small chunks card == CPU (assists "
+          f"{[v['assists'] for v in small.values()]}); equal to the host "
+          f"engine on the sparse 64-fish chunk", flush=True)
+
+
+def individuals_departures(ref, got) -> list:
+    """Where `got`'s per-individual archive breaks ``tests/
+    test_archive.py::_assert_individuals_equal``'s rule against `ref`'s
+    (per individual the frames, centroids, velocities and angles, blob
+    ids, pixel counts, split flags, lines, pixels and tracklets), and the
+    posture records' rule (outlines, midline segments and heights,
+    lengths, angles, offsets, tails, heads): one string per
+    individual that departs."""
+    bad = []
+    ri, gi = ref.individuals, got.individuals
+    if sorted(ri) != sorted(gi):
+        return [f"identities {sorted(set(ri) ^ set(gi))[:5]}"]
+    for fid, a in ri.items():
+        b = gi[fid]
+        ok = [x.frame for x in a.basic] == [x.frame for x in b.basic] \
+            and a.tracklets == b.tracklets
+        for x, y in zip(a.basic, b.basic) if ok else ():
+            ok = (x.centroid.x == y.centroid.x
+                  and x.centroid.y == y.centroid.y
+                  and x.centroid.vx == y.centroid.vx
+                  and x.centroid.angle == y.centroid.angle
+                  and x.blob.blob_id == y.blob.blob_id
+                  and x.blob.num_pixels == y.blob.num_pixels
+                  and x.blob.split == y.blob.split
+                  and np.array_equal(x.blob.lines, y.blob.lines)
+                  and (x.blob.pixels is None
+                       or np.array_equal(x.blob.pixels, y.blob.pixels)))
+            if not ok:
+                break
+        ok = ok and [p.frame for p in a.posture] \
+            == [p.frame for p in b.posture]
+        for x, y in zip(a.posture, b.posture) if ok else ():
+            ok = (x.midline is None) == (y.midline is None) \
+                and (x.outline is None) == (y.outline is None) \
+                and (x.outline is None
+                     or np.array_equal(x.outline, y.outline))
+            if ok and x.midline is not None:
+                m, n = x.midline, y.midline
+                ok = (np.array_equal(m.segments, n.segments)
+                      and np.array_equal(m.heights, n.heights)
+                      and (m.len, m.angle, m.offset, m.tail_index,
+                           m.head_index)
+                      == (n.len, n.angle, n.offset, n.tail_index,
+                          n.head_index)
+                      and x.head.x == y.head.x and x.head.y == y.head.y)
+            if not ok:
+                break
+        if not ok:
+            bad.append(f"fish {fid}")
+    return bad
+
+
+def feed_blobs(tracker, frames, bg, settings):
+    """Label each frame on the host and feed its blobs through
+    ``add_frame_blobs``; returns the host seconds of the labelling."""
+    from trex_tpu_torch.ops.device_tracker import _detect_kwargs
+    from trex_tpu_torch.ops.labeling import label_blobs
+    from trex_tpu_torch.track.blob import TrackBlob
+
+    kw = _detect_kwargs(settings, {})
+    label_s = 0.0
+    for f in range(len(frames)):
+        t0 = time.perf_counter()
+        blobs = [TrackBlob(b.lines, b.pixels, stats=b.stats)
+                 for b in label_blobs(
+                     frames[f], bg, threshold=kw["detect_threshold"],
+                     absolute=kw["detect_absolute"],
+                     track_threshold=kw["track_threshold"],
+                     track_absolute=kw["track_absolute"])]
+        label_s += time.perf_counter() - t0
+        tracker.add_frame_blobs(f, f / 25.0, blobs)
+    return label_s
+
+
+def host_archive(frames, bg, settings):
+    """The port's FastTracker in archive mode over `frames`, fed the same
+    blobs as ``feed_blobs``."""
+    from trex_tpu_torch.track.engine import FastTracker
+
+    host = FastTracker(settings, bg, keep_individuals=True)
+    feed_blobs(host, frames, bg, settings)
+    return host
+
+
+def phase_archive(dev, report, bg, frames):
+    """Archive mode (keep_individuals) on the card's blob path over the
+    chunk of phase 4 with posture (base configuration): frames/s, the
+    seconds of build_individuals, the individuals and posture records.
+    Held to the port's FastTracker in archive mode on the sparse 64-fish
+    chunk and on the asymmetric posture scene; on the 256-fish chunk the
+    departures are reported (ROADMAP.md C1)."""
+    from trex_tpu_torch.track.device_engine import DeviceTracker
+
+    settings = posture_settings(track_settings())
+    T = frames.shape[0]
+    tr = DeviceTracker(settings, bg, chunk=T, keep_individuals=True,
+                       device=dev)
+    t0 = time.perf_counter()
+    label_s = feed_blobs(tr, frames, bg, settings)
+    tr.finalize()
+    wall_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inds = tr.individuals
+    build_s = time.perf_counter() - t0
+    check(sorted(tr.frame_archive) == list(range(T)),
+          "archive: frames without an archive entry")
+    n_rec = sum(len(v) for v in tr.posture_archive.values())
+    n_post = sum(len(ind.posture) for ind in inds.values())
+    check(len(inds) == tr.n_fish > 0 and n_post == n_rec > 0,
+          f"archive: {len(inds)} individuals for {tr.n_fish} fish, "
+          f"{n_post} postures for {n_rec} records")
+    t0 = time.perf_counter()
+    host = host_archive(frames, bg, settings)
+    host_s = time.perf_counter() - t0
+    differ = individuals_departures(host, tr)
+
+    held = {}
+    sbg, sframes = synth_frames(T, n_fish=64, seed=0)
+    abg, aframes, asettings = asym_scene()
+    for name, hbg, hframes, hs, chunk in (
+            ("sparse_64x1024_64", sbg, sframes,
+             posture_settings(track_settings(64)), T),
+            ("asym", abg, aframes, asettings, 16)):
+        d = DeviceTracker(hs, hbg, chunk=chunk, keep_individuals=True,
+                          device=dev)
+        feed_blobs(d, hframes, hbg, hs)
+        d.finalize()
+        h = host_archive(hframes, hbg, hs)
+        bad = individuals_departures(h, d)
+        check(not bad, f"archive: the DeviceTracker's individuals depart "
+              f"from the host FastTracker's on {name}: {bad[:5]}")
+        held[name] = dict(frames=len(hframes), individuals=len(
+            d.individuals), assists=d.assist_frames, postures=sum(
+            len(i.posture) for i in d.individuals.values()))
+    report["archive"] = dict(
+        frames=T, s=wall_s, fps=T / wall_s, label_s=label_s,
+        host_s_per_frame=(wall_s - tr.scan_seconds - label_s) / T,
+        scan_s=tr.scan_seconds, assist_frames=tr.assist_frames,
+        build_individuals_s=build_s, individuals=len(inds),
+        posture_records=n_rec, host_fast_tracker_s=host_s,
+        individuals_departing_from_host=len(differ),
+        equal_to_host=held)
+    r = report["archive"]
+    print(f"phase 9 ok: archive DeviceTracker {r['fps']:.1f} frames/s "
+          f"(labelling {label_s:.2f} s, scans {tr.scan_seconds:.2f} s, "
+          f"{len(tr.assist_frames)} assists), build_individuals "
+          f"{build_s:.3f} s, {len(inds)} individuals, {n_rec} posture "
+          f"records; {len(differ)} individuals depart from the host "
+          f"FastTracker's; equal to the host engine on "
+          f"{', '.join(held)}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the report as JSON here")
@@ -1420,6 +1768,8 @@ def main():
     phase_device_tracker(dev, report, *chunk)
     phase_auto_split(dev, report, *chunk[:2])
     phase_posture(dev, report, *chunk[:2])
+    phase_decay(dev, report, *chunk[:2])
+    phase_archive(dev, report, *chunk[:2])
     report["total_s"] = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1436,7 +1786,7 @@ def main():
             json.dump(report, f, indent=1)
     print(json.dumps({k: report[k] for k in (
         "detect", "label", "track", "device_tracker", "auto_split",
-        "posture", "build_s", "total_s")}))
+        "posture", "decay", "archive", "build_s", "total_s")}))
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

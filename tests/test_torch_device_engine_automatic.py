@@ -238,22 +238,48 @@ def test_packed_paths_with_run_tables_resume_across_packages():
 
 
 @pytest.mark.parametrize("key,value,slice_name", [
-    ("track_speed_decay", 0.8, "decay"),
     ("posture_closing_steps", 1, "posture-closing"),
 ])
 def test_decay_and_posture_still_raise_naming_their_slice(key, value,
                                                           slice_name):
     """Posture itself runs now; its closing steps (which the JAX package
-    keeps off its fast engines too) and decay raise, naming their
-    slices."""
+    keeps off its fast engines too) raise, naming their slice."""
     d = as_dict(_settings(2))
     d["calculate_posture"] = True
     d[key] = value
     frames = np.full((1, 32, 32), 200, np.uint8)
-    if key == "track_speed_decay":
-        with pytest.raises(NotImplementedError, match=slice_name):
-            T.track_video_device(frames, frames[0], d, device="cpu",
-                                 **CAPS)
     from trex_tpu_torch.track.engine import EngineUnsupported
     with pytest.raises(EngineUnsupported, match=slice_name):
         DeviceTracker(d, frames[0], device="cpu")
+
+
+def test_speed_decay_with_split_caps_equals_jax():
+    """The product default with track_speed_decay 0.8, once refused, and
+    non-default split capacities (split_caps): the crossing through
+    track_video_device and DeviceTracker.track_frames, equal to the JAX
+    package's."""
+    from test_torch_decay import compare_engines as compare_decay
+
+    bg, frames, s, chunk = scene("crossing")
+    s.set("track_speed_decay", 0.8)
+    d = as_dict(s)
+    caps = dict(max_splits=2, max_pieces=3)
+    assert T.default_split_spec(d, split_caps=caps) \
+        == T.default_split_spec(d)._replace(**caps)
+    assert tuple(T.default_split_spec(d, split_caps=caps)) == tuple(
+        J.default_split_spec(s, split_caps=caps))
+    ref = jax.device_get(J.track_video_device(frames, bg, s,
+                                              split_caps=caps, **CAPS))
+    got = T.track_video_device(frames, bg, d, device="cpu",
+                               split_caps=caps, **CAPS)
+    for k in ("fish_row", "fish_seen", "fish_child", "needs_host",
+              "n_assigned", "n_fish", "fish_x", "fish_y"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]),
+                                      err_msg=k)
+    assert int(got["fish_child"].any(1).sum()) > 0
+    ref = JaxDeviceTracker(s, bg, chunk=chunk, split_caps=caps) \
+        .track_frames(frames)
+    got = DeviceTracker(d, bg, chunk=chunk, split_caps=caps,
+                        device="cpu").track_frames(frames)
+    assert got.split_spec.max_splits == 2
+    compare_decay(ref, got, len(frames))

@@ -52,7 +52,6 @@ def test_track_frames_resumes_across_calls():
     ("match_mode", "benchmark"),
     ("track_ignore", [[[0, 0], [4, 0], [4, 4]]]),
     ("posture_closing_steps", 1),
-    ("track_speed_decay", 0.5),
 ])
 def test_unsupported_configs_raise_in_constructor(key, value):
     """With posture on (the default), which closing steps keep off the
@@ -62,3 +61,17 @@ def test_unsupported_configs_raise_in_constructor(key, value):
     d[key] = value
     with pytest.raises(EngineUnsupported):
         DeviceTracker(d, np.zeros((8, 8), np.uint8), device="cpu")
+
+
+def test_speed_decay_equals_jax():
+    """track_speed_decay 0.5, once refused by the constructor: the fused
+    path tracks like the JAX package's DeviceTracker."""
+    frames, s, chunk = SCENES["fused"]()
+    s.set("track_speed_decay", 0.5)
+    frames = np.stack(frames)
+    bg = np.full(frames.shape[1:], 200, np.uint8)
+    ref = JaxDeviceTracker(s, bg, chunk=chunk).track_frames(frames)
+    got = DeviceTracker(as_dict(s), bg, chunk=chunk,
+                        device="cpu").track_frames(frames)
+    assert got.P.do_decay
+    compare_engines(ref, got, len(frames))

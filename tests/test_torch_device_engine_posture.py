@@ -293,11 +293,12 @@ def test_port_defaults_with_posture_run(asym):
     """The port's defaults have calculate_posture on: given only what
     every engine needs (a track threshold over the background, a bounded
     population, a maximum speed), the host FastTracker and the DeviceTracker on both paths
-    (fused_scan_packed, scan_packed) run with posture; posture records and
-    predictions raise, naming their slices."""
+    (fused_scan_packed, scan_packed) run with posture; posture records of
+    archive mode come back for every row with a posture, and predictions
+    raise, naming their slice."""
     from trex_tpu_torch.config import DEFAULTS
+    from trex_tpu_torch.track.archive import compute_posture_rows
     from trex_tpu_torch.track.engine import EngineUnsupported
-    from trex_tpu_torch.track.posture import compute_posture_rows
 
     bg, frames = asym
     frames = frames[:6]
@@ -315,9 +316,12 @@ def test_port_defaults_with_posture_run(asym):
     for tr in (host, fused, blobs):
         assert tr.posture_history and sum(
             int(np.sum(h["ok"])) for h in tr.posture_history.values()) > 0
-    with pytest.raises(EngineUnsupported, match="archive"):
-        compute_posture_rows(d, bg, [], [], None, np.zeros((0, 2)),
-                             want_recs=True)
+    b = label_blobs(frames[0], bg, **det)
+    ok, lens, _, _, recs, _ = compute_posture_rows(
+        d, bg, [x.lines for x in b], [x.pixels for x in b], None,
+        np.zeros((len(b), 2)), want_recs=True)
+    assert ok.any() and all((r is not None) == o for r, o in zip(recs, ok))
+    assert all(r.len_px == ln for r, ln in zip(recs, lens) if r is not None)
     with pytest.raises(EngineUnsupported, match="YOLO"):
         compute_posture_rows(d, bg, [np.zeros((1, 3), np.int32)],
                              [np.zeros(1, np.uint8)],

@@ -233,16 +233,30 @@ def test_track_video_device_with_posture_equals_jax():
     _compare_hist(ref, got)
 
 
-@pytest.mark.parametrize("key,value", [
-    ("track_speed_decay", 0.8),
-    ("track_speed_decay", 0.0),
-])
-def test_later_slice_configs_raise(key, value):
-    s = _as_dict(_settings(2))
-    s[key] = value
-    frames = np.full((1, 32, 32), 200, np.uint8)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T.track_video_device(frames, frames[0], s, device="cpu", **CAPS)
+@pytest.mark.parametrize("decay", [0.8, 0.0])
+def test_speed_decay_equals_jax(decay):
+    """track_speed_decay, once refused: the scan estimates from the
+    carry's motion window like the JAX package's (0.0 is lambda 0, a
+    plain velocity extrapolation); integer outputs equal, the carry
+    within RTOL but its accumulated walk, which test_torch_decay.py holds
+    to its error column."""
+    n_fish, frames, bg = _reactivation_scene()
+    s = _settings(n_fish)
+    s.set("track_speed_decay", decay)
+    ref = jax.device_get(J.track_video_device(frames, bg, s, **CAPS))
+    got = T.track_video_device(frames, bg, _as_dict(s), device="cpu",
+                               **CAPS)
+    P = T.params_from_settings(_as_dict(s))
+    assert P.do_decay and T.carry_vec_size(P) == J.carry_vec_size(
+        J.params_from_settings(s))
+    for k in ("fish_row", "fish_seen", "needs_host", "n_assigned",
+              "n_fish", "fish_x", "fish_y"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]),
+                                      err_msg=k)
+    walk = T._track_vec_size(P) - 3 * n_fish
+    np.testing.assert_allclose(got["carry_vec"].numpy()[:, :walk],
+                               np.asarray(ref["carry_vec"])[:, :walk],
+                               rtol=RTOL, atol=0)
 
 
 def test_plain_dict_defaults():

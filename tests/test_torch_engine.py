@@ -244,7 +244,6 @@ def test_start_frame_split_creates_both_fish():
     ("match_mode", "benchmark"),
     ("track_threshold_2", 30),
     ("posture_closing_steps", 1),
-    ("track_speed_decay", 0.7),
     ("manual_matches", {0: {0: 1}}),
     ("track_threshold", 0),
 ])
@@ -258,3 +257,22 @@ def test_unsupported_configs_raise_in_constructor(key, value):
         check_supported(d)
     with pytest.raises(EngineUnsupported):
         FastTracker(d, np.zeros((8, 8), np.uint8))
+
+
+@pytest.mark.parametrize("name", ["separated", "merge_heavy"])
+def test_speed_decay_equals_jax(name):
+    """track_speed_decay 0.7 (the golden fixture's setting), once refused
+    by the constructor: the port's host engine estimates from the motion
+    window like the JAX package's and tracks the same."""
+    frames, s, _ = SCENES[name]()
+    s.set("track_speed_decay", 0.7)
+    bg = np.full(frames[0].shape, 200, np.uint8)
+    det = detect_kwargs(s)
+    ref = JaxFastTracker(s, bg)
+    got = FastTracker(as_dict(s), bg)
+    assert got.decay_active and ref.decay_active
+    for i, img in enumerate(frames):
+        ref.add_frame(i, i / 25.0, **jax_label_blobs_raw(img, bg, **det))
+        got.add_frame(i, i / 25.0, **label_blobs_raw(img, bg, **det))
+    assert_history_equal(ref, got, len(frames))
+    np.testing.assert_array_equal(got.win, ref.win)

@@ -138,7 +138,9 @@ def test_package_lists_every_module():
                  "ops.device_posture", "ops.device_tracker", "ops.labeling",
                  "track.blob", "track.prefilter", "track.splitting",
                  "track.matching", "track.tracker", "track.engine",
-                 "track.device_engine", "track.posture"):
+                 "track.device_engine", "track.posture", "track.motion",
+                 "track.individual", "track.cache_batch",
+                 "track.archive"):
         assert f"trex_tpu_torch.{name}" in mods
 
 

@@ -4,9 +4,11 @@ Copied from ``trex_tpu/config/params_table.json`` (the ``default``
 column) for the keys that the device tracker's ``params_from_settings``
 and ``_detect_kwargs``, the host ``FastTracker`` (``check_supported``,
 its constructor, the prefilter and the start-frame split),
-``DeviceTracker`` and the posture chain (``ops/device_posture.py``,
-``track/posture.py``) read. The port's functions take ``settings`` as any
-mapping (a plain ``dict`` works) and fall back to these values.
+``DeviceTracker``, the posture chain (``ops/device_posture.py``,
+``track/posture.py``) and the per-individual archives
+(``track/archive.py``, ``track/individual.py``) read. The port's
+functions take ``settings`` as any mapping (a plain ``dict`` works) and
+fall back to these values.
 """
 from __future__ import annotations
 
@@ -68,6 +70,12 @@ DEFAULTS: dict = {
     "midline_resolution": 25,
     "midline_invert": False,
     "midline_start_with_head": False,
+    # the per-blob python posture chain and the archives
+    # (track/posture.py, track/archive.py, track/individual.py)
+    "peak_mode": "pointy",
+    "posture_closing_size": 2,
+    "posture_head_percentage": 0.1,
+    "huge_timestamp_seconds": 0.2,
 }
 
 

@@ -3,9 +3,13 @@
 The port has no weights: its state is the tracker carry and the
 tracking parameters. Both packages pack the carry into the same 1-D
 float32 layout (``carry_to_vec``), so a chunk can be resumed in the
-port from a JAX carry, and the other way round. With posture on, the
-layout ends with the (F, 2) previous-midline-direction section, which
-orients the next chunk's midlines: it crosses over as ``posture_dir``.
+port from a JAX carry, and the other way round. With
+``track_speed_decay < 1`` the tracking section ends with the (F, 7, 5)
+motion window [frame, x, y, time, global step] and the (F, 3) accumulated
+decay walk [dx, dy, err]: they cross over as ``win`` and ``dacc``. With
+posture on, the layout ends with the (F, 2) previous-midline-direction
+section, which orients the next chunk's midlines: it crosses over as
+``posture_dir``.
 
 Tracking parameters come from any settings mapping:
 ``device_tracker.params_from_settings`` accepts the ``dict`` built from
@@ -24,8 +28,9 @@ from .ops.device_tracker import (TrackParams, _carry_from_vec,
 
 def carry_from_jax(vec: np.ndarray, P: TrackParams, device=None) -> dict:
     """Packed carry vector (the JAX package's ``carry_to_vec`` layout)
-    -> the port's carry dict of tensors on `device`, with the posture
-    section as "posture_dir" (F, 2) when posture is on."""
+    -> the port's carry dict of tensors on `device`: with decay "win"
+    and "dacc", with posture the posture section as "posture_dir" (F,
+    2)."""
     dev = resolve_device(device)
     v = torch.as_tensor(np.array(vec, np.float32), device=dev)
     carry = _carry_from_vec(v, P)
@@ -37,5 +42,6 @@ def carry_from_jax(vec: np.ndarray, P: TrackParams, device=None) -> dict:
 
 def carry_to_numpy(carry: dict) -> np.ndarray:
     """The port's carry dict -> packed float32 vector in the JAX layout
-    (the posture section from "posture_dir" when the dict has one)."""
+    (the decay sections from "win" and "dacc", the posture section from
+    "posture_dir", when the dict has them)."""
     return carry_to_vec(carry)

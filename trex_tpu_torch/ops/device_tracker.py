@@ -2,8 +2,8 @@
 
 Counterpart of ``trex_tpu/ops/device_tracker.py`` for every match mode
 the engines accept (``approximate``, and the optimal ``automatic``,
-``hungarian`` and ``tree``) with or without the history split and with
-or without posture, at ``track_speed_decay`` 1. The per-frame tracking
+``hungarian`` and ``tree``) with or without the history split, speed
+decay (``track_speed_decay < 1``) and posture. The per-frame tracking
 recurrence runs over a chunk of detected frames with the tracker state
 as carry; the result layout (packed carry vectors, packed per-frame
 result) is byte-identical to the reference's, so a chunk can be resumed
@@ -14,7 +14,9 @@ Per frame (the reference's ``_scan_impl`` step):
 - caches: time probability from the recent-samples ring of the last
   ``frame_rate`` frames, size filter on the track-threshold recount;
 - probability: p = tprob / (1 + d/global_td * cm/max_speed)^2 against
-  blob bbox centres, distances measured from the last positions;
+  blob bbox centres, distances measured from the last positions, or with
+  ``track_speed_decay < 1`` from the decay-weighted extrapolation over
+  the carry's motion window (:func:`_decay_estimates`);
 - history split (``track_do_history_split``): with a SplitSpec and the
   frame pixels (the fused path) the exact expectation
   (``ops/device_split.py``) picks the blobs the host would split, the
@@ -30,8 +32,9 @@ Per frame (the reference's ``_scan_impl`` step):
 - ``needs_host``: float32 decisions that could fall the other way in
   the host's float64 (deferral bands, uncertified auctions, marginal
   split decisions), size-filter knife edges, oversized blobs (with the
-  split on the card only at the start frame), split capacity overflows
-  and the trusted-probability cut.
+  split on the card only at the start frame), split capacity overflows,
+  the trusted-probability cut, and under decay a motion window that
+  the array math cannot reproduce (a chain break).
 
 With ``calculate_posture`` the fused path runs the posture pass after
 the scan, in the same call (``_posture_scan``, ``ops/device_posture.py``):
@@ -45,8 +48,6 @@ The frame loop is a Python loop, and the greedy pass, the auction, the
 split executor and the posture loops sync with the host every few
 rounds: correct and slow. Capturing a chunk in a CUDA graph or a
 persistent kernel is later work.
-
-Speed decay raises NotImplementedError until its slice.
 """
 from __future__ import annotations
 
@@ -62,7 +63,7 @@ from .device_match import (GAP_GUARD, TIE_GUARD, auction_match,
                            edge_boundary_marginal)
 from .device_posture import (PostureSpec, posture_lanes_batched,
                              posture_select_scan)
-from .device_split import (SplitSpec, _hypot, expectation_counts,
+from .device_split import (SplitSpec, _hypot, _sqrt32, expectation_counts,
                            spec_from_settings, split_execute_device)
 from .runcc import I32_MAX, detect_batch_runs
 
@@ -91,11 +92,16 @@ class TrackParams(NamedTuple):
     do_posture: bool = False       # calculate_posture
     size_ranges: tuple = ()        # full multi-range track filters
     detect_size_ranges: tuple = ()
-    do_decay: bool = False         # track_speed_decay < 1
+    # track_speed_decay < 1: the carry grows a (F, DECAY_WIN, 5) motion
+    # window [frame, x, y, time, global step] and an (F, 3) accumulated
+    # chain walk [dx, dy, err]
+    do_decay: bool = False
     decay_lambda: float = 1.0      # decay^4
     trusted_p: float = 0.0         # track_trusted_probability
 
 
+# window length of the decay estimate (track/individual.CACHE_WINDOW)
+DECAY_WIN = 7
 # f32 machine epsilon: unit for the f32-arithmetic error bounds that
 # widen the matching passes' deferral bands
 EPS32 = float(2.0 ** -23)
@@ -104,14 +110,6 @@ EPS32 = float(2.0 ** -23)
 AUCTION_RANGE = "trex.auction_match"
 SPLIT_RANGE = "trex.history_split"
 POSTURE_RANGE = "trex.posture"
-
-
-def _require_base(P: TrackParams) -> None:
-    """Raise for the configurations the port does not track yet."""
-    if P.do_decay:
-        raise NotImplementedError(
-            "trex_tpu_torch does not track this configuration yet; "
-            "ported in a later slice: track_speed_decay < 1 (decay slice)")
 
 
 def _in_size_ranges(size, ranges: tuple, lo: float, hi: float):
@@ -166,10 +164,9 @@ def params_from_settings(s) -> TrackParams:
 
 def _init_carry(P: TrackParams, start_frame=0, t0=0.0,
                 device=None) -> dict:
-    _require_base(P)
     F = P.max_fish
     dev = resolve_device(device)
-    return dict(
+    c = dict(
         last_x=torch.zeros(F, dtype=_F32, device=dev),
         last_y=torch.zeros(F, dtype=_F32, device=dev),
         last_time=torch.zeros(F, dtype=_F32, device=dev),
@@ -180,6 +177,154 @@ def _init_carry(P: TrackParams, start_frame=0, t0=0.0,
         n_fish=torch.zeros((), dtype=_I32, device=dev),
         start_frame=torch.as_tensor(start_frame, device=dev).to(_I32),
         prev_time=torch.as_tensor(t0, device=dev).to(_F32))
+    if P.do_decay:
+        win = torch.zeros((F, DECAY_WIN, 5), dtype=_F32, device=dev)
+        win[:, :, 0] = -1e9
+        c["win"] = win
+        c["dacc"] = torch.zeros((F, 3), dtype=_F32, device=dev)
+    return c
+
+
+def _sum_lr(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis from left to right, starting at +0: the
+    order of XLA's CPU reduction over the window's few pairs
+    (``torch.sum`` reduces as a tree on the card and may vectorise on
+    the CPU)."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc
+
+
+def _rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
+    """The float32 division c / t (``c / t`` of a Python scalar
+    multiplies by the reciprocal, which rounds twice)."""
+    return torch.full_like(t, c) / t
+
+
+def _decay_estimates(win: torch.Tensor, P: TrackParams,
+                     dacc: torch.Tensor = None):
+    """Decay-extrapolated positions over the carry's (F, W, 5) motion
+    windows [frame, x, y, time, global step]: the JAX package's
+    ``_decay_estimates`` (the array form of cache_batch.window_motion and
+    window_estimate_scalar, Individual.cpp:1940-2025).
+
+    Returns (est_x, est_y, need_host, est_err, motion). need_host marks
+    fish whose window holds a broken pair (the exact scalar walk runs on
+    the host); a fish with a frame gap adds the accumulated walk `dacc`
+    [dx, dy, err] over the skipped frames. est_err bounds |est_f32 -
+    est_f64| to first order (the host replay computes the chain in
+    float64) and widens the deferral bands. `motion` holds the terms the
+    step uses to extend dacc for fish still unassigned."""
+    wf = win[:, :, 0]
+    prev = wf[:, -1]
+    valid = (wf > -1e8) & (wf >= (prev - 6)[:, None])
+    x = win[:, :, 1]
+    y = win[:, :, 2]
+    t = win[:, :, 3]
+    st = win[:, :, 4]
+    dt = t[:, 1:] - t[:, :-1]
+    pair_exists = valid[:, 1:] & valid[:, :-1]
+    pair_ok = pair_exists & (dt > 0) & (st[:, 1:] <= 1.0)
+    bad = (pair_exists & ~pair_ok).any(1)
+    dts = torch.where(pair_ok, dt, 1.0)
+    vx = torch.where(pair_ok, (x[:, 1:] - x[:, :-1]) / dts, 0.0)
+    vy = torch.where(pair_ok, (y[:, 1:] - y[:, :-1]) / dts, 0.0)
+    l_sq = vx * vx + vy * vy
+    cm = P.cm_per_pixel
+    max_speed_px = (P.max_speed / cm) if cm else 0.0
+    if max_speed_px > 0:
+        over = pair_ok & (l_sq >= max_speed_px * max_speed_px)
+        scale = torch.where(over, _rdiv(max_speed_px, _sqrt32(
+            torch.where(l_sq > 0, l_sq, 1.0))), 1.0)
+        vx = vx * scale
+        vy = vy * scale
+        l_sq = torch.where(over, max_speed_px * max_speed_px, l_sq)
+    counts = pair_ok.sum(1, dtype=_I32)
+    used = torch.clamp_min(counts, 1).to(_F32)
+    raw_x = _sum_lr(vx) / used
+    raw_y = _sum_lr(vy) / used
+    # acceleration: the global step at the newer sample; terms with a
+    # zero previous velocity are skipped (Individual.cpp)
+    acc_step = st[:, 2:]
+    prev_nz = pair_ok[:, :-1] & ((vx[:, :-1] != 0) | (vy[:, :-1] != 0))
+    acc_ok = pair_ok[:, 1:] & (acc_step > 0) & prev_nz
+    acc_div = torch.where(acc_ok, acc_step, 1.0)
+    acc_x = _sum_lr(torch.where(acc_ok, (vx[:, 1:] - vx[:, :-1]) / acc_div,
+                                0.0)) / used
+    acc_y = _sum_lr(torch.where(acc_ok, (vy[:, 1:] - vy[:, :-1]) / acc_div,
+                                0.0)) / used
+    # median pair speed^2 (numpy's midpoint convention); only the sorted
+    # values are read, so the order of equal keys does not matter
+    srt = torch.sort(torch.where(pair_ok, l_sq, float("inf")), 1).values
+    lo_i = torch.clamp_min(torch.div(counts - 1, 2, rounding_mode="floor"),
+                           0).long()
+    hi_i = torch.clamp_min(torch.div(counts, 2, rounding_mode="floor"),
+                           0).long()
+    med = 0.5 * (torch.gather(srt, 1, lo_i[:, None])[:, 0]
+                 + torch.gather(srt, 1, hi_i[:, None])[:, 0])
+    med = torch.where(counts > 0, med, 0.0)
+    speed = torch.clamp_min(_sqrt32(med), 0.6)
+    nrm_v = _hypot(raw_x, raw_y)
+    dir_x = torch.where(nrm_v > 0, raw_x / nrm_v, 0.0)
+    dir_y = torch.where(nrm_v > 0, raw_y / nrm_v, 0.0)
+    nrm_a = _hypot(acc_x, acc_y)
+    accd_x = torch.where(nrm_a > 0, acc_x / nrm_a, 0.0)
+    accd_y = torch.where(nrm_a > 0, acc_y / nrm_a, 0.0)
+    step = st[:, -1]
+    # the first walk term (f' = prev, weight exactly 1 in both
+    # precisions); the terms of the skipped frames of a fish with a gap
+    # are in the accumulated dacc section
+    ok = counts > 0
+    last_x = x[:, -1]
+    last_y = y[:, -1]
+    est_x = torch.where(ok, last_x + step * speed
+                        * (dir_x + step * accd_x), last_x)
+    est_y = torch.where(ok, last_y + step * speed
+                        * (dir_y + step * accd_y), last_y)
+    if dacc is not None:
+        est_x = est_x + torch.where(ok, dacc[:, 0], 0.0)
+        est_y = est_y + torch.where(ok, dacc[:, 1], 0.0)
+
+    # f32-vs-f64 estimate error bound (first order): the window's
+    # positions and times are the float32 images of the host's float64
+    # values; per pair the position packing over dt, the division and
+    # clamp rounding, and the dt packing through dv/ddt = -v/dt, each
+    # with 2x safety. A term whose pair inputs equal the previous pair's
+    # cancels within each precision and leaks only the packing.
+    pos_mag = torch.maximum(last_x.abs(), last_y.abs())
+    ulp_pos = (pos_mag + 1.0) * EPS32
+    ulp_t = (torch.where(valid, t.abs(), 0.0).amax(1) + 1.0) * EPS32
+    dxp = x[:, 1:] - x[:, :-1]
+    dyp = y[:, 1:] - y[:, :-1]
+    vmag = vx.abs() + vy.abs()
+    pack = (2.0 * ulp_pos[:, None] + vmag * ulp_t[:, None]) / dts
+    verr = torch.where(pair_ok, 2.0 * pack + 8.0 * EPS32 * vmag, 0.0)
+    dv = _sum_lr(verr) / used
+    same = (dxp[:, 1:] == dxp[:, :-1]) & (dyp[:, 1:] == dyp[:, :-1]) \
+        & (dt[:, 1:] == dt[:, :-1])
+    aerr_full = (verr[:, 1:] + verr[:, :-1]
+                 + 8.0 * EPS32 * (vmag[:, 1:] + vmag[:, :-1])) / acc_div
+    aerr_same = 2.0 * (pack[:, 1:] + pack[:, :-1]) / acc_div
+    aerr = torch.where(acc_ok, torch.where(same, aerr_same, aerr_full), 0.0)
+    da = _sum_lr(aerr) / used
+    vel_rel = torch.where(dv > 0, torch.clamp_max(
+        2.0 * dv / torch.clamp_min(nrm_v, 1e-30), 2.0), 0.0)
+    acc_rel = torch.where(da > 0, torch.clamp_max(
+        2.0 * da / torch.clamp_min(nrm_a, 1e-30), 2.0), 0.0)
+    v_max = _sqrt32(torch.where(pair_ok, l_sq, 0.0).amax(1))
+    dv_s = verr.amax(1) + 8.0 * EPS32 * v_max
+    speed_rel = dv_s / speed                   # speed >= 0.6 floor
+    disp = step.abs() * speed * (1.0 + step.abs())
+    est_err = 2.0 * ulp_pos + torch.where(
+        ok, disp * (vel_rel + step.abs() * acc_rel + speed_rel
+                    + 16.0 * EPS32), 0.0)
+    if dacc is not None:
+        est_err = est_err + torch.where(ok, dacc[:, 2], 0.0)
+    motion = dict(speed=speed, dir_x=dir_x, dir_y=dir_y, accd_x=accd_x,
+                  accd_y=accd_y, counts=counts, vel_rel=vel_rel,
+                  acc_rel=acc_rel, speed_rel=speed_rel)
+    return est_x, est_y, bad, est_err, motion
 
 
 def _greedy_pass(Pmat, valid_b, taken_f, fish_of_blob, threshold):
@@ -306,7 +451,8 @@ def _step(carry: dict, cx, cy, bcx, bcy, rec, bvalid, time, frame,
     with `bbox` (x0, y0, x1, y1 int32), the frame's pixels and a
     `split_spec`, history splits run on the card. `stats`, when given,
     receives the frame's auction rounds, whether the auction deferred,
-    its split targets and whether the split deferred."""
+    its split targets, whether the split deferred and with decay whether
+    a broken motion window flagged the frame."""
     sq = P.cm_per_pixel * P.cm_per_pixel
     cms = P.cm_per_pixel / P.max_speed
     t_delta_frame = 1.0 / P.frame_rate
@@ -318,10 +464,23 @@ def _step(carry: dict, cx, cy, bcx, bcy, rec, bvalid, time, frame,
     created = torch.arange(F, device=dev) < carry["n_fish"]
     has = (carry["last_frame"] > -(10 ** 8)) & created
     tdelta = torch.clamp_min(time - carry["last_time"], 1e-6)
-    est_x = carry["last_x"]
-    est_y = carry["last_y"]
-    # est = last f32-packed centroid: packing + one compare
-    est_err = 2.0 * EPS32 * (torch.maximum(est_x.abs(), est_y.abs()) + 1.0)
+    # the estimated positions that the matching distances and the
+    # history split measure from: with decay the extrapolation over the
+    # motion window (the last positions where the window needs the host's
+    # scalar walk), else the last positions
+    dec_bad = None
+    dec_host = False
+    if P.do_decay:
+        est_x, est_y, dec_bad, est_err, motion = _decay_estimates(
+            carry["win"], P, carry["dacc"])
+        est_x = torch.where(dec_bad, carry["last_x"], est_x)
+        est_y = torch.where(dec_bad, carry["last_y"], est_y)
+    else:
+        est_x = carry["last_x"]
+        est_y = carry["last_y"]
+        # est = last f32-packed centroid: packing + one compare
+        est_err = 2.0 * EPS32 * (torch.maximum(est_x.abs(), est_y.abs())
+                                 + 1.0)
     size = rec * sq
     in_range = _in_size_ranges(size, P.size_ranges, P.size_min,
                                P.size_max)
@@ -335,6 +494,14 @@ def _step(carry: dict, cx, cy, bcx, bcy, rec, bvalid, time, frame,
     if flag_size.shape[0]:
         # `huge` parents never appear as child rows: escalate
         needs_host = needs_host | (flag_size * sq > P.size_max * 100).any()
+    if dec_bad is not None and runs is not None and P.do_history_split \
+            and P.split_radius > 0:
+        # a recent fish whose window needs the scalar walk poisons the
+        # split expectation too
+        recent = has & (carry["last_frame"].to(_F32)
+                        >= frame - P.frame_rate * P.t_max)
+        dec_host = (recent & dec_bad & ~at_start).any()
+        needs_host = needs_host | dec_host
     perm = None
     n_split = None
     B0 = B
@@ -417,6 +584,13 @@ def _step(carry: dict, cx, cy, bcx, bcy, rec, bvalid, time, frame,
     d = _hypot(bcx[None, :] - est_x[:, None], bcy[None, :] - est_y[:, None])
     speed = d / global_td * cms
     usable = has & (tprob > 0) & (tdelta < P.t_max)
+    if dec_bad is not None:
+        # a usable fish whose estimate needs the scalar walk: the whole
+        # frame replays on the host
+        dec_host = dec_host | (usable & dec_bad).any()
+        needs_host = needs_host | dec_host
+        if stats is not None:
+            stats["decay_flag"] = dec_host
     Pmat = tprob[:, None] / (1.0 + speed) ** 2
     Pmat = torch.where(usable[:, None], Pmat, 0.0)
 
@@ -554,12 +728,51 @@ def _step(carry: dict, cx, cy, bcx, bcy, rec, bvalid, time, frame,
         seen=seen, n_fish=n_fish,
         start_frame=carry["start_frame"],
         prev_time=time.to(_F32))
+    if P.do_decay:
+        _decay_update(new_carry, carry, got, fx, fy, has, time, frame,
+                      motion, P)
     out = dict(fish_x=new_carry["last_x"], fish_y=new_carry["last_y"],
                fish_seen=got, fish_row=fish_row, fish_child=fish_child,
                fish_prob=fish_prob, n_assigned=n_first + n_react,
                needs_host=needs_host,
                carry_vec=_carry_to_vec(new_carry))
     return new_carry, out
+
+
+def _decay_update(new_carry: dict, carry: dict, got, fx, fy, has, time,
+                  frame, motion: dict, P: TrackParams) -> None:
+    """The decay sections of the next carry: assigned fish shift their
+    motion window and append [frame, x, y, time, global step]; a fish
+    left unassigned adds this frame's term of the scalar walk to its
+    accumulated `dacc` (window_estimate_scalar's loop, one term a frame,
+    weight (1 + lam) / (1 + lam * max(1, j)) with j = frame - prev + 1),
+    and an assignment resets it. The error column adds the same first-
+    order bound as the one-step estimate, scaled by the term's
+    displacement, plus the rounding of the adds."""
+    F = P.max_fish
+    dev = fx.device
+    prev_time = carry["prev_time"]
+    g = (time - prev_time).to(_F32)
+    entry = torch.stack([
+        frame.to(_F32).expand(F), fx.to(_F32), fy.to(_F32),
+        time.to(_F32).expand(F), g.expand(F)], 1)
+    shifted = torch.cat([carry["win"][:, 1:], entry[:, None, :]], 1)
+    new_carry["win"] = torch.where(got[:, None, None], shifted,
+                                   carry["win"])
+    lam = torch.tensor(P.decay_lambda, dtype=_F32, device=dev)
+    j = (frame - carry["last_frame"] + 1).to(_F32)
+    w = (1.0 + lam) / (1.0 + lam * torch.clamp_min(j, 1.0))
+    kx = w * g * motion["speed"] * (motion["dir_x"] + g * motion["accd_x"])
+    ky = w * g * motion["speed"] * (motion["dir_y"] + g * motion["accd_y"])
+    disp_t = (w * g).abs() * motion["speed"] * (1.0 + g.abs())
+    kerr = disp_t * (motion["vel_rel"] + g.abs() * motion["acc_rel"]
+                     + motion["speed_rel"] + 16.0 * EPS32) \
+        + 8.0 * EPS32 * (kx.abs() + ky.abs() + 1e-30)
+    can = (has & (motion["counts"] > 0) & ~got)[:, None]
+    dacc = carry["dacc"]
+    new_dacc = torch.where(can, dacc + torch.stack([kx, ky, kerr], 1),
+                           dacc)
+    new_carry["dacc"] = torch.where(got[:, None], 0.0, new_dacc)
 
 
 def _scan_impl(det: dict, times: torch.Tensor, frames_idx: torch.Tensor,
@@ -583,7 +796,6 @@ def _scan_impl(det: dict, times: torch.Tensor, frames_idx: torch.Tensor,
     Returns (per-frame history, final carry): fish_x/fish_y/fish_seen/
     fish_row/fish_child/fish_prob (T, F), n_assigned (T,), needs_host
     (T,), carry_vec (T, carry size), n_fish."""
-    _require_base(P)
     dev = times.device
     T = times.shape[0]
     flag = det.get("flag_size")
@@ -647,17 +859,18 @@ def track_scan(det: dict, times, frames_idx, P: TrackParams,
 
 def carry_vec_size(P: TrackParams) -> int:
     """Width of the packed carry: the tracking scan's section, then with
-    posture the (F, 2) previous-midline-direction section. (Decay adds
-    its section in a later slice.)"""
+    posture the (F, 2) previous-midline-direction section."""
     return _track_vec_size(P) + (2 * P.max_fish if P.do_posture else 0)
 
 
 def _track_vec_size(P: TrackParams) -> int:
     """Width of the tracking scan's carry: five (F,) rows, the (F,
-    frame_rate) seen ring, then n_fish, start_frame, prev_time."""
-    _require_base(P)
+    frame_rate) seen ring, then n_fish, start_frame, prev_time; with
+    decay the (F, DECAY_WIN, 5) motion window and the (F, 3) accumulated
+    walk follow."""
     F = P.max_fish
-    return 5 * F + F * P.frame_rate + 3
+    base = 5 * F + F * P.frame_rate + 3
+    return base + ((5 * DECAY_WIN + 3) * F if P.do_decay else 0)
 
 
 def n_fish_index(P: TrackParams) -> int:
@@ -667,17 +880,23 @@ def n_fish_index(P: TrackParams) -> int:
 
 def _carry_to_vec(c: dict) -> torch.Tensor:
     """Carry dict of tensors -> 1-D float32 tensor (packed layout)."""
-    return torch.cat([
+    parts = [
         c["last_x"].to(_F32), c["last_y"].to(_F32),
         c["last_time"].to(_F32), c["last_frame"].to(_F32),
         c["n_basic"].to(_F32), c["seen"].to(_F32).reshape(-1),
         torch.stack([c["n_fish"].to(_F32), c["start_frame"].to(_F32),
-                     c["prev_time"].to(_F32)])])
+                     c["prev_time"].to(_F32)])]
+    if "win" in c:
+        parts += [c["win"].to(_F32).reshape(-1),
+                  c["dacc"].to(_F32).reshape(-1)]
+    return torch.cat(parts)
 
 
 def carry_to_vec(carry) -> np.ndarray:
     """Host-side carry dict (numpy or tensors) -> 1-D float32 vector;
-    a "posture_dir" (F, 2) entry becomes the trailing posture section."""
+    "win" (F, DECAY_WIN, 5) and "dacc" (F, 3, zeros when absent) become
+    the decay section, a "posture_dir" (F, 2) entry the trailing posture
+    section."""
     c = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
              else np.asarray(v)) for k, v in carry.items()}
     parts = [
@@ -689,6 +908,11 @@ def carry_to_vec(carry) -> np.ndarray:
         c["seen"].astype(np.float32).reshape(-1),
         np.asarray([float(c["n_fish"]), float(c["start_frame"]),
                     float(c["prev_time"])], np.float32)]
+    if "win" in c:
+        parts.append(c["win"].astype(np.float32).reshape(-1))
+        parts.append(np.asarray(
+            c.get("dacc", np.zeros((len(c["last_x"]), 3))),
+            np.float32).reshape(-1))
     if "posture_dir" in c:
         parts.append(c["posture_dir"].astype(np.float32).reshape(-1))
     return np.concatenate(parts)
@@ -696,7 +920,6 @@ def carry_to_vec(carry) -> np.ndarray:
 
 def carry_from_vec_np(vec: np.ndarray, P: TrackParams) -> dict:
     """Host-side inverse of carry_to_vec."""
-    _require_base(P)
     F = P.max_fish
     W = P.frame_rate
     o = 0
@@ -717,6 +940,10 @@ def carry_from_vec_np(vec: np.ndarray, P: TrackParams) -> dict:
         n_fish=int(vec[o]), start_frame=int(vec[o + 1]),
         prev_time=float(vec[o + 2]))
     o += 3
+    if P.do_decay:
+        out["win"] = take(5 * DECAY_WIN * F).reshape(F, DECAY_WIN, 5) \
+            .astype(np.float64)
+        out["dacc"] = take(3 * F).reshape(F, 3).astype(np.float64)
     if P.do_posture:
         out["posture_dir"] = take(2 * F).reshape(F, 2).astype(np.float64)
     return out
@@ -724,21 +951,28 @@ def carry_from_vec_np(vec: np.ndarray, P: TrackParams) -> dict:
 
 def _carry_from_vec(vec: torch.Tensor, P: TrackParams) -> dict:
     """Packed float32 carry tensor -> the scan's carry dict (the tracking
-    section; a posture section after it is not read)."""
-    _require_base(P)
+    section with its decay sections; a posture section after it is not
+    read)."""
     F = P.max_fish
     W = P.frame_rate
     base = 5 * F
     parts = vec[:base].reshape(5, F)
     seen = vec[base:base + F * W].reshape(F, W)
-    tail = vec[base + F * W:base + F * W + 3]
-    return dict(
+    o = base + F * W
+    tail = vec[o:o + 3]
+    out = dict(
         last_x=parts[0].clone(), last_y=parts[1].clone(),
         last_time=parts[2].clone(),
         last_frame=parts[3].to(_I32), n_basic=parts[4].to(_I32),
         seen=seen > 0.5,
         n_fish=tail[0].to(_I32), start_frame=tail[1].to(_I32),
         prev_time=tail[2].clone())
+    if P.do_decay:
+        o += 3
+        n = 5 * DECAY_WIN * F
+        out["win"] = vec[o:o + n].reshape(F, DECAY_WIN, 5).clone()
+        out["dacc"] = vec[o + n:o + n + 3 * F].reshape(F, 3).clone()
+    return out
 
 
 def _pack_result(hist: dict, overflow, P: TrackParams) -> torch.Tensor:
@@ -836,7 +1070,6 @@ def scan_packed(det_packed, aux, P: TrackParams, B: int, R: int = 0,
     trigger. Without pixels there is no posture on this path: its
     fields stay empty and the carry's posture section rides through
     (the DeviceTracker runs posture on the host)."""
-    _require_base(P)
     dev = resolve_device(device)
     det_packed = torch.as_tensor(det_packed, dtype=_F32, device=dev)
     aux = torch.as_tensor(aux, dtype=_F32, device=dev)
@@ -930,7 +1163,6 @@ def fused_scan_packed(frames, background, aux, P: TrackParams,
     With posture on and no enabled spec, as in the JAX package, the
     posture fields stay empty and every frame with an assignment needs
     the host."""
-    _require_base(P)
     dev = resolve_device(device)
     frames = torch.as_tensor(frames, device=dev)
     background = torch.as_tensor(background, device=dev)
@@ -1042,28 +1274,33 @@ def frame_times(T: int, frame_rate: float) -> np.ndarray:
     return np.arange(T, dtype=np.float32) / np.float32(frame_rate)
 
 
-def default_split_spec(settings, P: TrackParams = None):
+def default_split_spec(settings, P: TrackParams = None,
+                       split_caps: dict = None):
     """SplitSpec of the history split on the card, or None when history
-    splits are off (spec_from_settings with the capacity defaults)."""
+    splits are off (spec_from_settings with the capacity defaults, which
+    `split_caps` overrides)."""
     if P is None:
         P = params_from_settings(settings)
     if not (P.do_history_split and P.split_radius > 0):
         return None
+    caps = dict(split_caps or {})
     # split lanes scale with the population: a dense 256-fish arena has
     # more than 8 contested merges in most frames
-    return spec_from_settings(settings, max_splits=max(8, P.max_fish // 8))
+    caps.setdefault("max_splits", max(8, P.max_fish // 8))
+    return spec_from_settings(settings, **caps)
 
 
 def track_video_device(frames, background, settings, device=None,
-                       stats: list = None, **caps) -> dict:
+                       stats: list = None, split_caps: dict = None,
+                       **caps) -> dict:
     """Fused device pipeline: batched run-CC detection + scan tracking
     over one chunk of raw frames; with track_do_history_split, history
     splits run on the card. ``caps`` are detect_batch_runs' capacity
-    options; `stats` as in _scan_impl.
+    options, `split_caps` the split executor's (``default_split_spec``);
+    `stats` as in _scan_impl.
     Returns the per-frame history (tensors) with "final_carry" and
     "detect_overflow"."""
     P = params_from_settings(settings)
-    _require_base(P)
     dev = resolve_device(device)
     kw = _detect_kwargs(settings, caps)
     T = frames.shape[0]
@@ -1076,7 +1313,8 @@ def track_video_device(frames, background, settings, device=None,
     hist = track_scan(det, times,
                       torch.arange(T, dtype=_I32, device=dev), P,
                       frames=frames, background=background,
-                      split_spec=default_split_spec(settings, P),
+                      split_spec=default_split_spec(settings, P,
+                                                    split_caps),
                       stats=stats)
     hist["detect_overflow"] = out["overflow"]
     return hist

@@ -8,8 +8,11 @@ background-difference images, the history split's expectation and
 threshold-escalation executor) and ``tracker_core.cpp`` (the automatic
 mode's matching phases: caches, paired probabilities with per-clique
 matching, reactivation) and ``posture_chain.cpp`` (the batched posture
-chain of ``track/posture.py``, which calls ``labeling.cpp``'s labeler,
-boundary trace and outline resample).
+chain of ``track/posture.py``, with or without the full geometry of the
+archives, which calls ``labeling.cpp``'s labeler, boundary trace and
+outline resample). The per-blob chain of ``track/posture.py`` binds the
+boundary trace, the outline resample, the midline walk and the midline
+chain one by one.
 
 The library is compiled with ``g++`` at first use into
 ``build/trex_tpu_torch/`` (a directory git ignores), under a name that
@@ -47,6 +50,11 @@ class Blob:
     lines: np.ndarray  # (K, 3) int32 [y, x0, x1 inclusive]
     pixels: np.ndarray  # (num_pixels,) uint8, scan order
     stats: Optional[np.ndarray] = None  # (8,) n_px, track_count, moments
+
+    @property
+    def num_pixels(self) -> int:
+        return int(self.pixels.size) if self.pixels is not None else int(
+            np.sum(self.lines[:, 2] - self.lines[:, 1] + 1))
 
 
 def library_path() -> Path:
@@ -88,6 +96,8 @@ _vp = ctypes.c_void_p
 _i32 = ctypes.c_int32
 _i64 = ctypes.c_int64
 _f64 = ctypes.c_double
+
+_f32p = ctypes.POINTER(ctypes.c_float)
 
 # symbol -> (restype, argtypes)
 _SIGNATURES = {
@@ -133,7 +143,23 @@ _SIGNATURES = {
     "trex_track_reactivate": (None, [_i32p, _i32, _c, _f64p, _f64p, _f64p,
                                      _i32p, _i32, _f64p, _f64p, _f64,
                                      _i32p]),
-    # posture_chain.cpp
+    # the per-blob posture chain (labeling.cpp, posture_chain.cpp)
+    "trex_trace_boundary": (_i64, [_c, _i32, _i32, _f32p, _i64]),
+    "trex_outline_resample": (_i64, [_f32p, _i64, _f64, _f32p, _i64]),
+    "trex_midline_walk": (_i64, [_f32p, _i64, _i32, _f32p, _i64]),
+    "trex_midline_chain": (_i32, [_f32p, _i64, _f64, _i32, _i32, _f64,
+                                  _i32, _f64, _f64, _i32, _i32, _f64p,
+                                  _f64p, _f64p, _i64, _i64p, _i32p, _i32p,
+                                  _f64p, _f64p, _i32p]),
+    # posture_chain.cpp: the batch chain, and with full geometry
+    "trex_posture_batch_full": (None, [_i32p, _i64p, _c, _i64p, _i64, _c,
+                                       _i32, _i32, _i32, _i32, _f64, _f64,
+                                       _i32, _i32, _f64, _i32, _f64, _f64,
+                                       _i32, _i32, _f64p, _c, _f64p, _f64p,
+                                       _f64p, _f64p, _i32p, _f32p, _i32p,
+                                       _i64, _f64p, _f64p, _i64, _i32p,
+                                       _i32p, _i32p, _i32p, _f64p, _i32p,
+                                       _i32]),
     "trex_posture_batch": (None, [_i32p, _i64p, _c, _i64p, _i64, _c, _i32,
                                   _i32, _i32, _i32, _f64, _f64, _i32, _i32,
                                   _f64, _i32, _f64, _f64, _i32, _i32, _f64p,

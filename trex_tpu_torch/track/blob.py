@@ -1,14 +1,16 @@
 """Tracking-stage blob: RLE lines + pixels + threshold recount.
 
 Counterpart of ``trex_tpu/track/blob.py`` (``TrackBlob``,
-``blob_id_from_lines``), reduced to what the host FastTracker replay
-reads: identity, geometry, the thresholded recount and the dense crop
-of the start-frame split. Pixel counts are cached per threshold like
-the reference's ``recount(threshold, background)``.
+``blob_id_from_lines``): identity, geometry (bounds, centroid, bbox
+centre, orientation from the image moments), the thresholded recount,
+the dense crop, and the split flags and parent id that the
+per-individual archives keep. Pixel counts are cached per threshold
+like the reference's ``recount(threshold, background)``.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import numpy as np
@@ -33,23 +35,32 @@ def blob_id_from_lines(lines: np.ndarray) -> int:
 class TrackBlob:
     """A candidate object during tracking: `lines`/`pixels` from
     detection, optional native per-blob `stats` (8 doubles: n_px,
-    track_count, sum_x, sum_y, sxx, syy, sxy, packed x bounds)."""
+    track_count, sum_x, sum_y, sxx, syy, sxy, packed x bounds); `split`
+    and `parent_id` mark a piece of a thresholded or split parent,
+    `prediction` a detector's pose or outline and `store_pixels` the
+    encoded colour pixels of pv storage."""
 
-    __slots__ = ("lines", "pixels", "flags", "_bid", "_bounds",
-                 "_recount_cache", "_last_recount", "_diff_cached", "stats")
+    __slots__ = ("lines", "pixels", "parent_id", "split", "flags", "_bid",
+                 "_bounds", "_recount_cache", "_last_recount",
+                 "_diff_cached", "stats", "prediction", "store_pixels")
 
     def __init__(self, lines: np.ndarray, pixels: Optional[np.ndarray],
-                 flags: int = 0, stats: Optional[np.ndarray] = None):
+                 flags: int = 0, parent_id: int = -1, split: bool = False,
+                 stats: Optional[np.ndarray] = None):
         self.lines = np.asarray(lines, dtype=np.int32)
         self.pixels = pixels if pixels is None \
             else np.asarray(pixels, np.uint8)
         self.flags = flags
+        self.parent_id = parent_id
+        self.split = split
         self._bid = None
         self._bounds = None
         self._recount_cache: dict = {}
         self._last_recount: Optional[int] = None
         self._diff_cached = None
         self.stats = stats
+        self.prediction = None
+        self.store_pixels = None
 
     @property
     def blob_id(self) -> int:
@@ -70,6 +81,13 @@ class TrackBlob:
         return self._bounds
 
     @property
+    def bbox_center(self):
+        """Bounding-box centre, the matching probability's position
+        (Individual.cpp:2186-2194: bounds.pos() + size * 0.5)."""
+        x, y, w, h = self.bounds
+        return (x + w * 0.5, y + h * 0.5)
+
+    @property
     def center(self):
         """Mask centroid (image moments)."""
         if self.stats is not None:
@@ -87,6 +105,37 @@ class TrackBlob:
         if self.stats is not None:
             return int(self.stats[0])
         return int(np.sum(self.lines[:, 2] - self.lines[:, 1] + 1))
+
+    @property
+    def orientation(self) -> float:
+        """Principal-axis angle from the image moments of the mask."""
+        if self.stats is not None:
+            n, _, sx, sy, sx2, sy2, sxy = self.stats[:7]
+            cx, cy = sx / n, sy / n
+            mu20 = sx2 - cx * sx
+            mu02 = sy2 - cy * sy
+            mu11 = sxy - cx * sy
+            if mu20 == mu02 and mu11 == 0:
+                return 0.0
+            return 0.5 * math.atan2(2 * mu11, mu20 - mu02)
+        ys, x0s, x1s = self.lines[:, 0], self.lines[:, 1], self.lines[:, 2]
+        w = (x1s - x0s + 1).astype(np.float64)
+        n = w.sum()
+        cx = float((0.5 * (x0s + x1s) * w).sum() / n)
+        cy = float((ys * w).sum() / n)
+        # second moments from exact sums over the runs:
+        # sum x^2 over [a, b] = (b(b+1)(2b+1) - (a-1)a(2a-1)) / 6
+        a = x0s.astype(np.float64)
+        b = x1s.astype(np.float64)
+        sx2 = ((b * (b + 1) * (2 * b + 1)
+                - (a - 1) * a * (2 * a - 1)) / 6.0).sum()
+        sx = (0.5 * (a + b) * w).sum()
+        mu20 = sx2 - 2 * cx * sx + cx * cx * n
+        mu02 = float(((ys - cy) ** 2 * w).sum())
+        mu11 = float((((0.5 * (a + b)) - cx) * (ys - cy) * w).sum())
+        if mu20 == mu02 and mu11 == 0:
+            return 0.0
+        return 0.5 * math.atan2(2 * mu11, mu20 - mu02)
 
     def raw_recount(self, threshold: int, background: Optional[np.ndarray],
                     absolute: bool, use_bgsub: bool) -> int:

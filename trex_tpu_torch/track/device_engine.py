@@ -12,7 +12,12 @@ ships no pixels, so its contested frames are replayed. With
 ``calculate_posture`` the fused path takes its postures from the card's
 posture pass, and the blob-list path runs the host's native posture
 chain over each committed span, walking the carry's posture-direction
-section forward.
+section forward. With ``track_speed_decay < 1`` the carry holds each
+fish's motion window and accumulated decay walk; a replay splices the
+window into the helper and rebuilds the walk in float64
+(``_rebuild_dacc``). Archive mode (``keep_individuals``, blob-list path
+only) archives the committed frames from the host-built candidate tables
+through the scan's fish_row, the replayed frames inside the helper.
 
 Two ingestion paths:
 
@@ -42,13 +47,16 @@ import torch
 from ..config import SettingsView
 from ..device import resolve_device
 from ..ops.device_posture import spec_from_settings as posture_spec
-from ..ops.device_tracker import (_detect_kwargs, _track_vec_size,
+from ..ops.device_tracker import (DECAY_WIN, _detect_kwargs,
+                                  _track_vec_size,
                                   carry_from_vec_np, carry_to_vec,
                                   default_split_spec, fused_scan_packed,
                                   make_aux, n_fish_index,
                                   params_from_settings, scan_packed,
                                   unpack_result)
 from ..ops.labeling import label_blobs_raw
+from .archive import build_individuals
+from .cache_batch import window_estimate_scalar
 from .engine import (EngineUnsupported, FastTracker, posture_of_pairs,
                      raw_from_blobs)
 from .tracker import FrameStatistics
@@ -68,6 +76,37 @@ def check_device_supported(settings) -> None:
             "with the posture-closing slice)")
 
 
+def _rebuild_dacc(win: np.ndarray, got: np.ndarray, frame: int,
+                  prev_dacc: np.ndarray, frame_times: dict,
+                  settings) -> np.ndarray:
+    """The carry's accumulated decay walk after a host replay: assigned
+    fish reset; an unassigned fish takes the exact float64 walk through
+    `frame` (the walk to query frame + 1 less its first term, the walk
+    to query prev + 1), which restarts its error column at packing scale.
+    `win` is the card's (F, W, 5) window [frame, x, y, time, global
+    step]; the scalar walk reads its [:, :4] columns."""
+    dacc = np.asarray(prev_dacc).copy()
+    dacc[got] = 0.0
+    for fi in np.flatnonzero(~got):
+        row = win[fi]
+        pf = row[row[:, 0] > -1e8]
+        if not len(pf):
+            continue
+        prev_f = int(pf[-1, 0])
+        if prev_f >= frame:  # no gap to walk
+            continue
+        w4 = row[:, :4]
+        fx, fy = window_estimate_scalar(
+            w4, -(10 ** 9), frame + 1, 0.0, frame_times, settings)
+        tx, ty = window_estimate_scalar(
+            w4, -(10 ** 9), prev_f + 1, 0.0, frame_times, settings)
+        dacc[fi, 0] = fx - tx
+        dacc[fi, 1] = fy - ty
+        dacc[fi, 2] = 4.0 * 1.1920929e-07 * (
+            abs(dacc[fi, 0]) + abs(dacc[fi, 1]) + 1.0)
+    return dacc
+
+
 def _probs_for(h, fish) -> np.ndarray:
     """Per-fid assignment probabilities from a helper history record
     (-1 = unknown, the host Tracker's no-probability sentinel)."""
@@ -82,6 +121,12 @@ class DeviceTracker:
 
     ``device=None`` runs on the CUDA card (and raises without one);
     ``device="cpu"`` runs the scan's plain PyTorch path, for the tests.
+    `split_caps` overrides the capacities of the history split on the
+    card (``default_split_spec``). With `keep_individuals` (archive mode,
+    blob path only) the committed frames are archived from the host-built
+    candidate tables through the scan's fish_row, and replayed frames
+    inside the helper engine; ``individuals`` builds the per-identity
+    archive from them.
     ``scan_seconds`` sums the host wall time of the scan calls, each
     ending in the copy of its packed result to the host, and
     ``frames_scanned`` the frames they scanned (each assist relaunches
@@ -90,18 +135,26 @@ class DeviceTracker:
     CHUNK = 256
 
     def __init__(self, settings, background: np.ndarray,
-                 chunk: int = None, caps: dict = None, device=None):
+                 chunk: int = None, caps: dict = None,
+                 split_caps: dict = None, keep_individuals: bool = False,
+                 device=None):
         check_device_supported(settings)
         self.settings = SettingsView(settings)
         self.device = resolve_device(device)
         self.background = np.asarray(background)
         self.caps = caps
+        self.archive_mode = bool(keep_individuals)
+        self.frame_archive: dict[int, tuple] = {}
+        self.posture_archive: dict[int, list] = {}
+        self._individuals_cache = None
         # host helper: candidate tables and the replay; raises
         # EngineUnsupported for the configurations the port lacks
-        self._helper = FastTracker(self.settings, self.background)
+        self._helper = FastTracker(self.settings, self.background,
+                                   keep_individuals=keep_individuals)
         self.P = params_from_settings(self.settings)
         # the history split on the card, for the fused raw-frames path
-        self.split_spec = default_split_spec(self.settings, self.P)
+        self.split_spec = default_split_spec(self.settings, self.P,
+                                             split_caps)
         # posture on the card, for the fused raw-frames path (the blob
         # path runs the host's native chain per committed span)
         self.posture_spec = posture_spec(self.settings, crop_h=96,
@@ -144,6 +197,10 @@ class DeviceTracker:
                      n_basic=np.zeros(F),
                      seen=np.zeros((F, self.P.frame_rate)),
                      n_fish=0, start_frame=frame, prev_time=time)
+            if self.P.do_decay:
+                win = np.zeros((F, DECAY_WIN, 5))
+                win[:, :, 0] = -1e9
+                c["win"] = win
             if self.P.do_posture:
                 c["posture_dir"] = np.zeros((F, 2))
             self._carry_vec = carry_to_vec(c)
@@ -221,12 +278,14 @@ class DeviceTracker:
         raws = [raw_from_blobs(blobs, self.background, eng.track_thr,
                                eng.absolute) for _, _, blobs in buf]
         tables = [eng.build_candidates(*raw)[0] for raw in raws]
+        # archive mode: the blobs' predictions, per source row
+        preds = [eng._blob_predictions(blobs) for _, _, blobs in buf]
 
         i = 0
         while i < len(buf):
             if self._maybe_demote(frames[i], times[i]):
                 for k in range(i, len(buf)):
-                    self._host_step(frames[k], times[k], raws[k])
+                    self._host_step(frames[k], times[k], raws[k], preds[k])
                 break
             span = len(buf) - i
             packed, B, R = self._det_packed(tables[i:])
@@ -234,13 +293,17 @@ class DeviceTracker:
             vec = self._scan(lambda: scan_packed(packed, aux, self.P, B, R,
                                                  device=self.device), span)
             stop, hist = self._commit_span(frames[i:], vec, span)
+            if self.archive_mode:
+                self._archive_span(frames[i:], tables[i:], raws[i:],
+                                   preds[i:], hist, stop)
             # no pixels on the card on this path: posture runs on the
             # host over the committed span
-            self._host_posture_span(frames[i:], tables[i:], hist, stop)
+            self._host_posture_span(frames[i:], tables[i:], raws[i:],
+                                    preds[i:], hist, stop)
             if stop == span:
                 break
             j = i + stop
-            self._assist(frames[j], times[j], raws[j])
+            self._assist(frames[j], times[j], raws[j], preds[j])
             i = j + 1
         self.end_frame = frames[-1]
 
@@ -249,7 +312,13 @@ class DeviceTracker:
     def track_frames(self, frames: np.ndarray, start_frame: int = 0):
         """Detection fused with tracking on the card over a raw frame
         batch, a chunk at a time. Per chunk the frames and one aux vector
-        go up and one packed result comes down."""
+        go up and one packed result comes down. Archive mode needs the
+        host's blob tables and refuses this path."""
+        if self.archive_mode:
+            raise EngineUnsupported(
+                "archive mode (keep_individuals) needs host blob tables — "
+                "feed frames through add_frame_blobs, not the fused "
+                "raw-frames path")
         s = self.settings
         fr = float(s["frame_rate"] or 25)
         frames = np.asarray(frames)
@@ -321,13 +390,54 @@ class DeviceTracker:
         self._frames_done += stop
         return stop, hist
 
+    # -- archives (archive mode) ------------------------------------------
+
+    def _archive_span(self, frames, tables, raws, preds, hist, stop: int):
+        """Archive `stop` committed blob-path frames: each assignment as a
+        lean blob of the host-built candidate table
+        (FastTracker._materialize_row), its row from the scan's
+        fish_row."""
+        eng = self._helper
+        rows_h = np.asarray(hist["fish_row"])
+        for k in range(stop):
+            t = tables[k]
+            eng._cur_stats = raws[k][4]
+            eng._cur_preds = preds[k]
+            rows = rows_h[k]
+            out_f = []
+            out_b = []
+            for fid in np.flatnonzero(rows >= 0).tolist():
+                r = int(rows[fid])
+                if r >= t.n:
+                    continue
+                b = eng._materialize_row(t, r)
+                if b is None:
+                    continue
+                out_f.append(int(fid))
+                out_b.append(b)
+            self.frame_archive[int(frames[k])] = (out_f, out_b)
+        self._individuals_cache = None
+
+    @property
+    def individuals(self):
+        """Per-identity archive (see FastTracker.individuals)."""
+        if not self.archive_mode:
+            raise AttributeError(
+                "individuals needs keep_individuals=True (archive mode); "
+                "this engine kept positional history only")
+        if self._individuals_cache is None:
+            self._individuals_cache = build_individuals(self)
+        return self._individuals_cache
+
     # -- host assist (per-frame replay) ----------------------------------
 
-    def _host_posture_span(self, frames, tables, hist, stop: int):
+    def _host_posture_span(self, frames, tables, raws, preds, hist,
+                           stop: int):
         """Posture of `stop` committed blob-path frames on the host (the
         native chain FastTracker runs), walking the carry's posture-
         direction section forward and writing it back, so that the next
-        scan and the replay start from the directions after the span."""
+        scan and the replay start from the directions after the span;
+        archive mode keeps the posture records."""
         if not self.P.do_posture or not stop:
             return
         eng = self._helper
@@ -340,14 +450,22 @@ class DeviceTracker:
         rows_h = np.asarray(hist["fish_row"])
         for k in range(stop):
             t = tables[k]
+            eng._cur_stats = raws[k][4]
+            eng._cur_preds = preds[k]
             rows = rows_h[k]
             pairs = [(fid, int(rows[fid]))
                      for fid in np.flatnonzero(rows >= 0).tolist()
                      if rows[fid] < t.n]
-            h = posture_of_pairs(self.settings, self.background, t, pairs,
-                                 pdir, eng._row_prediction)
-            if h is not None:
-                self.posture_history[int(frames[k])] = h
+            h, recs = posture_of_pairs(self.settings, self.background, t,
+                                       pairs, pdir, eng._row_prediction,
+                                       self.archive_mode)
+            if h is None:
+                continue
+            f = int(frames[k])
+            self.posture_history[f] = h
+            if self.archive_mode:
+                self.posture_archive[f] = recs
+                self._individuals_cache = None
         self._carry_vec[base:base + 2 * F] = pdir.astype(np.float32).ravel()
 
     def _sync_helper_state(self, frame: int, time: float):
@@ -364,6 +482,11 @@ class DeviceTracker:
         eng.n_basic[:] = np.asarray(c["n_basic"], np.int64)
         if self.P.do_posture:
             eng._posture_dir[:F] = np.asarray(c["posture_dir"])
+        if self.P.do_decay:
+            # the motion window (frame, x, y, time) of the helper's decay
+            # estimates; its scalar walk reads frame_times, so it gets the
+            # whole history
+            eng.win[:F] = np.asarray(c["win"])[:, :, :4]
         eng.frame_times = dict(self.frame_times)
         eng.frame_times[frame - 1] = float(c["prev_time"])
         eng.frame_times[frame] = time
@@ -407,13 +530,13 @@ class DeviceTracker:
                 eng.trk_ring[fid, :m] = np.asarray(closed[-m:], np.int64)
                 eng.trk_ring_n[fid] = m
 
-    def _assist(self, frame: int, time: float, raw: tuple):
+    def _assist(self, frame: int, time: float, raw: tuple, preds=None):
         """Replay one flagged frame through the host engine and rebuild
         the carry from its state."""
         t0 = _time.perf_counter()
         self._sync_helper_state(frame, time)
         eng = self._helper
-        eng.add_frame(frame, time, *raw)
+        eng.add_frame(frame, time, *raw, predictions=preds)
         self.assist_frames.append(frame)
         self._frames_done += 1
         got = self._harvest_host_frame(frame)
@@ -427,6 +550,22 @@ class DeviceTracker:
             seen=np.concatenate([prev["seen"][:, 1:], got[:, None]], 1),
             n_fish=eng.n_fish, start_frame=self.start_frame,
             prev_time=time)
+        if self.P.do_decay:
+            # assigned fish shift and append this frame's window entry, as
+            # the scan's carry update does; the older entries and their
+            # global steps ride from the previous carry
+            win = prev["win"].copy()
+            fids = np.flatnonzero(got)
+            if len(fids):
+                win[fids, :-1] = win[fids, 1:]
+                win[fids, -1, 0] = frame
+                win[fids, -1, 1] = eng.last_x[fids]
+                win[fids, -1, 2] = eng.last_y[fids]
+                win[fids, -1, 3] = time
+                win[fids, -1, 4] = time - float(prev["prev_time"])
+            c["win"] = win
+            c["dacc"] = _rebuild_dacc(win, got, frame, prev["dacc"],
+                                      self.frame_times, self.settings)
         if self.P.do_posture:
             c["posture_dir"] = eng._posture_dir[:F]
         self._carry_vec = carry_to_vec(c)
@@ -454,6 +593,14 @@ class DeviceTracker:
             ph = eng.posture_history.get(frame)
             if ph is not None:
                 self.posture_history[frame] = ph
+        if self.archive_mode:
+            fa = eng.frame_archive.get(frame)
+            if fa is not None:
+                self.frame_archive[frame] = fa
+            pa = eng.posture_archive.get(frame)
+            if pa is not None:
+                self.posture_archive[frame] = pa
+            self._individuals_cache = None
         return got
 
     def _maybe_demote(self, frame: int, time: float) -> bool:
@@ -470,9 +617,9 @@ class DeviceTracker:
             self.demoted = True
         return self.demoted
 
-    def _host_step(self, frame: int, time: float, raw: tuple):
+    def _host_step(self, frame: int, time: float, raw: tuple, preds=None):
         """One frame fully on the (already synced) host engine."""
-        self._helper.add_frame(frame, time, *raw)
+        self._helper.add_frame(frame, time, *raw, predictions=preds)
         self._harvest_host_frame(frame)
         self._frames_done += 1
 

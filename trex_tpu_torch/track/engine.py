@@ -3,16 +3,22 @@
 Counterpart of ``trex_tpu/track/engine.py::FastTracker`` for the
 configurations the device engine replays through: every ``match_mode``
 but ``benchmark`` (``approximate``, ``hungarian``, ``tree`` and the
-product default ``automatic``), with or without the history split, at
-``track_speed_decay`` 1, with or without posture, without archive mode. It
-keeps all per-fish state in flat numpy arrays. ``automatic`` takes the
+product default ``automatic``), with or without the history split, speed
+decay, posture and archive mode. It keeps all per-fish state in flat
+numpy arrays. ``automatic`` takes the
 native phases of ``native/tracker_core.cpp`` (caches, paired
 probabilities with per-clique matching, reactivation) and the native
 split executor, as the JAX package's engine does; the other modes take
 the Python paths. Host code stays numpy, as it is there. With
 ``calculate_posture`` every assignment of a frame gets its posture from
 one call of the native batch chain (``track/posture.py``), the previous
-midline direction of each fish orienting the next.
+midline direction of each fish orienting the next. With
+``track_speed_decay < 1`` the matching distances and the history split
+measure from the decay extrapolation over a per-fish motion window
+(``track/cache_batch.py``). With ``keep_individuals`` (archive mode) each
+frame's assignments are kept as lean blobs with their posture records,
+and ``individuals`` replays them into per-identity archives
+(``track/archive.py``).
 
 Per frame (``add_frame``): candidate table from the labeler's flat
 arrays (Tracker::prefilter, with the track-threshold re-split of
@@ -24,8 +30,8 @@ then the second pass (reactivation of inactive fish against centroids,
 then new fish in blob order while under ``track_max_individuals``),
 then posture.
 
-Speed decay and posture closing steps raise ``EngineUnsupported`` in the
-constructor until their slices of the port (``ROADMAP.md``).
+Posture closing steps raise ``EngineUnsupported`` in the constructor
+until their slice of the port (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -39,9 +45,12 @@ from ..config import SettingsView
 from ..ops.labeling import (SplitExecutor, _f64p, _i32p, _i64p, _lib,
                             blob_stats, expectation_native)
 from .blob import TrackBlob
+from .cache_batch import window_estimate_scalar, window_motion
+from .individual import CACHE_WINDOW
 from .matching import MatchResult, PairedProbabilities, match
 from .prefilter import SizeFilters, threshold_components
-from .posture import _get_native_posture, compute_posture_rows
+from .archive import build_individuals, compute_posture_rows
+from .posture import _get_native_posture
 from .splitting import _initial_threshold, split_blob
 from .tracker import FrameStatistics
 
@@ -85,9 +94,6 @@ def check_supported(settings) -> None:
         want(int(s["posture_closing_steps"]) == 0,
              "posture_closing_steps (ported with the posture-closing "
              "slice)")
-    decay = min(1.0, max(0.0, float(s["track_speed_decay"])))
-    want(decay ** 4 >= 1.0,
-         "track_speed_decay < 1 (ported with the decay slice)")
 
 
 @dataclass
@@ -111,6 +117,9 @@ class _CandTable:
     pixel_lo: np.ndarray   # per row, offset into pixels; -1 if object
     pixel_hi: np.ndarray
     pixels: np.ndarray
+    # the row of the frame's stats array (-1 for object-backed rows);
+    # archive mode reads the orientation moments from it
+    srow: np.ndarray = None
 
     def blob(self, i: int) -> TrackBlob:
         """Row i as a TrackBlob (the split path)."""
@@ -132,10 +141,22 @@ def _in_range_rows(values: np.ndarray, ranges) -> np.ndarray:
 
 
 class FastTracker:
-    def __init__(self, settings, background: np.ndarray):
+    def __init__(self, settings, background: np.ndarray,
+                 keep_individuals: bool = False):
         check_supported(settings)
         s = self.settings = SettingsView(settings)
         self.background = background
+        # archive mode: each frame's assigned blobs (lean TrackBlobs) and
+        # full posture geometry are recorded, and build_individuals
+        # (track/archive.py) replays them into per-identity Individuals,
+        # the store the export surfaces read. Off by default: the
+        # throughput path keeps positional history only.
+        self.archive_mode = bool(keep_individuals)
+        self.frame_archive: dict[int, tuple] = {}
+        self.posture_archive: dict[int, list] = {}
+        self._individuals_cache = None
+        self._cur_stats = None
+        self._cur_preds = None
         self.F = int(s["track_max_individuals"])
         F = self.F
         self.cm = float(s["cm_per_pixel"] or 1.0)
@@ -157,6 +178,7 @@ class FastTracker:
 
         self.n_fish = 0                     # created so far
         self.last_frame = np.full(F, -(10 ** 9), np.int64)
+        self.start_frame_f = np.full(F, -1, np.int64)
         self.last_x = np.zeros(F)
         self.last_y = np.zeros(F)
         self.last_time = np.zeros(F)
@@ -177,6 +199,16 @@ class FastTracker:
         # the native phases have automatic matching's semantics
         self.use_native = self.mode == "automatic"
         self._split_executor = None  # SplitExecutor, made at first use
+        # track_speed_decay < 1: the matching distances measure from the
+        # decay-weighted velocity extrapolation instead of the last
+        # position (Individual.cpp:1995-2025), over a per-fish motion
+        # window (the flat-array twin of Individual._win) that exists
+        # only when the decay is active
+        decay = min(1.0, max(0.0, float(s["track_speed_decay"])))
+        self.decay_active = decay ** 4 < 1.0
+        if self.decay_active:
+            self.win = np.full((F, CACHE_WINDOW, 4), np.nan)
+            self.win[:, :, 0] = -1e9
 
         self.start_frame = -1
         self.end_frame = -1
@@ -210,7 +242,7 @@ class FastTracker:
             none = np.zeros(0, np.int64)
             return _CandTable(0, empty, empty, empty, empty, empty, empty,
                               empty, empty, none, none, [], lines, none,
-                              none, pixels), []
+                              none, pixels, srow=none), []
         rows = np.arange(N)
         count = stats[:, 0]
         track_count = stats[:, 1]
@@ -288,7 +320,7 @@ class FastTracker:
             objs=[None] * len(rows), lines=lines,
             pixel_lo=pixel_start[rows].astype(np.int64),
             pixel_hi=pixel_start[rows + 1].astype(np.int64),
-            pixels=pixels)
+            pixels=pixels, srow=np.asarray(rows, np.int64))
 
     def _table_mixed(self, idx_rows, cnt_l, rec_l, objs, lines, pixels,
                      line_start, pixel_start, stats) -> _CandTable:
@@ -317,7 +349,8 @@ class FastTracker:
                 bx1[r], by1[r] = x + w - 1, y + h - 1
         return _CandTable(n, np.asarray(cnt_l, np.float64),
                           np.asarray(rec_l, np.float64), cx, cy, bx0, by0,
-                          bx1, by1, lo, hi, objs, lines, plo, phi, pixels)
+                          bx1, by1, lo, hi, objs, lines, plo, phi, pixels,
+                          srow=np.asarray(idx_rows, np.int64).reshape(-1))
 
     # -- history split ---------------------------------------------------
     def _grid_points(self, table: _CandTable, rows: np.ndarray):
@@ -460,8 +493,12 @@ class FastTracker:
         drop = np.zeros(table.n, bool)
         insert: dict[int, list] = {}
         # table-backed native jobs go in one batched call; `insert` keeps
-        # the expectation's order either way
-        batch_ok = self.use_native and s["blob_split_algorithm"] != "none"
+        # the expectation's order either way. Archive mode keeps the
+        # split_blob pieces (TrackBlobs with lines and flags, which the
+        # archives need; the native executor's _StatPieces carry stats
+        # only)
+        batch_ok = (self.use_native and not self.archive_mode
+                    and s["blob_split_algorithm"] != "none")
         jobs: list[tuple[int, int]] = []
         for bi, want in expect.items():
             if want < 2:
@@ -472,7 +509,7 @@ class FastTracker:
                 jobs.append((bi, want))
                 insert[bi] = []  # placeholder keeps the dict order
                 continue
-            if self.use_native:
+            if self.use_native and not self.archive_mode:
                 parts = self._split_native(table, bi, want)
             else:
                 parts = split_blob(table.blob(bi), want, self.background, s)
@@ -659,17 +696,40 @@ class FastTracker:
             fresh[breaks], -(10 ** 9), self.last_frame[bf])
         self.trk_start[bf] = frame
         self.trk_start_time[bf] = time
+        self.start_frame_f[fids] = np.where(fresh, frame,
+                                            self.start_frame_f[fids])
         self.last_frame[fids] = frame
         self.last_x[fids] = xs
         self.last_y[fids] = ys
         self.last_time[fids] = time
         self.n_basic[fids] += 1
+        if self.decay_active:
+            self.win[fids, :-1] = self.win[fids, 1:]
+            self.win[fids, -1, 0] = frame
+            self.win[fids, -1, 1] = xs
+            self.win[fids, -1, 2] = ys
+            self.win[fids, -1, 3] = time
 
-    def _position_estimates(self):
-        """Estimated positions the matching distances measure from: the
-        last positions at ``track_speed_decay`` 1 (the decay estimate is
-        a later slice)."""
-        return self.last_x, self.last_y
+    def _position_estimates(self, frame: int, time: float):
+        """Estimated positions (full F arrays) the matching distances and
+        the history split's fish positions measure from: the last
+        positions at ``track_speed_decay`` 1, else the decay extrapolation
+        over the motion windows (cache_batch.window_motion; fish the
+        array math cannot reproduce take window_estimate_scalar)."""
+        F = self.n_fish
+        if not self.decay_active or F == 0:
+            return self.last_x, self.last_y
+        m = window_motion(self.win[:F], self.start_frame_f[:F], frame,
+                          time, self.frame_times, self.settings)
+        est_x = self.last_x.copy()
+        est_y = self.last_y.copy()
+        est_x[:F] = m["est_x"]
+        est_y[:F] = m["est_y"]
+        for i in np.flatnonzero(m["need_scalar"]).tolist():
+            est_x[i], est_y[i] = window_estimate_scalar(
+                self.win[i], int(self.start_frame_f[i]), frame, time,
+                self.frame_times, self.settings)
+        return est_x, est_y
 
     # -- matching ---------------------------------------------------------
     def _match_py(self, uf: np.ndarray, tdelta: np.ndarray,
@@ -753,11 +813,18 @@ class FastTracker:
 
     # -- main ------------------------------------------------------------
     def add_frame(self, frame: int, time: float, lines, pixels,
-                  line_start, pixel_start, stats) -> MatchResult:
+                  line_start, pixel_start, stats,
+                  predictions: list = None) -> MatchResult:
+        """Track one frame from the labeler's flat arrays; `predictions`
+        (archive mode) are the detector's per-blob pose or outline
+        predictions, indexed like `stats`."""
         t0 = _time.perf_counter()
         if self.start_frame < 0:
             self.start_frame = frame
         self.frame_times[frame] = time
+        if self.archive_mode:
+            self._cur_stats = stats
+            self._cur_preds = predictions
 
         table, big_rows = self.build_candidates(
             lines, pixels, line_start, pixel_start, stats)
@@ -770,7 +837,7 @@ class FastTracker:
         prev_t = self.frame_times.get(frame - 1)
         global_td = (time - prev_t) if prev_t is not None else 0.0
         speed_td = np.full(F, global_td if global_td > 0 else np.inf)
-        est_x, est_y = self._position_estimates()
+        est_x, est_y = self._position_estimates(frame, time)
         # the history split measures from recently seen fish only
         pos_ok = has & (self.last_frame[:F]
                         >= frame - self.frame_rate * self.t_max)
@@ -822,6 +889,8 @@ class FastTracker:
             self._second_pass(table, free, frame, time, speed_td,
                               assigned_fish, assigned_blob, inactive_ok,
                               posture_rows)
+        if self.archive_mode and posture_rows:
+            self._archive_frame(frame, table, posture_rows)
         if self.do_posture and posture_rows:
             self._run_posture_batch(frame, table, posture_rows)
 
@@ -937,16 +1006,116 @@ class FastTracker:
                            pairs: list):
         """Posture of this frame's (fish, row) assignments in one native
         call, each fish's previous midline direction orienting its
-        midline (:func:`posture_of_pairs`)."""
-        h = posture_of_pairs(self.settings, self.background, table, pairs,
-                             self._posture_dir, self._row_prediction)
-        if h is not None:
-            self.posture_history[frame] = h
+        midline (:func:`posture_of_pairs`); archive mode records the full
+        geometry (PostureRecs, ``track/archive.py``)."""
+        h, recs = posture_of_pairs(self.settings, self.background, table,
+                                   pairs, self._posture_dir,
+                                   self._row_prediction, self.archive_mode)
+        if h is None:
+            return
+        self.posture_history[frame] = h
+        if self.archive_mode:
+            self.posture_archive[frame] = recs
+            self._individuals_cache = None
 
     def _row_prediction(self, table: _CandTable, r: int):
-        """The pose or outline prediction of a table row: none, until the
-        YOLO slice brings predictions to the port."""
+        """The pose or outline prediction of a table row (the reference's
+        posture source precedence), or None."""
+        o = table.objs[r]
+        pred = getattr(o, "prediction", None) if o is not None else None
+        if pred is None and table.srow is not None \
+                and self._cur_preds is not None:
+            sr = int(table.srow[r])
+            if 0 <= sr < len(self._cur_preds):
+                pred = self._cur_preds[sr]
+        if not isinstance(pred, dict):
+            return None
+        kp = pred.get("keypoints")
+        orig = pred.get("original_outline")
+        if kp is not None and len(np.asarray(kp).reshape(-1, 2)):
+            return pred
+        if orig is not None and len(orig):
+            return pred
         return None
+
+    # -- per-individual archives (archive mode) ---------------------------
+    def _materialize_row(self, table: _CandTable, r: int):
+        """The archived TrackBlob of table row r, with its own copies of
+        lines, pixels and stats: what Individual.add and the export and
+        crop consumers read (centre, orientation, num_pixels, blob_id,
+        split flags, pixels), as the object tracker's BasicStuff keeps
+        it."""
+        o = table.objs[r]
+        if o is not None:
+            if o.lines is None:
+                return None  # _StatPiece: not produced in archive mode
+            st = getattr(o, "stats", None)
+            pid = getattr(o, "parent_id", -1)
+            px = getattr(o, "pixels", None)
+            tb = TrackBlob(np.array(o.lines, np.int32),
+                           None if px is None else np.array(px),
+                           split=bool(getattr(o, "split", False)),
+                           parent_id=-1 if pid is None else int(pid),
+                           stats=None if st is None else np.array(st))
+            tb.prediction = getattr(o, "prediction", None)
+            return tb
+        lines = np.array(table.lines[table.line_lo[r]:table.line_hi[r]],
+                         np.int32)
+        pixels = None
+        if table.pixel_lo[r] >= 0:
+            pixels = np.array(
+                table.pixels[table.pixel_lo[r]:table.pixel_hi[r]])
+        st = None
+        sr = int(table.srow[r]) if table.srow is not None else -1
+        if sr >= 0 and self._cur_stats is not None \
+                and sr < len(self._cur_stats):
+            st = np.array(self._cur_stats[sr])
+        # the object tracker's prefilter wraps every passing blob as its
+        # track-threshold child (split, parent_id the parent's id; an
+        # all-passing child shares its parent's lines, so parent_id is
+        # its own blob id); table rows are those all-passing or huge
+        # parents
+        rec = table.recount[r]
+        close = (not self.fish_size) \
+            or bool(_in_close(np.asarray([rec]), self.fish_size)[0])
+        huge = bool(self.fish_size) \
+            and rec > self.fish_size.max_range[1] * 100
+        split = bool(self.track_thr > 0 and table.pixel_lo[r] >= 0
+                     and st is not None and close
+                     and (st[1] > 0 or huge))
+        tb = TrackBlob(lines, pixels, split=split, stats=st)
+        if split:
+            tb.parent_id = tb.blob_id
+        if sr >= 0 and self._cur_preds is not None \
+                and sr < len(self._cur_preds):
+            tb.prediction = self._cur_preds[sr]
+        return tb
+
+    def _archive_frame(self, frame: int, table: _CandTable, pairs: list):
+        fids = []
+        blobs = []
+        for fid, r in pairs:
+            b = self._materialize_row(table, r)
+            if b is None:
+                continue
+            fids.append(int(fid))
+            blobs.append(b)
+        self.frame_archive[frame] = (fids, blobs)
+        self._individuals_cache = None
+
+    @property
+    def individuals(self):
+        """Per-identity archive, built at first use from the frame and
+        posture records (track/archive.build_individuals). Raises
+        AttributeError when archive mode is off, so that callers testing
+        with hasattr keep to the positional history."""
+        if not self.archive_mode:
+            raise AttributeError(
+                "individuals needs keep_individuals=True (archive mode); "
+                "this engine kept positional history only")
+        if self._individuals_cache is None:
+            self._individuals_cache = build_individuals(self)
+        return self._individuals_cache
 
     def _split_big_start(self, table: _CandTable,
                          big_rows: np.ndarray) -> _CandTable:
@@ -989,7 +1158,16 @@ class FastTracker:
         return self.add_frame(frame, time,
                               *raw_from_blobs(blobs, self.background,
                                               self.track_thr,
-                                              self.absolute))
+                                              self.absolute),
+                              predictions=self._blob_predictions(blobs))
+
+    def _blob_predictions(self, blobs: list):
+        """The blobs' predictions in archive mode (None when none has
+        one)."""
+        if not self.archive_mode:
+            return None
+        preds = [getattr(b, "prediction", None) for b in blobs]
+        return preds if any(p is not None for p in preds) else None
 
 
 def raw_from_blobs(blobs: list, background: np.ndarray, track_thr: int,
@@ -1024,13 +1202,15 @@ def raw_from_blobs(blobs: list, background: np.ndarray, track_thr: int,
 
 
 def posture_of_pairs(settings, background, table: _CandTable, pairs: list,
-                     pdir: np.ndarray, row_prediction):
+                     pdir: np.ndarray, row_prediction,
+                     want_recs: bool = False):
     """Posture of a frame's (fish, row) pairs through the native batch
-    chain (``track/posture.compute_posture_rows``): the movement direction
+    chain (``track/archive.compute_posture_rows``): the movement direction
     of each fish is its previous midline direction `pdir` negated
     (run_postures' movement_direction), and `pdir` (F, 2) is updated in
     place. Rows without pixel data get no posture. Returns the frame's
-    posture history entry {fish, ok, midline_length, angle}, or None
+    posture history entry {fish, ok, midline_length, angle} and, with
+    `want_recs`, its (fish, PostureRec) records (else None); (None, None)
     when no row has pixels."""
     line_arrays = []
     pixel_arrays = []
@@ -1052,19 +1232,23 @@ def posture_of_pairs(settings, background, table: _CandTable, pairs: list,
         fids.append(fid)
         preds.append(row_prediction(table, r))
     if not fids:
-        return None
+        return None, None
     fid_arr = np.asarray(fids, np.int64)
-    ok, lens, angles, out_dirs, _, dir_reset = compute_posture_rows(
+    ok, lens, angles, out_dirs, recs, dir_reset = compute_posture_rows(
         settings, background, line_arrays, pixel_arrays, preds,
-        -pdir[fid_arr])
+        -pdir[fid_arr], want_recs=want_recs)
     # outline-only rows reset the stored direction (run_postures reads
     # prev.midline, which is None for those)
     pdir[fid_arr[dir_reset]] = 0.0
     good = np.flatnonzero(ok)
     if len(good):
         pdir[fid_arr[good]] = out_dirs[good]
-    return {"fish": fid_arr, "ok": np.asarray(ok, bool),
-            "midline_length": lens, "angle": angles}
+    h = {"fish": fid_arr, "ok": np.asarray(ok, bool),
+         "midline_length": lens, "angle": angles}
+    if not want_recs:
+        return h, None
+    return h, [(int(fid_arr[i]), recs[i]) for i in range(len(fids))
+               if recs[i] is not None]
 
 
 def _in_close(recount: np.ndarray, fish_size: SizeFilters) -> np.ndarray:
@@ -1083,7 +1267,8 @@ def _filter_table(t: _CandTable, keep: np.ndarray) -> _CandTable:
         line_lo=t.line_lo[idx], line_hi=t.line_hi[idx],
         objs=[t.objs[i] for i in idx.tolist()],
         lines=t.lines, pixel_lo=t.pixel_lo[idx],
-        pixel_hi=t.pixel_hi[idx], pixels=t.pixels)
+        pixel_hi=t.pixel_hi[idx], pixels=t.pixels,
+        srow=t.srow[idx] if t.srow is not None else None)
 
 
 def _rebuild_with_splits(t: _CandTable, drop: np.ndarray,
@@ -1122,7 +1307,7 @@ def _rebuild_with_splits(t: _CandTable, drop: np.ndarray,
         bx1=bounds[:, 0] + bounds[:, 2] - 1,
         by1=bounds[:, 1] + bounds[:, 3] - 1,
         line_lo=none, line_hi=none, objs=pobj, lines=t.lines,
-        pixel_lo=none, pixel_hi=none, pixels=t.pixels)
+        pixel_lo=none, pixel_hi=none, pixels=t.pixels, srow=none)
     order = np.argsort(np.concatenate([base_pos, np.asarray(prow)]),
                        kind="stable")
     return _concat_tables(base, pieces, order)
@@ -1134,13 +1319,17 @@ def _concat_tables(a: _CandTable, b: _CandTable,
 
     def cat(name):
         return np.concatenate([getattr(a, name), getattr(b, name)])[order]
+
+    def srow(t):
+        return t.srow if t.srow is not None else np.full(t.n, -1, np.int64)
     return _CandTable(
         n=len(order), cnt=cat("cnt"), recount=cat("recount"),
         cx=cat("cx"), cy=cat("cy"), bx0=cat("bx0"), by0=cat("by0"),
         bx1=cat("bx1"), by1=cat("by1"), line_lo=cat("line_lo"),
         line_hi=cat("line_hi"), objs=[objs[i] for i in order.tolist()],
         lines=a.lines, pixel_lo=cat("pixel_lo"), pixel_hi=cat("pixel_hi"),
-        pixels=a.pixels)
+        pixels=a.pixels,
+        srow=np.concatenate([srow(a), srow(b)])[order])
 
 
 class _StatPiece:

@@ -36,7 +36,8 @@ class SizeFilters:
 def threshold_components(blob: TrackBlob, threshold: int,
                          background: np.ndarray, settings) -> list:
     """pixel::threshold_blob: apply the track threshold to the blob's own
-    pixels and split the survivors into connected components."""
+    pixels and split the survivors into connected components, each
+    marked split with the blob as its parent."""
     cm = settings["cm_per_pixel"] or 1.0
     absolute = bool(settings["track_threshold_is_absolute"])
     if blob.pixels is not None:
@@ -61,6 +62,7 @@ def threshold_components(blob: TrackBlob, threshold: int,
             passed_any = bool(passed.any())
         if passed_all:
             out = TrackBlob(blob.lines, blob.pixels, flags=blob.flags,
+                            parent_id=blob.blob_id, split=True,
                             stats=blob.stats)
             out._recount_cache.update(blob._recount_cache)
             return [out]
@@ -71,6 +73,7 @@ def threshold_components(blob: TrackBlob, threshold: int,
         out = []
         for c in comps:
             tb = TrackBlob(c.lines, c.pixels, flags=blob.flags,
+                           parent_id=blob.blob_id, split=True,
                            stats=c.stats)
             tb._recount_cache[threshold] = float(
                 c.stats[0] if c.stats is not None
@@ -100,7 +103,8 @@ def threshold_components(blob: TrackBlob, threshold: int,
             sxx + 2 * ox * sx + n * ox * ox,
             syy + 2 * oy * sy + n * oy * oy,
             sxy + ox * sy + oy * sx + n * ox * oy, 0.0])
-        tb = TrackBlob(lines, c.pixels, flags=blob.flags, stats=stats)
+        tb = TrackBlob(lines, c.pixels, flags=blob.flags,
+                       parent_id=blob.blob_id, split=True, stats=stats)
         # every pixel of a component passed `threshold` by construction
         tb._recount_cache[threshold] = float(stats[0]) * cm * cm
         out.append(tb)

@@ -105,5 +105,7 @@ def split_blob(blob: TrackBlob, expected: int, background: np.ndarray,
                        fish_size) != "keep":
         return []  # size scan and materialization disagree: be safe
     for c in comps:
+        c.split = True
+        c.parent_id = blob.blob_id
         c.recount(track_thr, background, s)
     return comps
