@@ -100,7 +100,26 @@ Phases, each raising on failure:
    with equal posture records on the sparse 64-fish chunk and on the
    asymmetric scene; on the 256-fish chunk the individuals that depart
    are reported (``ROADMAP.md`` C1).
-10. Report: frames per second of phases 2-9, the replay's assist frames
+10. The product path (``product``), through the entry points a user
+    calls: the port's ``Segmenter`` converts ``synth_frames(64)`` (256
+    fish at 1024^2, served by an in-memory ``VideoSource``: the machine
+    has no OpenCV) under the user's default tracking settings
+    (:func:`product_settings`) with ``detect_engine=device`` and
+    ``track_engine=device`` into a .pv, held frame for frame (masks and
+    pixel bytes) to the same conversion with the host labeler; the
+    frames that overflowed the detector's caps are counted, and all of
+    them overflowing fails. The port's ``trex`` CLI
+    (``cli.trex.main``) tracks the .pv with ``-track_engine device
+    -auto_quit``: the DeviceTracker, not demoted, writes the npz files
+    and the .results. On the sparse 64-fish chunk ``-track_engine auto``
+    picks the card's engine, and its npz files and .results equal byte
+    for byte those of ``auto`` on the CPU (the host FastTracker); on the
+    256-fish chunk the individuals that depart from the FastTracker's
+    are reported (``ROADMAP.md`` C1). Frames per second of the
+    conversion and of the CLI's track task, with the seconds of
+    detection, scans, replay, export and .results, the assists, frames
+    scanned, overflowed frames and output bytes.
+11. Report: frames per second of phases 2-10, the replay's assist frames
    and seconds, the card's name and power limit, and one JSON line with
     every kernel's launches on its path, error against its plain
     version, time, bound, the plain version's time and the nearest
@@ -1741,6 +1760,299 @@ def phase_archive(dev, report, bg, frames):
           f"{', '.join(held)}", flush=True)
 
 
+PRODUCT_FRAMES = 64
+
+
+def product_settings(n_fish=N_FISH):
+    """The user's default tracking settings (the product default with
+    posture) for a conversion of ``synth_frames``: grey storage, a
+    ``max`` background (the animals are darker than the arena),
+    detection and tracking on the card."""
+    return dict(posture_settings(auto_settings(n_fish)),
+                meta_encoding="gray", averaging_method="max",
+                detect_engine="device", track_engine="device")
+
+
+def array_source(frames):
+    """A ``VideoSource`` of the port serving numpy frames: the card's
+    machine has no OpenCV to decode files with."""
+    from trex_tpu_torch.io.video import VideoSource
+
+    class ArraySource(VideoSource):
+        frame_rate = 25.0
+
+        def __init__(self, frames):
+            self.frames = frames
+
+        def __len__(self):
+            return len(self.frames)
+
+        def get(self, index):
+            return self.frames[index]
+
+    return ArraySource(frames)
+
+
+def registry(values):
+    """The port's global settings, reset and set to `values`."""
+    from trex_tpu_torch.config import reset_global_settings
+
+    s = reset_global_settings()
+    for k, v in values.items():
+        s.set(k, v)
+    return s
+
+
+class Spy:
+    """Wraps attributes of modules for one run: each call's seconds and
+    return value are kept under the attribute's name."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.seconds = {name: 0.0 for _, name in targets}
+        self.returned = {name: [] for _, name in targets}
+
+    def __enter__(self):
+        self.saved = [(obj, name, getattr(obj, name))
+                      for obj, name in self.targets]
+        for obj, name, fn in self.saved:
+            def wrapped(*a, _fn=fn, _name=name, **k):
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                self.seconds[_name] += time.perf_counter() - t0
+                self.returned[_name].append(out)
+                return out
+            setattr(obj, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
+
+
+def pv_payload(path):
+    """Per frame the (mask, pixel) bytes of every object of a .pv."""
+    from trex_tpu_torch.io.pv import PVFile
+
+    out = []
+    with PVFile.open(path) as pv:
+        for i in range(len(pv)):
+            fr = pv.read_frame(i)
+            out.append([(np.asarray(m).tobytes(), np.asarray(px).tobytes())
+                        for m, px in zip(fr.masks, fr.pixels)])
+    return out
+
+
+def convert(dev, frames, path, values, track):
+    """The port's Segmenter over `frames`; returns it and its wall
+    seconds."""
+    from trex_tpu_torch.pipeline import Segmenter
+    from trex_tpu_torch.utils.timing import global_collector
+
+    global_collector().clear()
+    seg = Segmenter(registry(values), array_source(frames), path,
+                    track=track, device=dev)
+    t0 = time.perf_counter()
+    seg.run()
+    return seg, time.perf_counter() - t0
+
+
+def track_cli(dev, pv, out, values, engine):
+    """``trex -i pv -d out -s settings -task track -auto_quit`` through the
+    port's ``cli.trex.main``; returns the wall seconds, the tracker and
+    the seconds of tracking, export and .results, and the .results
+    file's new name inside `out`."""
+    import trex_tpu_torch.cli.trex as cli
+    import trex_tpu_torch.export.results as results
+    import trex_tpu_torch.pipeline as pipeline
+    from trex_tpu_torch.config import write_settings_file
+
+    out.mkdir(parents=True, exist_ok=True)
+    sfile = out / "run.settings"
+    write_settings_file(registry(values), sfile)
+    argv = ["-i", str(pv), "-d", str(out), "-s", str(sfile), "-task",
+            "track", "-track_engine", engine, "-nowindow", "-auto_quit"]
+    with Spy((pipeline.TrackingState, "run"), (cli, "_export"),
+             (results, "save_results")) as spy:
+        t0 = time.perf_counter()
+        rc = cli.main(argv, device=dev)
+        wall = time.perf_counter() - t0
+    check(rc == 0, f"product: trex {' '.join(argv)} exited {rc}")
+    res = pv.with_suffix(".results")
+    check(res.is_file() and any((out / "data").glob("*.npz")),
+          f"product: the track task wrote no npz files or .results ({out})")
+    kept = out / res.name
+    res.replace(kept)
+    return dict(wall_s=wall, tracker=spy.returned["run"][0],
+                track_s=spy.seconds["run"], export_s=spy.seconds["_export"],
+                results_s=spy.seconds["save_results"], results=kept)
+
+
+def output_files(out):
+    return {str(p.relative_to(out)): p.read_bytes()
+            for p in sorted(out.rglob("*"))
+            if p.is_file() and p.suffix in (".npz", ".csv", ".results")}
+
+
+def phase_product(dev, report, n_frames=PRODUCT_FRAMES):
+    """The product path at full width: the port's Segmenter converts
+    ``synth_frames(n_frames)`` (256 fish at 1024^2) with detection and
+    tracking on the card and writes a .pv, which is held frame for frame
+    to the same conversion with the host labeler; the port's ``trex``
+    CLI then tracks the .pv with ``-track_engine device -auto_quit``
+    (DeviceTracker, not demoted; npz files and .results written). The
+    DeviceTracker demotes to its host engine once assists pass a quarter
+    of at least 64 frames, so at 64 frames it cannot have demoted: the
+    CLI also tracks a video twice as long, and the frame at which the
+    card handed tracking to the host is reported and held to the assist
+    share of the 64-frame run. On the sparse 64-fish chunk, ``-track_engine auto`` picks the card's
+    engine and writes the same npz and .results bytes as ``auto`` on the
+    CPU, i.e. the host FastTracker. On the 256-fish chunk the
+    individuals departing from the host FastTracker's are reported
+    (ROADMAP.md C1)."""
+    import shutil
+
+    from trex_tpu_torch.track.device_engine import DeviceTracker
+    from trex_tpu_torch.track.engine import FastTracker
+    from trex_tpu_torch.utils.timing import global_collector
+
+    root = REPO / "build" / "smoke_product"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    values = product_settings()
+    # the first n_frames of the longer video are synth_frames(n_frames)
+    bg, long_frames = synth_frames(2 * n_frames)
+    frames = long_frames[:n_frames]
+    t_phase = time.perf_counter()
+
+    seg, convert_s = convert(dev, frames, root / "p.pv", values, True)
+    lanes = global_collector().summary()
+    det, tr = seg.detector, seg.tracker
+    check(type(tr) is DeviceTracker and not tr.demoted,
+          f"product: convert tracked with {type(tr).__name__}")
+    check(det.frames == n_frames and det.overflow_frames < n_frames,
+          f"product: {det.overflow_frames} of {det.frames} frames "
+          f"overflowed the detector's caps: the card detected nothing")
+    host_seg, host_convert_s = convert(
+        dev, frames, root / "host.pv", dict(values, detect_engine="host"),
+        False)
+    card_pv, host_pv = pv_payload(root / "p.pv"), pv_payload(root / "host.pv")
+    bad = [i for i, (a, b) in enumerate(zip(card_pv, host_pv)) if a != b]
+    check(len(card_pv) == len(host_pv) == n_frames and not bad,
+          f"product: the .pv of detect_engine=device differs from the "
+          f"host labeler's on frames {bad[:5]}")
+    convert_r = dict(
+        frames=n_frames, s=convert_s, fps=n_frames / convert_s,
+        detect_thread_s=lanes.get("detect(device)", {}).get("total", 0.0),
+        decode_s=lanes.get("decode+preprocess", {}).get("total", 0.0),
+        serialize_s=lanes.get("serialize", {}).get("total", 0.0),
+        scan_s=tr.scan_seconds, assists=len(tr.assist_frames),
+        frames_scanned=tr.frames_scanned,
+        replay_s=sum(tr.statistics[f].adding_seconds
+                     for f in tr.assist_frames),
+        overflow_frames=det.overflow_frames,
+        detect_batch_size=det.batch_size,
+        pv_bytes=(root / "p.pv").stat().st_size,
+        host_labeler_convert_s=host_convert_s,
+        objects=sum(len(f) for f in card_pv))
+
+    run = track_cli(dev, root / "p.pv", root / "track", values, "device")
+    tr = run["tracker"]
+    check(type(tr) is DeviceTracker and not tr.demoted,
+          f"product: -track_engine device tracked with "
+          f"{type(tr).__name__} (demoted {getattr(tr, 'demoted', None)})")
+    out_bytes = sum(len(v) for v in output_files(root / "track").values())
+    track_r = dict(
+        frames=n_frames, s=run["wall_s"], fps=n_frames / run["wall_s"],
+        tracking_s=run["track_s"], scan_s=tr.scan_seconds,
+        replay_s=sum(tr.statistics[f].adding_seconds
+                     for f in tr.assist_frames),
+        export_s=run["export_s"], results_s=run["results_s"],
+        assists=len(tr.assist_frames), frames_scanned=tr.frames_scanned,
+        individuals=len(tr.individuals), output_bytes=out_bytes,
+        npz_files=len(list((root / "track" / "data").glob("*.npz"))))
+    t0 = time.perf_counter()
+    host = track_cli("cpu", root / "p.pv", root / "track_host", values,
+                     "auto")
+    check(type(host["tracker"]) is FastTracker,
+          "product: auto on the CPU did not pick the FastTracker")
+    differ = individuals_departures(host["tracker"], tr)
+    track_r.update(host_fast_tracker_s=time.perf_counter() - t0,
+                   individuals_departing_from_host=len(differ),
+                   demote_rule_trips=len(tr.assist_frames)
+                   > tr.demote_threshold * n_frames)
+
+    # video length: the same scene over 2 * n_frames frames, detected on
+    # the card without tracking, then tracked through the CLI
+    n_long = len(long_frames)
+    convert(dev, long_frames, root / "long.pv", values, False)
+    run = track_cli(dev, root / "long.pv", root / "long", values, "device")
+    lt = run["tracker"]
+    check(type(lt) is DeviceTracker
+          and lt.demoted == track_r["demote_rule_trips"],
+          f"product: over {n_long} frames the CLI tracked with "
+          f"{type(lt).__name__} (demoted {getattr(lt, 'demoted', None)}); "
+          f"the 64-frame run's {track_r['assists']} assists predict "
+          f"demoted {track_r['demote_rule_trips']}")
+    on_card = (lt.demoted_at if lt.demoted else n_long)
+    long_r = dict(
+        frames=n_long, s=run["wall_s"], fps=n_long / run["wall_s"],
+        tracking_s=run["track_s"], scan_s=lt.scan_seconds,
+        export_s=run["export_s"], results_s=run["results_s"],
+        demoted=lt.demoted, demoted_at=lt.demoted_at,
+        frames_tracked_on_card=on_card,
+        frames_tracked_on_host=n_long - on_card,
+        assists=len(lt.assist_frames), frames_scanned=lt.frames_scanned,
+        individuals=len(lt.individuals))
+
+    sbg, sframes = synth_frames(n_frames, n_fish=64, seed=0)
+    svalues = product_settings(64)
+    convert(dev, sframes, root / "s.pv", svalues, False)
+    card = track_cli(dev, root / "s.pv", root / "s_card", svalues, "auto")
+    check(type(card["tracker"]) is DeviceTracker,
+          f"product: -track_engine auto on the card picked "
+          f"{type(card['tracker']).__name__}")
+    hostr = track_cli("cpu", root / "s.pv", root / "s_host", svalues,
+                      "auto")
+    a, b = output_files(root / "s_card"), output_files(root / "s_host")
+    diff = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+    check(len(a) > 1 and not diff,
+          f"product: the sparse chunk's npz/.results of the card's engine "
+          f"differ from the host FastTracker's: {diff[:5]}")
+    sparse_r = dict(frames=n_frames, files=len(a), equal_bytes=sum(
+        len(v) for v in a.values()), fps=n_frames / card["wall_s"],
+        assists=len(card["tracker"].assist_frames),
+        host_fps=n_frames / hostr["wall_s"])
+    report["product"] = dict(convert=convert_r, track=track_r,
+                             track_video_length=long_r,
+                             sparse_64=sparse_r,
+                             s=time.perf_counter() - t_phase)
+    print(f"phase 10 ok: product path at {N_FISH} fish, {SIZE}^2, "
+          f"{n_frames} frames: convert {convert_r['fps']:.2f} frames/s "
+          f"({convert_r['overflow_frames']} of {n_frames} frames "
+          f"overflowed to the host labeler, scans "
+          f"{convert_r['scan_s']:.2f} s, {convert_r['assists']} assists, "
+          f"{convert_r['frames_scanned']} frames scanned, replay "
+          f"{convert_r['replay_s']:.2f} s; .pv equal to the host "
+          f"labeler's), track {track_r['fps']:.2f} frames/s through the "
+          f"CLI (tracking {track_r['tracking_s']:.2f} s, scans "
+          f"{track_r['scan_s']:.2f} s, replay {track_r['replay_s']:.2f} s, "
+          f"export {track_r['export_s']:.2f} s, .results "
+          f"{track_r['results_s']:.2f} s, {track_r['assists']} assists, "
+          f"{track_r['output_bytes']} output bytes), "
+          f"{len(differ)} individuals depart from the host FastTracker's; "
+          f"over {n_long} frames the CLI tracked at {long_r['fps']:.2f} "
+          f"frames/s, "
+          + (f"demoted to the host at frame {lt.demoted_at} "
+             f"({long_r['frames_tracked_on_host']} frames on the host, "
+             f"{long_r['assists']} assists before)" if lt.demoted else
+             "on the card throughout")
+          + "; "
+          f"sparse 64-fish chunk: auto picked the DeviceTracker and its "
+          f"{len(a)} npz/.results files equal the host FastTracker's",
+          flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the report as JSON here")
@@ -1770,6 +2082,7 @@ def main():
     phase_posture(dev, report, *chunk[:2])
     phase_decay(dev, report, *chunk[:2])
     phase_archive(dev, report, *chunk[:2])
+    phase_product(dev, report)
     report["total_s"] = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1786,7 +2099,8 @@ def main():
             json.dump(report, f, indent=1)
     print(json.dumps({k: report[k] for k in (
         "detect", "label", "track", "device_tracker", "auto_split",
-        "posture", "decay", "archive", "build_s", "total_s")}))
+        "posture", "decay", "archive", "product", "build_s",
+        "total_s")}))
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor trex_tpu, and its
+"""The port stands alone: it imports neither JAX nor trex_tpu (nor, at
+import time, OpenCV, which the machine with the card lacks), and its
 entry points do not fall back to the CPU without being asked."""
 import os
 import pkgutil
@@ -15,6 +16,7 @@ REPO = Path(__file__).resolve().parents[1]
 _PROBE = """
 import sys
 sys.modules["jax"] = None
+sys.modules["cv2"] = None
 import importlib, pkgutil
 import trex_tpu_torch
 names = ["trex_tpu_torch"] + [
@@ -36,7 +38,7 @@ def test_port_imports_without_jax_or_trex_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.split(" ", 1)
-    assert int(n) >= 18 and bad.strip() == "[]"
+    assert int(n) >= 52 and bad.strip() == "[]"
 
 
 def test_no_jax_import_lines():
@@ -119,7 +121,8 @@ def test_host_labeler_built_from_the_port():
 
     assert labeling.NATIVE == REPO / "trex_tpu_torch" / "native"
     assert labeling.SOURCES == ("labeling.cpp", "tracker_core.cpp",
-                                "posture_chain.cpp")
+                                "posture_chain.cpp", "lzo1x.cpp",
+                                "imageops.cpp")
     assert sorted(p.name for p in labeling.NATIVE.iterdir()) \
         == sorted(labeling.SOURCES + labeling.HEADERS)
     lib = labeling._lib()
@@ -140,13 +143,54 @@ def test_package_lists_every_module():
                  "track.matching", "track.tracker", "track.engine",
                  "track.device_engine", "track.posture", "track.motion",
                  "track.individual", "track.cache_batch",
-                 "track.archive"):
+                 "track.archive", "config.metaparse", "config.registry",
+                 "config.settings_io", "io.lzo", "io.encoding",
+                 "io.patharray", "io.predictions", "io.pv", "io.video",
+                 "utils.timing", "pipeline", "track.border",
+                 "track.events", "export.library", "export.export",
+                 "export.results_binary", "export.results", "cli.trex",
+                 "ml.categorize"):
         assert f"trex_tpu_torch.{name}" in mods
 
 
 @pytest.mark.parametrize("name", ["labeling.cpp", "tracker_core.cpp",
-                                  "posture_chain.cpp", "simd_clones.h"])
+                                  "posture_chain.cpp", "simd_clones.h",
+                                  "lzo1x.cpp", "imageops.cpp"])
 def test_native_copies_equal_the_jax_package_sources(name):
     """The port's native sources are byte-equal copies of native/."""
     assert (REPO / "trex_tpu_torch" / "native" / name).read_bytes() \
         == (REPO / "native" / name).read_bytes()
+
+
+def test_params_table_equals_the_jax_package_table():
+    assert (REPO / "trex_tpu_torch" / "config" / "params_table.json") \
+        .read_bytes() == (REPO / "trex_tpu" / "config"
+                          / "params_table.json").read_bytes()
+
+
+def test_cli_track_without_a_card_raises(tmp_path, monkeypatch):
+    """main(["-i", pv, "-task", "track"]) with no card and no
+    device="cpu" raises under the default and the device engine rather
+    than track on the host, and writes nothing."""
+    from trex_tpu_torch.cli.trex import main
+    from trex_tpu_torch.config import reset_global_settings
+    from trex_tpu_torch.io.pv import PVFile, PVFrame, PVHeader
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pv = tmp_path / "v.pv"
+    with PVFile.create(pv, PVHeader(width=16, height=16, timestamp=1,
+                                    average=np.full((16, 16), 200,
+                                                    np.uint8))) as f:
+        fr = PVFrame(timestamp=1, source_index=0)
+        fr.add_object(np.array([[3, 2, 9]], np.int32),
+                      np.full(8, 60, np.uint8))
+        f.add_frame(fr)
+    for extra in ([], ["-track_engine", "device"]):
+        reset_global_settings()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["-i", str(pv), "-d", str(tmp_path / "out"), "-task",
+                  "track", "-auto_quit", "-track_background_subtraction",
+                  "true", "-track_threshold", "20"] + extra)
+    reset_global_settings()
+    assert not (tmp_path / "out").exists()
+    assert not pv.with_suffix(".results").exists()

@@ -12,7 +12,9 @@ chain of ``track/posture.py``, with or without the full geometry of the
 archives, which calls ``labeling.cpp``'s labeler, boundary trace and
 outline resample). The per-blob chain of ``track/posture.py`` binds the
 boundary trace, the outline resample, the midline walk and the midline
-chain one by one.
+chain one by one. ``lzo1x.cpp`` (the ``.pv`` payload codec of
+``io/lzo.py``) and ``imageops.cpp`` (the background average's mean and
+mode, ``io/video.py``) are built into the same library.
 
 The library is compiled with ``g++`` at first use into
 ``build/trex_tpu_torch/`` (a directory git ignores), under a name that
@@ -38,7 +40,8 @@ import numpy as np
 from ..kernels import BUILD_DIR
 
 NATIVE = Path(__file__).resolve().parents[1] / "native"
-SOURCES = ("labeling.cpp", "tracker_core.cpp", "posture_chain.cpp")
+SOURCES = ("labeling.cpp", "tracker_core.cpp", "posture_chain.cpp",
+           "lzo1x.cpp", "imageops.cpp")
 HEADERS = ("simd_clones.h",)
 GXX_FLAGS = ["-O3", "-ffp-contract=off", "-std=c++20", "-shared", "-fPIC"]
 
@@ -165,6 +168,20 @@ _SIGNATURES = {
                                   _f64, _i32, _f64, _f64, _i32, _i32, _f64p,
                                   _c, _f64p, _f64p, _f64p, _f64p, _i32p,
                                   _i32]),
+    # lzo1x.cpp: the .pv frame payload codec (io/lzo.py)
+    "trex_lzo1x_worst_case": (ctypes.c_size_t, [ctypes.c_size_t]),
+    "trex_lzo1x_compress": (ctypes.c_int, [_c, ctypes.c_size_t, _c,
+                                           ctypes.c_size_t,
+                                           ctypes.POINTER(ctypes.c_size_t)]),
+    "trex_lzo1x_decompress": (ctypes.c_int, [_c, ctypes.c_size_t, _c,
+                                             ctypes.c_size_t,
+                                             ctypes.POINTER(
+                                                 ctypes.c_size_t)]),
+    # imageops.cpp: the background average's mean and mode
+    # (io/video.py::AveragingAccumulator)
+    "trex_mean_u8": (None, [ctypes.POINTER(ctypes.c_uint32), _i64, _i64,
+                            _u8p]),
+    "trex_mode_u8_rows": (None, [ctypes.POINTER(_u8p), _i64, _i64, _u8p]),
 }
 
 _lib_obj = None

@@ -180,6 +180,7 @@ class DeviceTracker:
         self.demote_threshold = 0.25
         self.demote_min_frames = 64
         self.demoted = False
+        self.demoted_at = None  # the first frame the host tracked
         self._frames_done = 0
 
         # the carry lives on the host as one packed float32 vector
@@ -615,6 +616,7 @@ class DeviceTracker:
                 > self.demote_threshold * self._frames_done):
             self._sync_helper_state(frame, time)
             self.demoted = True
+            self.demoted_at = frame
         return self.demoted
 
     def _host_step(self, frame: int, time: float, raw: tuple, preds=None):

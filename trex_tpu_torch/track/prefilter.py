@@ -109,3 +109,20 @@ def threshold_components(blob: TrackBlob, threshold: int,
         tb._recount_cache[threshold] = float(stats[0]) * cm * cm
         out.append(tb)
     return out
+
+
+def _point_in_poly(px, py, poly) -> bool:
+    """Even-odd rule; rectangles given as [[x0,y0],[x1,y1]]."""
+    if len(poly) == 2:
+        (x0, y0), (x1, y1) = poly
+        return min(x0, x1) <= px <= max(x0, x1) and min(y0, y1) <= py <= max(y0, y1)
+    inside = False
+    n = len(poly)
+    for i in range(n):
+        x0, y0 = poly[i]
+        x1, y1 = poly[(i + 1) % n]
+        if (y0 > py) != (y1 > py):
+            xcross = (x1 - x0) * (py - y0) / (y1 - y0) + x0
+            if px < xcross:
+                inside = not inside
+    return inside
