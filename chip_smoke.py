@@ -83,8 +83,8 @@ Phases, each raising on failure:
    ``track_video_device`` over the 64 frames with its frames per second,
    the frames it flags and how many of them a broken motion window
    flagged, and the CUDA launches a frame over frames 24-31 with and
-   without decay; ``DeviceTracker.track_frames`` over 64 frames (base)
-   and 32 (product default) with its assists, frames scanned and replay
+   without decay; ``DeviceTracker.track_frames`` over 32 frames (base
+   and product default) with its assists, frames scanned and replay
    seconds. On small chunks that replay frames the card gives the port's
    CPU path's integer outputs and flags, the carry's motion window and
    accumulated walk bit for bit, and the same DeviceTracker history;
@@ -115,11 +115,33 @@ Phases, each raising on failure:
     picks the card's engine, and its npz files and .results equal byte
     for byte those of ``auto`` on the CPU (the host FastTracker); on the
     256-fish chunk the individuals that depart from the FastTracker's
-    are reported (``ROADMAP.md`` C1). Frames per second of the
-    conversion and of the CLI's track task, with the seconds of
-    detection, scans, replay, export and .results, the assists, frames
-    scanned, overflowed frames and output bytes.
-11. Report: frames per second of phases 2-10, the replay's assist frames
+    are reported (``ROADMAP.md`` C1). The CLI also tracks the scene over
+    96 frames, where the DeviceTracker demotes to the host once past 64.
+    Frames per second of the conversion and of the CLI's track task,
+    with the seconds of detection, scans, replay, export and .results,
+    the assists, frames scanned, overflowed frames and output bytes.
+11. The object Tracker (``object``) under the registry's default tracking
+    settings (:func:`object_settings`: only the conversion's encoding,
+    background, clock, scale, ``detect_engine=device`` and
+    ``track_engine=auto``), which both fast engines refuse: the port's
+    ``Segmenter`` converts ``synth_frames(64)`` (256 fish at 1024^2) with
+    detection on the card, and ``auto`` picks the object Tracker for the
+    reason it records (``track_threshold == 0``); the CLI's track task
+    (``-track_engine auto -auto_quit`` with output_statistics,
+    output_heatmaps and gui_show_memory_stats) writes the npz files,
+    statistics, heatmaps and .results; ``-load`` restores that .results
+    (same identities, frames and float32 positions), and a second
+    ``-load`` reproduces the first's npz and .results bytes. On the sparse
+    64-fish chunk under :func:`product_settings` (which both engines
+    accept) ``-track_engine object`` and ``fast`` write per-fish npz files
+    equal bit for bit but for the angle columns, which the JAX package's
+    engines also write from different sums and which are held within
+    :data:`ANGLE_BOUNDS` (``ROADMAP.md`` C5), and .results equal but for
+    the recorded ``track_engine``. Frames per second of the conversion
+    and the track task, ``adding_seconds``, ``posture_seconds`` and
+    ``loading_seconds`` a frame from ``FrameStatistics``, the detection
+    thread's seconds, individuals and output bytes.
+12. Report: frames per second of phases 2-11, the replay's assist frames
    and seconds, the card's name and power limit, and one JSON line with
     every kernel's launches on its path, error against its plain
     version, time, bound, the plain version's time and the nearest
@@ -1441,7 +1463,7 @@ def decay_settings(base, decay=0.7):
     return dict(base, track_speed_decay=decay)
 
 
-def phase_decay(dev, report, bg, frames, dt_frames=(64, 32)):
+def phase_decay(dev, report, bg, frames, dt_frames=(32, 32)):
     """Speed decay on the card: the chunk of phase 4 with
     ``track_speed_decay`` 0.7 in the base configuration and the product
     default. ``track_video_device`` over the 64 frames (frames/s, flagged
@@ -1857,11 +1879,11 @@ def convert(dev, frames, path, values, track):
     return seg, time.perf_counter() - t0
 
 
-def track_cli(dev, pv, out, values, engine):
-    """``trex -i pv -d out -s settings -task track -auto_quit`` through the
-    port's ``cli.trex.main``; returns the wall seconds, the tracker and
-    the seconds of tracking, export and .results, and the .results
-    file's new name inside `out`."""
+def track_cli(dev, pv, out, values, engine, extra=()):
+    """``trex -i pv -d out -s settings -task track -auto_quit [extra]``
+    through the port's ``cli.trex.main``; returns the wall seconds, the
+    tracker and the seconds of tracking, export and .results, and the
+    .results file's new name inside `out`."""
     import trex_tpu_torch.cli.trex as cli
     import trex_tpu_torch.export.results as results
     import trex_tpu_torch.pipeline as pipeline
@@ -1871,9 +1893,10 @@ def track_cli(dev, pv, out, values, engine):
     sfile = out / "run.settings"
     write_settings_file(registry(values), sfile)
     argv = ["-i", str(pv), "-d", str(out), "-s", str(sfile), "-task",
-            "track", "-track_engine", engine, "-nowindow", "-auto_quit"]
+            "track", "-track_engine", engine, "-nowindow", "-auto_quit",
+            *extra]
     with Spy((pipeline.TrackingState, "run"), (cli, "_export"),
-             (results, "save_results")) as spy:
+             (results, "save_results"), (results, "load_results")) as spy:
         t0 = time.perf_counter()
         rc = cli.main(argv, device=dev)
         wall = time.perf_counter() - t0
@@ -1883,9 +1906,12 @@ def track_cli(dev, pv, out, values, engine):
           f"product: the track task wrote no npz files or .results ({out})")
     kept = out / res.name
     res.replace(kept)
-    return dict(wall_s=wall, tracker=spy.returned["run"][0],
+    loaded = spy.returned["load_results"]
+    return dict(wall_s=wall,
+                tracker=loaded[0] if loaded else spy.returned["run"][0],
                 track_s=spy.seconds["run"], export_s=spy.seconds["_export"],
-                results_s=spy.seconds["save_results"], results=kept)
+                results_s=spy.seconds["save_results"],
+                load_s=spy.seconds["load_results"], results=kept)
 
 
 def output_files(out):
@@ -1903,7 +1929,7 @@ def phase_product(dev, report, n_frames=PRODUCT_FRAMES):
     (DeviceTracker, not demoted; npz files and .results written). The
     DeviceTracker demotes to its host engine once assists pass a quarter
     of at least 64 frames, so at 64 frames it cannot have demoted: the
-    CLI also tracks a video twice as long, and the frame at which the
+    CLI also tracks a video half as long again, and the frame at which the
     card handed tracking to the host is reported and held to the assist
     share of the 64-frame run. On the sparse 64-fish chunk, ``-track_engine auto`` picks the card's
     engine and writes the same npz and .results bytes as ``auto`` on the
@@ -1921,7 +1947,7 @@ def phase_product(dev, report, n_frames=PRODUCT_FRAMES):
     root.mkdir(parents=True)
     values = product_settings()
     # the first n_frames of the longer video are synth_frames(n_frames)
-    bg, long_frames = synth_frames(2 * n_frames)
+    bg, long_frames = synth_frames(n_frames + n_frames // 2)
     frames = long_frames[:n_frames]
     t_phase = time.perf_counter()
 
@@ -1982,7 +2008,7 @@ def phase_product(dev, report, n_frames=PRODUCT_FRAMES):
                    demote_rule_trips=len(tr.assist_frames)
                    > tr.demote_threshold * n_frames)
 
-    # video length: the same scene over 2 * n_frames frames, detected on
+    # video length: the same scene over 1.5 * n_frames frames, detected on
     # the card without tracking, then tracked through the CLI
     n_long = len(long_frames)
     convert(dev, long_frames, root / "long.pv", values, False)
@@ -2053,6 +2079,257 @@ def phase_product(dev, report, n_frames=PRODUCT_FRAMES):
           flush=True)
 
 
+def object_settings():
+    """The registry's default tracking settings with only what the
+    conversion of ``synth_frames`` needs: grey storage, a ``max``
+    background, detection on the card, the scene's clock and scale, and
+    ``track_engine=auto``, which the DeviceTracker's checks refuse for
+    the registry's ``track_threshold`` 0 and background subtraction
+    off, so it picks the object Tracker."""
+    return dict(meta_encoding="gray", averaging_method="max",
+                detect_engine="device", track_engine="auto", frame_rate=25,
+                cm_per_pixel=1.0)
+
+
+def results_equal_but_engine(a, b):
+    """Two .results files hold the same tracking state: their settings
+    differ at most in ``track_engine``, and with equal settings they
+    serialize to the same bytes."""
+    from trex_tpu_torch.export import results_binary as rb
+
+    ra, rb_ = rb.read_results(a), rb.read_results(b)
+
+    def lines(res):
+        return [ln for ln in res.settings.splitlines()
+                if not ln.startswith("track_engine")]
+    if lines(ra) != lines(rb_):
+        return False
+    rb_.settings = ra.settings
+    rb.write_results(a.with_suffix(".a"), ra)
+    rb.write_results(b.with_suffix(".b"), rb_)
+    return a.with_suffix(".a").read_bytes() == b.with_suffix(".b").read_bytes()
+
+
+# The object Tracker takes a blob's orientation from its run sums, the
+# FastTracker's archive from the labeler's moment sums: the JAX package's
+# engines write angles that differ in the last bits through the track task
+# (ROADMAP.md C5). Those columns are held within these bounds (rad, rad/s,
+# rad/s^2 at 25 frames/s), every other npz column bit for bit.
+ANGLE_BOUNDS = {"ANGLE": 1e-9, "ANGULAR_V": 5e-8, "ANGULAR_A": 2.5e-6}
+
+
+def npz_departures(a: dict, b: dict):
+    """Files of `a` and `b` (name -> npz bytes) that differ beyond
+    :data:`ANGLE_BOUNDS`, and the largest angle departure found."""
+    import io
+
+    bad, worst = [], 0.0
+    for k in sorted(set(a) | set(b)):
+        if a.get(k) == b.get(k):
+            continue
+        if k not in a or k not in b:
+            bad.append(k)
+            continue
+        x, y = np.load(io.BytesIO(a[k])), np.load(io.BytesIO(b[k]))
+        for col in sorted(set(x.files) | set(y.files)):
+            u = x[col] if col in x.files else None
+            v = y[col] if col in y.files else None
+            if u is not None and v is not None and u.shape == v.shape \
+                    and u.dtype == v.dtype and u.tobytes() == v.tobytes():
+                continue
+            bound = ANGLE_BOUNDS.get(col)
+            if bound is None or u is None or v is None \
+                    or u.shape != v.shape:
+                bad.append(f"{k}:{col}")
+                continue
+            same = (u == v) | (np.isnan(u) & np.isnan(v))
+            with np.errstate(invalid="ignore"):
+                d = np.where(same, 0.0, np.abs(u - v))
+            if col == "ANGLE":
+                d = np.minimum(d, 2 * np.pi - d)
+            if not (d <= bound).all():
+                bad.append(f"{k}:{col}")
+            if col == "ANGLE":
+                worst = max(worst, float(np.nanmax(d)))
+    return bad, worst
+
+
+def npz_files(out):
+    return {k: v for k, v in output_files(out).items()
+            if k.endswith(".npz") and "_statistics" not in k
+            and "_memory" not in k and "_heatmap" not in k}
+
+
+def phase_object(dev, report, n_frames=PRODUCT_FRAMES, n_fish=N_FISH,
+                 size=SIZE, sparse_fish=64):
+    """The object Tracker (``object``): the registry's default tracking
+    settings, which both fast engines refuse, through the entry points a
+    user calls. The port's Segmenter converts ``synth_frames(n_frames)``
+    with detection on the card, and ``track_engine=auto`` picks the
+    object Tracker for the reason it records; the CLI's track task
+    (``-track_engine auto -auto_quit`` with output_statistics,
+    output_heatmaps and gui_show_memory_stats) writes the npz files, the
+    statistics, the heatmaps and the .results; a second track task with
+    ``-load`` restores that .results and writes the same npz bytes. On
+    the sparse chunk, under ``product_settings`` (which both engines
+    accept), ``-track_engine object`` and ``-track_engine fast`` write
+    byte-equal per-fish npz files and .results equal but for the
+    recorded ``track_engine`` (``tests/test_archive.py``'s contract)."""
+    import shutil
+
+    from trex_tpu_torch.track.tracker import Tracker
+    from trex_tpu_torch.utils.timing import global_collector
+
+    root = REPO / "build" / "smoke_object"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    values = object_settings()
+    bg, frames = synth_frames(n_frames, n_fish=n_fish, size=size)
+    t_phase = time.perf_counter()
+
+    seg, convert_s = convert(dev, frames, root / "o.pv", values, True)
+    lanes = global_collector().summary()
+    tr = seg.tracker
+    reasons = ("refuses track_threshold == 0",
+               "refuses track_background_subtraction off")
+    check(type(tr) is Tracker and seg.engine_choice.startswith(
+        "track_engine=auto: object Tracker (host), ")
+        and seg.engine_choice.endswith(reasons),
+        f"object: convert picked {type(tr).__name__} "
+        f"({seg.engine_choice})")
+    check(seg.detector.frames == n_frames
+          and seg.detector.overflow_frames < n_frames,
+          f"object: {seg.detector.overflow_frames} of "
+          f"{seg.detector.frames} frames overflowed the detector's caps")
+    stats = [tr.statistics[f] for f in sorted(tr.statistics)]
+    check(len(stats) == n_frames and 0 < len(tr.individuals) <= 2 * n_fish,
+          f"object: convert tracked {len(stats)} frames, "
+          f"{len(tr.individuals)} individuals")
+    convert_r = dict(
+        frames=n_frames, s=convert_s, fps=n_frames / convert_s,
+        detect_thread_s=lanes.get("detect(device)", {}).get("total", 0.0),
+        track_lane_s=lanes.get("track", {}).get("total", 0.0),
+        adding_s_per_frame=sum(s.adding_seconds for s in stats) / n_frames,
+        posture_s_per_frame=sum(s.posture_seconds for s in stats)
+        / n_frames,
+        individuals=len(tr.individuals),
+        overflow_frames=seg.detector.overflow_frames,
+        engine_choice=seg.engine_choice,
+        pv_bytes=(root / "o.pv").stat().st_size)
+
+    outputs = ["-output_statistics", "true", "-output_heatmaps", "true",
+               "-gui_show_memory_stats", "true"]
+    run = track_cli(dev, root / "o.pv", root / "track", values, "auto",
+                    outputs)
+    tt = run["tracker"]
+    check(type(tt) is Tracker and tt.engine_choice.endswith(reasons),
+          f"object: the CLI's track task picked {type(tt).__name__} "
+          f"({getattr(tt, 'engine_choice', None)})")
+    files = output_files(root / "track")
+    data = root / "track" / "data"
+    check(any(data.glob("*_statistics.npz"))
+          and any(data.glob("*_heatmap_*.npz"))
+          and len(npz_files(root / "track")) >= 2,
+          f"object: the track task wrote {sorted(files)[:8]}")
+    tstats = [tt.statistics[f] for f in sorted(tt.statistics)]
+    track_r = dict(
+        frames=n_frames, s=run["wall_s"], fps=n_frames / run["wall_s"],
+        tracking_s=run["track_s"], export_s=run["export_s"],
+        results_s=run["results_s"],
+        adding_s_per_frame=sum(s.adding_seconds for s in tstats) / n_frames,
+        posture_s_per_frame=sum(s.posture_seconds for s in tstats)
+        / n_frames,
+        loading_s_per_frame=sum(s.loading_seconds for s in tstats)
+        / n_frames,
+        individuals=len(tt.individuals),
+        output_bytes=sum(len(v) for v in files.values()),
+        npz_files=len(npz_files(root / "track")))
+
+    # -load: the .results beside the .pv, restored into the object
+    # Tracker. The .results keeps positions in float32 and no head or
+    # posture-centroid motion, so the first reload holds the track task's
+    # identities, frames and float32 positions, and a second -load, of the
+    # .results the first one wrote, reproduces its npz and .results bytes.
+    loads = []
+    for n, res in enumerate((run["results"], None)):
+        shutil.copy(res or loads[-1]["results"],
+                    (root / "o.pv").with_suffix(".results"))
+        loads.append(track_cli(dev, root / "o.pv", root / f"reload{n}",
+                               values, "auto", ["-load"]))
+        check(type(loads[-1]["tracker"]) is Tracker,
+              f"object: -load restored {type(loads[-1]['tracker'])}")
+    lt = loads[0]["tracker"]
+    moved = [fid for fid, ind in tt.individuals.items()
+             if fid not in lt.individuals
+             or [b.frame for b in ind.basic]
+             != [b.frame for b in lt.individuals[fid].basic]
+             or any(np.float32(a.centroid.x) != np.float32(b.centroid.x)
+                    or np.float32(a.centroid.y) != np.float32(b.centroid.y)
+                    for a, b in zip(ind.basic, lt.individuals[fid].basic))]
+    check(sorted(lt.individuals) == sorted(tt.individuals) and not moved,
+          f"object: -load restored other identities, frames or positions "
+          f"than the track task's: {moved[:5]}")
+    want, got = npz_files(root / "reload0"), npz_files(root / "reload1")
+    diff = sorted(k for k in set(want) | set(got)
+                  if want.get(k) != got.get(k))
+    check(len(want) >= 2 and not diff
+          and loads[0]["results"].read_bytes()
+          == loads[1]["results"].read_bytes(),
+          f"object: a second -load wrote other npz files or .results than "
+          f"the first: {diff[:5]}")
+    reload_r = dict(s=loads[0]["wall_s"], load_s=loads[0]["load_s"],
+                    export_s=loads[0]["export_s"],
+                    equal_npz_files=len(want))
+
+    # object and fast on the sparse chunk, under settings both take
+    sbg, sframes = synth_frames(n_frames, n_fish=sparse_fish, size=size)
+    svalues = product_settings(sparse_fish)
+    convert(dev, sframes, root / "s.pv", svalues, False)
+    pair = {}
+    for engine in ("object", "fast"):
+        pv = root / f"s_{engine}" / "s.pv"
+        pv.parent.mkdir()
+        shutil.copy(root / "s.pv", pv)
+        pair[engine] = track_cli(dev, pv, pv.parent / "out", svalues, engine)
+    a = npz_files(root / "s_object" / "out")
+    b = npz_files(root / "s_fast" / "out")
+    diff, worst_angle = npz_departures(a, b)
+    check(len(a) > 1 and not diff,
+          f"object: the sparse chunk's npz files of -track_engine object "
+          f"and fast differ: {diff[:5]}")
+    check(results_equal_but_engine(pair["object"]["results"],
+                                   pair["fast"]["results"]),
+          "object: the sparse chunk's .results of object and fast differ "
+          "beyond track_engine")
+    sparse_r = dict(frames=n_frames, fish=sparse_fish, npz_files=len(a),
+                    byte_equal_files=sum(a[k] == b[k] for k in a),
+                    npz_bytes=sum(len(v) for v in a.values()),
+                    max_angle_departure=worst_angle,
+                    object_fps=n_frames / pair["object"]["wall_s"],
+                    fast_fps=n_frames / pair["fast"]["wall_s"])
+    report["object"] = dict(convert=convert_r, track=track_r,
+                            reload=reload_r, sparse=sparse_r,
+                            s=time.perf_counter() - t_phase)
+    print(f"phase 11 ok: object Tracker at {n_fish} fish, {size}^2, "
+          f"{n_frames} frames, registry defaults "
+          f"({seg.engine_choice}): convert {convert_r['fps']:.2f} frames/s "
+          f"(detection thread {convert_r['detect_thread_s']:.2f} s, add "
+          f"{convert_r['adding_s_per_frame'] * 1e3:.1f} ms and posture "
+          f"{convert_r['posture_s_per_frame'] * 1e3:.1f} ms a frame, "
+          f"{convert_r['individuals']} individuals), track "
+          f"{track_r['fps']:.2f} frames/s through the CLI (add "
+          f"{track_r['adding_s_per_frame'] * 1e3:.1f} ms, posture "
+          f"{track_r['posture_s_per_frame'] * 1e3:.1f} ms a frame, export "
+          f"{track_r['export_s']:.2f} s, {track_r['individuals']} "
+          f"individuals, {track_r['output_bytes']} output bytes); -load "
+          f"wrote the same {len(want)} npz files twice; sparse "
+          f"{sparse_fish}-fish chunk: object and fast wrote {len(a)} npz "
+          f"files, {sparse_r['byte_equal_files']} byte-equal, the rest "
+          f"departing only in their angles (at most {worst_angle:.3g} rad, "
+          f"ROADMAP.md C5) and .results equal but for track_engine",
+          flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the report as JSON here")
@@ -2083,6 +2360,7 @@ def main():
     phase_decay(dev, report, *chunk[:2])
     phase_archive(dev, report, *chunk[:2])
     phase_product(dev, report)
+    phase_object(dev, report)
     report["total_s"] = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2099,7 +2377,7 @@ def main():
             json.dump(report, f, indent=1)
     print(json.dumps({k: report[k] for k in (
         "detect", "label", "track", "device_tracker", "auto_split",
-        "posture", "decay", "archive", "product", "build_s",
+        "posture", "decay", "archive", "product", "object", "build_s",
         "total_s")}))
     print(card)
     print(json.dumps({"kernels": kern}))

@@ -166,10 +166,89 @@ def test_unported_exports_raise_naming_their_roadmap_item(tracked):
     root, out = tracked
     tracker, s, _ = out["fast"]
     for fn, item in ((port_export.export_recognition, "A item 3"),
-                     (port_export.export_statistics, "A item 1"),
                      (port_export.export_tracklet_images, "A item 3")):
         with pytest.raises(NotImplementedError, match=item):
             fn(tracker, s, root / "none", "v")
+
+
+STAT_TIMING = (0, 3, 4)   # adding, loading and posture seconds
+
+
+def assert_statistics_equal(ref_path, got_path):
+    """The statistics npz: frames and every column exact, the timing
+    columns (wall clock) for shape and finiteness only."""
+    a, b = np.load(ref_path), np.load(got_path)
+    assert sorted(a.files) == sorted(b.files) == ["frames", "stats"]
+    np.testing.assert_array_equal(a["frames"], b["frames"])
+    sa, sb = a["stats"], b["stats"]
+    assert sa.shape == sb.shape and sa.dtype == sb.dtype
+    keep = [c for c in range(sa.shape[1]) if c not in STAT_TIMING]
+    np.testing.assert_array_equal(sa[:, keep], sb[:, keep])
+    assert np.isfinite(sb[:, list(STAT_TIMING)]).all()
+
+
+@pytest.mark.parametrize("engine", ["fast", "device"])
+def test_statistics_heatmaps_annotations_equal_jax(tracked, engine):
+    """output_statistics (with the memory file), output_heatmaps in
+    every normalisation and track_annotations, from the port's engines,
+    equal the JAX package's from its FastTracker."""
+    from trex_tpu.track import annotations as jax_annotations
+    from trex_tpu.track import heatmap as jax_heatmap
+    from trex_tpu_torch.track import annotations, heatmap
+
+    root, out = tracked
+    ref, ref_s, _ = out["jax"]
+    got, s, _ = out[engine]
+    jd, pd = root / f"stats_jax_{engine}", root / f"stats_{engine}"
+    ref_s.set("auto_no_memory_stats", False)
+    s.set("auto_no_memory_stats", False)
+    want = jax_export.export_statistics(ref, ref_s, jd, "v")
+    have = port_export.export_statistics(got, s, pd, "v")
+    assert [p.name for p in have] == [p.name for p in want] \
+        == ["v_statistics.npz", "v_memory.npz"]
+    assert_statistics_equal(want[0], have[0])
+    a, b = np.load(want[1]), np.load(have[1])
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for norm, frames, source in (("cell", 0, ""), ("value", 5, ""),
+                                 ("variance", 0, "X"), ("none", 3, "")):
+        for st in (ref_s, s):
+            st.set("heatmap_normalization", norm)
+            st.set("heatmap_frames", frames)
+            st.set("heatmap_source", source)
+            st.set("heatmap_resolution", 32)
+        pa = jax_heatmap.export_heatmaps(ref, ref_s, jd / norm, "v")
+        pb = heatmap.export_heatmaps(got, s, pd / norm, "v")
+        assert pa.name == pb.name and pa.read_bytes() == pb.read_bytes()
+    amap = {"0": ["[1,0,[[10.0,20.0],[30.0,45.5]]]"],
+            3: ["[0,2,[[1,2],[3,4],[5,7]]]", "[2,1,[[9,9]]]"]}
+    pa = jax_annotations.export_annotations(amap, jd, "v")
+    pb = annotations.export_annotations(amap, pd, "v")
+    assert pa.read_bytes() == pb.read_bytes()
+    ja = jax_annotations.AnnotationMap.from_dict(amap)
+    pa_ = annotations.AnnotationMap.from_dict(amap)
+    assert pa_.to_dict() == ja.to_dict()
+    assert list(pa_.training_rows()) == list(ja.training_rows())
+
+
+def test_memory_stats_equal_jax(tracked, capsys):
+    from trex_tpu.utils import memory as jax_memory
+    from trex_tpu.utils import memstats as jax_memstats
+    from trex_tpu_torch.utils import memory, memstats
+
+    _, out = tracked
+    ref, got = out["jax"][0], out["fast"][0]
+    a = jax_memstats.tracker_memory_stats(ref)
+    b = memstats.tracker_memory_stats(got)
+    assert (a.bytes, a.sizes, a.details) == (b.bytes, b.sizes, b.details)
+    a.print()
+    want = capsys.readouterr().out
+    b.print()
+    assert capsys.readouterr().out == want and "[memory] tracker" in want
+    assert memory.memory_stats(got) == jax_memory.memory_stats(ref)
+    assert memory.format_bytes(123456789) \
+        == jax_memory.format_bytes(123456789)
 
 
 def _load(mod, reset):

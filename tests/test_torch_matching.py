@@ -77,6 +77,32 @@ def test_tie_break_and_weight_over_cardinality():
             == jax_match(_paired(JaxPaired, tied), mode).pairings
 
 
-def test_benchmark_mode_is_not_ported():
-    with pytest.raises(ValueError, match="benchmark"):
-        match(_paired(PairedProbabilities, [(0, 0, 0.5)]), "benchmark")
+def test_benchmark_mode_is_not_ported(capsys):
+    """match_mode=benchmark, which the object Tracker now takes: the
+    pairings, the disagreement count and the warnings equal the JAX
+    package's, and each algorithm counts its samples; an unknown mode
+    still raises."""
+    from trex_tpu.track import matching as jax_matching
+    from trex_tpu_torch.track import matching
+
+    jax_matching.reset_benchmarks()
+    matching.reset_benchmarks()
+    for edges in list(graphs(11, 12, n=12)) + [
+            [(0, 0, 0.9), (0, 1, 0.8), (1, 0, 0.85), (1, 1, 0.1)]]:
+        ref = jax_match(_paired(JaxPaired, edges), mode="benchmark")
+        want = capsys.readouterr().out
+        got = match(_paired(PairedProbabilities, edges), mode="benchmark")
+        assert capsys.readouterr().out == want
+        assert got.pairings == ref.pairings
+        assert got.improvements_made == ref.improvements_made
+    assert got.improvements_made == 2 and "individual ('f', 0)" in want
+    assert {k: v.samples for k, v in matching.BENCHMARKS.items()} \
+        == {k: v.samples for k, v in jax_matching.BENCHMARKS.items()} \
+        == {"hungarian": 13, "tree": 13, "approximate": 13}
+    assert [line.split(":")[0] for line in matching.benchmark_report()] \
+        == ["approximate", "hungarian", "tree"]
+    matching.reset_benchmarks()
+    jax_matching.reset_benchmarks()
+    assert matching.benchmark_report() == []
+    with pytest.raises(ValueError, match="match_mode"):
+        match(_paired(PairedProbabilities, [(0, 0, 0.5)]), "sideways")

@@ -22,6 +22,7 @@ from trex_tpu_torch.config import reset_global_settings
 from trex_tpu_torch.io.pv import PVFile
 from trex_tpu_torch.track.device_engine import DeviceTracker
 from trex_tpu_torch.track.engine import EngineUnsupported, FastTracker
+from trex_tpu_torch.track.tracker import Tracker
 
 SEG = dict(track_max_individuals=3, track_threshold=20,
            track_threshold_is_absolute=False, detect_threshold=15,
@@ -184,13 +185,15 @@ def test_select_tracker_rules(monkeypatch):
     with pytest.raises(EngineUnsupported, match="non-gray"):
         pipeline.select_tracker(s, bg, gray_pixels=False, device="cpu")
     s.set("track_engine", "object")
-    with pytest.raises(EngineUnsupported, match="A item 2"):
-        pipeline.select_tracker(s, bg, device="cpu")
-    # auto, when both fast engines refuse the configuration
+    assert type(pipeline.select_tracker(s, bg, device="cpu")) is Tracker
+    # auto, when both fast engines refuse the configuration: the object
+    # Tracker, as in the JAX package
     s.set("track_engine", "auto")
     s.set("manual_matches", {0: {0: 1}})
-    with pytest.raises(EngineUnsupported, match="A item 2"):
-        pipeline.select_tracker(s, bg, device="cpu")
+    tr = pipeline.select_tracker(s, bg, device="cpu")
+    assert type(tr) is Tracker
+    assert tr.engine_choice == ("track_engine=auto: object Tracker (host), "
+                                "FastTracker refuses manual_matches")
     s.set("manual_matches", {})
     s.set("track_engine", "sideways")
     with pytest.raises(ValueError, match="track_engine"):
@@ -207,9 +210,11 @@ def test_select_tracker_rules(monkeypatch):
 
 
 def test_select_tracker_auto_on_a_card_never_tracks_on_the_host(monkeypatch):
-    """On a (mocked) healthy card, auto returns the DeviceTracker, and
-    a configuration the DeviceTracker refuses raises naming the object
-    tracker instead of handing tracking to the host FastTracker."""
+    """On a (mocked) healthy card, auto returns the DeviceTracker; a
+    configuration the DeviceTracker's checks refuse goes to the object
+    Tracker (the JAX package's route), never to the host FastTracker,
+    and a refusal raised by the engine's constructor itself is not a
+    route: it propagates."""
     import trex_tpu_torch.track.device_engine as device_engine
 
     bg = np.full((32, 32), 200, np.uint8)
@@ -223,8 +228,10 @@ def test_select_tracker_auto_on_a_card_never_tracks_on_the_host(monkeypatch):
             built.append((keep_individuals, device))
 
     monkeypatch.setattr(device_engine, "DeviceTracker", CardTracker)
-    assert type(pipeline.select_tracker(s, bg)) is CardTracker
+    tr = pipeline.select_tracker(s, bg)
+    assert type(tr) is CardTracker
     assert built == [(True, torch.device("cuda"))]
+    assert tr.engine_choice == "track_engine=auto: DeviceTracker (cuda)"
 
     class RefusingTracker:
         def __init__(self, *a, **k):
@@ -232,15 +239,24 @@ def test_select_tracker_auto_on_a_card_never_tracks_on_the_host(monkeypatch):
 
     monkeypatch.setattr(device_engine, "DeviceTracker", RefusingTracker)
     with pytest.raises(EngineUnsupported,
-                       match="A item 2.*refused by the device engine"):
+                       match="refused by the device engine"):
         pipeline.select_tracker(s, bg)
-    # the real DeviceTracker refuses before it touches the card
+
+    def refuse(settings):
+        raise EngineUnsupported("refused by the device check")
+
+    monkeypatch.setattr(device_engine, "check_device_supported", refuse)
+    tr = pipeline.select_tracker(s, bg)
+    assert type(tr) is Tracker
+    assert tr.engine_choice.endswith(
+        "DeviceTracker refuses refused by the device check")
+    # the real DeviceTracker checks refuse before anything touches the
+    # card
     monkeypatch.undo()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(pipeline, "_accelerator_healthy", lambda dev: True)
     s.set("manual_matches", {0: {0: 1}})
-    with pytest.raises(EngineUnsupported, match="A item 2"):
-        pipeline.select_tracker(s, bg)
+    assert type(pipeline.select_tracker(s, bg)) is Tracker
 
 
 def test_select_detector_rules():

@@ -187,5 +187,7 @@ def test_pose_and_outline_predictions_raise_naming_the_yolo_slice():
                  {"original_outline": np.zeros((4, 2))}):
         with pytest.raises(EngineUnsupported, match="YOLO"):
             TA.posture_python_row(d, bg, tb.lines, tb.pixels, pred, None)
-    with pytest.raises(NotImplementedError, match="posture-closing"):
-        TP.biggest_component(tb, 15, bg, d, closing_steps=1)
+    # closing steps run now (tests/test_torch_posture_closing.py holds
+    # them to OpenCV and the JAX package)
+    dense, _ = TP.biggest_component(tb, 15, bg, d, closing_steps=1)
+    assert dense is not None and dense.any()

@@ -14,11 +14,13 @@ path resolving to a .pv) -> track, otherwise convert.
 Counterpart of ``trex_tpu/cli/trex.py``. Detection and tracking run on
 the CUDA card under ``-detect_engine device`` and ``-track_engine
 device`` (or ``auto``); `main(argv, device="cpu")` runs their plain
-paths. What the port does not have yet raises, naming its ROADMAP.md
-item: the object Tracker (``-load``, ``-track_engine object``), the
-visual identification and categories (``auto_train``, ``auto_apply``,
-``auto_categorize``, ``auto_tags``, ``tags_path``), the matching
-benchmark and the memory statistics.
+paths. ``-track_engine object``, ``-load`` (the .results restored into
+the object Tracker) and ``auto`` with settings both fast engines refuse
+track with the object Tracker on the host. What the port does not have
+yet raises, naming its ROADMAP.md item: the visual identification,
+categories and tags (``auto_train``, ``auto_apply``,
+``auto_categorize``, ``auto_tags``, ``tags_path``), visual fields,
+recognition data and tracklet images.
 
     python -m trex_tpu_torch.cli.trex -i <video|.pv> -d <dir> -auto_quit \
         -detect_engine device -track_engine device
@@ -291,41 +293,22 @@ _UNPORTED_TRACK = (
     ("auto_categorize", "auto_categorize " + _VI),
     ("auto_tags", "auto_tags needs -load and the tag model; it " + _VI),
     ("auto_tags_on_startup", "auto_tags_on_startup " + _VI),
-    ("tags_path", "tags_path (tag detections) " + _VI),
-    ("gui_show_memory_stats", "gui_show_memory_stats needs "
-     "utils/memstats.py (ROADMAP.md A item 1)"))
+    ("tags_path", "tags_path (tag detections) " + _VI))
 _UNPORTED_OUTPUTS = (
     ("output_recognition_data", "output_recognition_data: "
      "export_recognition " + _VI),
     ("output_visual_fields", "output_visual_fields needs ops/raycast.py "
      "and track/visual_field.py (ROADMAP.md A item 3)"),
-    ("output_heatmaps", "output_heatmaps: track/heatmap.py is not ported "
-     "yet (ROADMAP.md A item 1)"),
     ("output_tracklet_images", "output_tracklet_images: "
-     "export_tracklet_images needs ops/crops.py (ROADMAP.md A item 3)"),
-    ("output_statistics", "output_statistics: export_statistics and "
-     "utils/memstats.py are not ported yet (ROADMAP.md A item 1)"),
-    ("track_annotations", "track_annotations: track/annotations.py is "
-     "not ported yet (ROADMAP.md A item 1)"))
+     "export_tracklet_images needs ops/crops.py (ROADMAP.md A item 3)"))
 
 
-def _refuse_unported(s, task: str, load: bool, auto_quit: bool):
+def _refuse_unported(s, task: str, auto_quit: bool):
     """Raise for the options whose modules the port does not have yet,
     before any frame is converted or tracked."""
-    from ..pipeline import OBJECT_TRACKER_MISSING
-    from ..track.engine import EngineUnsupported
-
     checks = _UNPORTED_OUTPUTS if auto_quit and not s["auto_no_outputs"] \
         else ()
     if task == "track":
-        if load:
-            # the JAX package restores .results state through the
-            # object Tracker (TrackingState::load_state)
-            raise EngineUnsupported(f"-load: {OBJECT_TRACKER_MISSING}")
-        if s["match_mode"] == "benchmark":
-            raise NotImplementedError(
-                "match_mode=benchmark runs on the object Tracker "
-                "(ROADMAP.md A item 2)")
         checks = _UNPORTED_TRACK + checks
     for key, what in checks:
         value = s[key]
@@ -336,7 +319,7 @@ def _refuse_unported(s, task: str, load: bool, auto_quit: bool):
 def _run_task(task, source, name, out_base, data_dir, s, sig, args,
               auto_quit, load, matching_log, progress, device=None):
     if task in ("convert", "track"):
-        _refuse_unported(s, task, load, auto_quit)
+        _refuse_unported(s, task, auto_quit)
     if task == "convert":
         if not source:
             print("no input (-i) given", file=sys.stderr)
@@ -362,6 +345,8 @@ def _run_task(task, source, name, out_base, data_dir, s, sig, args,
         tracker = seg.run()
         print(f"\n[convert] wrote {pv_path} "
               f"({seg.fps_stat:.1f} fps)")
+        if seg.engine_choice:
+            print(f"[convert] {seg.engine_choice}")
         if s["grabber_force_settings"]:
             # live tracking always (over)writes <filename>.settings in
             # the output folder (grabber default_config doc)
@@ -395,14 +380,53 @@ def _run_task(task, source, name, out_base, data_dir, s, sig, args,
             name = pv_path.stem
         from ..pipeline import TrackingState
 
+        engine_mode = (s.get("track_engine", "auto") or "auto")
+        if load and engine_mode != "object":
+            # .results restore rebuilds Individual state through the
+            # object tracker (TrackingState::load_state)
+            if engine_mode in ("fast", "device"):
+                print(f"[load] track_engine={engine_mode} cannot "
+                      "restore .results state; using object",
+                      file=sys.stderr)
+            s.set("track_engine", "object", source="load")
         state = TrackingState(s, pv_path, progress=progress, device=device)
         sig.targets.append(state)
-        tracker = state.run()
-        engine_note = type(tracker).__name__
-        if getattr(tracker, "demoted", False):
-            engine_note += " (demoted to host: assists dominate)"
-        print(f"\n[track] tracked {len(state.pv)} frames, "
-              f"{len(tracker.individuals)} individuals [{engine_note}]")
+        print(f"[track] {state.engine_choice}")
+        loaded = False
+        if load:
+            from ..export.results import load_results
+
+            results_path = pv_path.with_suffix(".results")
+            if results_path.exists():
+                load_results(state.tracker, results_path)
+                loaded = True
+            else:
+                print(f"[load] no results at {results_path}; "
+                      f"tracking from scratch", file=sys.stderr)
+        if loaded:
+            # -load means USE the stored state (TrackingState::load_state)
+            # — re-tracking on top would duplicate every frame record
+            tracker = state.tracker
+            print(f"\n[track] loaded {len(tracker.individuals)} "
+                  f"individuals from {results_path}")
+        else:
+            tracker = state.run()
+            engine_note = type(tracker).__name__
+            if getattr(tracker, "demoted", False):
+                engine_note += " (demoted to host: assists dominate)"
+            print(f"\n[track] tracked {len(state.pv)} frames, "
+                  f"{len(tracker.individuals)} individuals [{engine_note}]")
+            if s["match_mode"] == "benchmark":
+                # final per-algorithm timing + agreement summary
+                # (PairingGraph.cpp:1282-1288 periodic report)
+                from ..track.matching import benchmark_report
+
+                for line in benchmark_report():
+                    print(f"[match benchmark] {line}")
+        if s["gui_show_memory_stats"]:
+            from ..utils.memstats import tracker_memory_stats
+
+            tracker_memory_stats(tracker).print()
         _dump_timing(s)
         if matching_log:
             _write_matching_log(tracker, out_base / str(matching_log))
@@ -470,9 +494,11 @@ def _write_matching_log(tracker, path):
 
 def _export(tracker, s, data_dir, name, pv_file=None):
     """The reference's export surface (ui/Export.cpp:156-900) that the
-    port has: per-fish data files and posture. The other `output_*`
-    products were refused before the task ran (_UNPORTED_OUTPUTS)."""
-    from ..export.export import export_data, export_posture
+    port has: per-fish data files, posture, statistics, heatmaps and
+    annotations. The other `output_*` products were refused before the
+    task ran (_UNPORTED_OUTPUTS)."""
+    from ..export.export import (export_data, export_posture,
+                                 export_statistics)
 
     paths = []
     if not s["auto_no_tracking_data"]:
@@ -482,6 +508,20 @@ def _export(tracker, s, data_dir, name, pv_file=None):
                              pv_file=pv_file)
     if s["output_posture_data"]:
         paths += export_posture(tracker, s, data_dir, name)
+    if s["output_heatmaps"]:
+        from ..track.heatmap import export_heatmaps
+
+        paths += [export_heatmaps(tracker, s, data_dir, name)]
+    if s["output_statistics"]:
+        paths += export_statistics(tracker, s, data_dir, name)
+    if s["track_annotations"]:
+        # per-frame human annotations export (track_annotations doc:
+        # 'a map {frame:[[clid,type,[points...]],...]} that can be
+        # used to export annotations per frame')
+        from ..track.annotations import export_annotations
+
+        paths += [export_annotations(s["track_annotations"],
+                                     data_dir, name)]
     print(f"[export] wrote {len(paths)} files to {data_dir}")
 
 

@@ -5,8 +5,10 @@ column) for the keys that the device tracker's ``params_from_settings``
 and ``_detect_kwargs``, the host ``FastTracker`` (``check_supported``,
 its constructor, the prefilter and the start-frame split),
 ``DeviceTracker``, the posture chain (``ops/device_posture.py``,
-``track/posture.py``) and the per-individual archives
-(``track/archive.py``, ``track/individual.py``) read. The port's
+``track/posture.py``), the per-individual archives
+(``track/archive.py``, ``track/individual.py``) and the object
+``Tracker`` (``track/tracker.py`` with its prefilter and history split)
+read. The port's
 functions take ``settings`` as any mapping (a plain ``dict`` works) and
 fall back to these values.
 """
@@ -42,11 +44,13 @@ DEFAULTS: dict = {
     "track_ignore_bdx": {},
     "posture_closing_steps": 0,
     "track_threshold_2": 0,
+    "threshold_ratio_range": [0.5, 1.0],
     "match_topk": None,
     "track_only_categories": [],
     "track_consistent_categories": False,
     "closed_loop_enable": False,
     "tags_recognize": False,
+    "tags_enable": False,
     "auto_train": False,
     "auto_apply": False,
     "auto_categorize": False,

@@ -219,14 +219,59 @@ def export_recognition(tracker, settings, output_dir,
         "visual-identification slice (ROADMAP.md A item 3)")
 
 
+# the reference's track::Statistics POD: 16 floats per frame, unset
+# entries infinity (core/TrackingSettings.h:270-291)
+_STAT_FIELDS = (
+    "adding_seconds", "combined_posture_seconds", "number_fish",
+    "loading_seconds", "posture_seconds", "match_number_fish",
+    "match_number_blob", "match_number_edges", "match_stack_objects",
+    "match_max_edges_per_blob", "match_max_edges_per_fish",
+    "match_mean_edges_per_blob", "match_mean_edges_per_fish",
+    "match_improvements_made", "match_leafs_visited", "method_used")
+
+
 def export_statistics(tracker, settings, output_dir,
                       video_name: str) -> list[Path]:
-    """`output_statistics`: per-frame statistics and the memory
-    breakdown of `utils/memstats.py`, which the port does not have
-    yet."""
-    raise NotImplementedError(
-        "output_statistics: export_statistics and utils/memstats.py are "
-        "not ported yet (ROADMAP.md A item 1)")
+    """`output_statistics` (ui/Export.cpp:819-900): per-frame tracking
+    statistics in the reference's 16-float track::Statistics layout
+    (`stats` (n, 16) + `frames`), plus `<name>_memory.npz` with the
+    per-individual memory breakdown unless auto_no_memory_stats."""
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    frames = sorted(tracker.statistics)
+    stats = np.full((len(frames), len(_STAT_FIELDS)), np.inf,
+                    np.float32)
+    col = {n: i for i, n in enumerate(_STAT_FIELDS)}
+    for i, f in enumerate(frames):
+        st = tracker.statistics[f]
+        stats[i, col["adding_seconds"]] = st.adding_seconds
+        stats[i, col["number_fish"]] = st.number_fish
+        stats[i, col["loading_seconds"]] = st.loading_seconds
+        stats[i, col["posture_seconds"]] = st.posture_seconds
+        stats[i, col["match_improvements_made"]] = \
+            st.match_improvements
+    path = output_dir / f"{video_name}_statistics.npz"
+    np.savez(path, stats=stats, frames=np.asarray(frames, np.int64))
+    paths = [path]
+    if not settings["auto_no_memory_stats"]:
+        from ..utils.memstats import (individual_memory_stats,
+                                      tracker_memory_stats)
+
+        overall = tracker_memory_stats(tracker)
+        ids = [-1]
+        sizes: dict[str, list] = {k: [v] for k, v in
+                                  sorted(overall.sizes.items())}
+        for fid, ind in sorted(tracker.individuals.items()):
+            st = individual_memory_stats(ind)
+            ids.append(fid)
+            for k in sizes:
+                sizes[k].append(st.sizes.get(k, 0))
+        mpath = output_dir / f"{video_name}_memory.npz"
+        np.savez(mpath, id=np.asarray(ids, np.int64),
+                 **{k: np.asarray(v, np.uint64)
+                    for k, v in sizes.items()})
+        paths.append(mpath)
+    return paths
 
 
 def export_tracklet_images(tracker, settings, output_dir,

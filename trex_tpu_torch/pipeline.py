@@ -13,15 +13,18 @@ Re-creates the reference's two engines:
 
 Counterpart of ``trex_tpu/pipeline.py``. Detection runs on the card
 through `DeviceDetector` (detect_engine=device) and tracking through
-the DeviceTracker (track_engine=device, or auto on a card); the object
-Tracker is not ported, so the configurations that need it raise.
-OpenCV is imported only by the options that need it (undistortion,
-resizing, histogram equalisation, morphology, colour sources, the
-luminance grid, mask_path, the raw-movie writer, file decode).
+the DeviceTracker (track_engine=device, or auto on a card). The object
+Tracker (track_engine=object, and auto for the configurations both fast
+engines refuse, the registry's defaults among them) tracks on the host,
+with the per-blob posture chain of `run_postures`. OpenCV is imported
+only by the options that need it (undistortion, resizing, histogram
+equalisation, morphology, colour sources, the luminance grid,
+mask_path, the raw-movie writer, file decode).
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import time as _time
 from pathlib import Path
 from typing import Callable, Optional
@@ -33,15 +36,19 @@ from .io.pv import PVFile, PVFrame, PVHeader
 from .io.video import AveragingAccumulator, VideoSource
 from .ops.labeling import label_blobs
 from .track.blob import TrackBlob
+from .track.individual import PostureStuff
+from .track.motion import MotionRecord
+from .track.posture import (calculate_posture,
+                            calculate_posture_from_outline,
+                            calculate_posture_from_pose)
+from .track.tracker import Tracker
 from .utils.timing import global_collector as _global_collector
 
 _collector = _global_collector()
 
-# where the JAX package hands a configuration to its object Tracker
-OBJECT_TRACKER_MISSING = (
-    "the object Tracker is not ported yet (ROADMAP.md A item 2); "
-    "track_engine=object, -load and the settings that both fast "
-    "engines refuse need it")
+CLOSED_LOOP_MISSING = ("closed_loop_enable: closed_loop.py and "
+                       "track/visual_field.py come with ROADMAP.md A "
+                       "item 3")
 
 
 def _accelerator_healthy(device) -> bool:
@@ -63,53 +70,85 @@ def select_tracker(settings: Settings, background,
     need_individuals=True turns on the engines' archive mode
     (track/archive.py), so the full product export surface
     (CSV/NPZ/posture/.results) works behind FastTracker and
-    DeviceTracker. 'device' runs the DeviceTracker on `device`
-    (``None`` = the card; ``"cpu"`` = its plain path). 'auto' picks the
-    DeviceTracker on a healthy card and the host FastTracker when the
-    caller named the CPU; with neither a card nor ``device="cpu"`` it
-    raises. 'object', and 'auto' when both fast engines refuse the
-    configuration, raise EngineUnsupported: the object Tracker is not
-    ported.
+    DeviceTracker. 'object' is the object Tracker (host). 'device' runs
+    the DeviceTracker on `device` (``None`` = the card; ``"cpu"`` = its
+    plain path). 'auto' picks the DeviceTracker on a healthy card and
+    the host FastTracker when the caller named the CPU; with neither a
+    card nor ``device="cpu"`` it raises, and a card that fails the test
+    compute raises. Where that engine's ``check_supported`` /
+    ``check_device_supported`` refuses the settings (the registry's
+    defaults ``track_threshold 0`` and ``track_background_subtraction
+    false`` among them), or the blob pixels are not gray, 'auto' picks
+    the object Tracker, as the JAX package does; both fast engines
+    refuse the same settings. The choice is made from the settings,
+    before any frame, and the returned tracker's ``engine_choice`` says
+    which engine was chosen and which refusal it answers.
     """
     from .device import resolve_device
-    from .track.device_engine import DeviceTracker
-    from .track.engine import EngineUnsupported, FastTracker
+    from .track.device_engine import DeviceTracker, check_device_supported
+    from .track.engine import EngineUnsupported, FastTracker, \
+        check_supported
 
     mode = settings.get("track_engine", "auto") or "auto"
     if mode == "object":
-        raise EngineUnsupported(OBJECT_TRACKER_MISSING)
+        return _chosen(Tracker(settings, background=background),
+                       "track_engine=object: object Tracker (host)")
     if mode in ("fast", "device"):
         if not gray_pixels:
             raise EngineUnsupported("non-gray blob pixels")
         if mode == "device":
-            return DeviceTracker(settings, background,
-                                 keep_individuals=need_individuals,
-                                 device=device)
-        return FastTracker(settings, background,
-                           keep_individuals=need_individuals)
+            tr = DeviceTracker(settings, background,
+                               keep_individuals=need_individuals,
+                               device=device)
+            return _chosen(tr, f"track_engine=device: DeviceTracker "
+                               f"({tr.device})")
+        return _chosen(FastTracker(settings, background,
+                                   keep_individuals=need_individuals),
+                       "track_engine=fast: FastTracker (host)")
     if mode != "auto":
         raise ValueError(f"unknown track_engine {mode!r}")
     # auto: the device engine on a healthy card, the host FastTracker
-    # only when the caller asked for the CPU
+    # only when the caller asked for the CPU, the object Tracker for the
+    # settings both refuse
     dev = resolve_device(device)
-    if not gray_pixels:
-        raise EngineUnsupported(OBJECT_TRACKER_MISSING)
-    if dev.type == "cuda":
-        if not _accelerator_healthy(dev):
-            raise RuntimeError(
-                f"track_engine=auto: the CUDA device {dev} did not "
-                "answer a test compute")
-        try:
-            return DeviceTracker(settings, background,
-                                 keep_individuals=need_individuals,
-                                 device=dev)
-        except EngineUnsupported as e:
-            raise EngineUnsupported(f"{OBJECT_TRACKER_MISSING} ({e})") from e
+    on_card = dev.type == "cuda"
+    if on_card and not _accelerator_healthy(dev):
+        raise RuntimeError(
+            f"track_engine=auto: the CUDA device {dev} did not "
+            "answer a test compute")
+    engine = "DeviceTracker" if on_card else "FastTracker"
     try:
-        return FastTracker(settings, background,
-                           keep_individuals=need_individuals)
+        if not gray_pixels:
+            raise EngineUnsupported("non-gray blob pixels")
+        check_supported(settings)
+        if on_card:
+            check_device_supported(settings)
     except EngineUnsupported as e:
-        raise EngineUnsupported(f"{OBJECT_TRACKER_MISSING} ({e})") from e
+        return _chosen(Tracker(settings, background=background),
+                       f"track_engine=auto: object Tracker (host), "
+                       f"{engine} refuses {e}")
+    if on_card:
+        return _chosen(DeviceTracker(settings, background,
+                                     keep_individuals=need_individuals,
+                                     device=dev),
+                       f"track_engine=auto: DeviceTracker ({dev})")
+    return _chosen(FastTracker(settings, background,
+                               keep_individuals=need_individuals),
+                   "track_engine=auto: FastTracker (host, device=cpu)")
+
+
+def _chosen(tracker, note: str):
+    tracker.engine_choice = note
+    return tracker
+
+
+def _posture_pool(tracker, settings: Settings, workers: int):
+    """The thread pool of `run_postures` when the object Tracker computes
+    postures (the fast engines compute their own); a null context
+    otherwise."""
+    if isinstance(tracker, Tracker) and settings["calculate_posture"]:
+        return cf.ThreadPoolExecutor(max_workers=workers)
+    return contextlib.nullcontext()
 
 
 def generate_average(source: VideoSource, settings: Settings,
@@ -654,13 +693,17 @@ class Segmenter:
         self.tracker = select_tracker(
             s, self.background, self.need_individuals,
             device=self.device) if self.track else None
+        self.engine_choice = getattr(self.tracker, "engine_choice", None)
+        if isinstance(self.tracker, Tracker) and s["closed_loop_enable"]:
+            raise NotImplementedError(CLOSED_LOOP_MISSING)
         device_det = self.detector = select_detector(
             s, self.background, device=self.device)
         frame_rate = float(s["frame_rate"] or 25)
         start_t = _time.perf_counter()
         n_frames = frame_range[1] - frame_range[0] + 1
 
-        with PVFile.create(self.output_path, header) as pv:
+        with PVFile.create(self.output_path, header) as pv, \
+                _posture_pool(self.tracker, s, self.workers) as posture_pool:
             self.pv_file = pv
             pv.set_metadata(self._metadata())
 
@@ -785,7 +828,8 @@ class Segmenter:
                     if self.tracker is not None:
                         with _collector.measure("track", virtual):
                             self._track_frame(virtual, blobs,
-                                              virtual / frame_rate)
+                                              virtual / frame_rate,
+                                              posture_pool)
                     if self.progress:
                         self.progress(virtual + 1, n_frames)
                     next_write += 1
@@ -848,9 +892,17 @@ class Segmenter:
                     (img.shape[1], img.shape[0]), img.ndim == 3)
         self._raw_writer.write(img)
 
-    def _track_frame(self, index: int, blobs, time: float):
+    def _track_frame(self, index: int, blobs, time: float,
+                     posture_pool=None):
+        tracker = self.tracker
         blobs = filter_blobs_by_prediction(blobs, self.settings)
-        self.tracker.add_frame_blobs(index, time, blobs)
+        if not isinstance(tracker, Tracker):  # fast/device engines
+            tracker.add_frame_blobs(index, time, blobs)
+            return
+        pp = tracker.preprocess_frame(index, blobs, time=time)
+        tracker.add(pp)
+        if posture_pool is not None:
+            run_postures(tracker, index, self.settings, posture_pool)
 
 
 def filter_blobs_by_prediction(blobs: list, settings: Settings) -> list:
@@ -898,6 +950,100 @@ def filter_blobs_by_prediction(blobs: list, settings: Settings) -> list:
             continue
         out.append(b)
     return out
+
+
+def run_postures(tracker: Tracker, frame: int, settings: Settings,
+                 pool: Optional[cf.ThreadPoolExecutor] = None):
+    """Posture per new assignment (TrackingHelper::process_postures):
+    the per-blob chain of `calculate_posture` on the pixels of every
+    individual assigned in `frame`; pose and outline predictions raise
+    until ROADMAP.md A item 3. The frame's wall seconds go into its
+    FrameStatistics' `posture_seconds`, which the JAX package leaves
+    0."""
+    t0 = _time.perf_counter()
+    jobs = []
+    smoothing = int(settings["posture_direction_smoothing"] or 0)
+    for ind in tracker.individuals.values():
+        basic = ind.basic_stuff(frame)
+        if basic is None or ind.posture_stuff(frame) is not None:
+            continue
+        direction = None
+        if smoothing > 1:
+            # posture_direction_smoothing: orientation votes averaged
+            # over the last N posture frames (Individual::
+            # calculate_previous_vector, Individual.cpp:2296-2349)
+            direction = ind.calculate_previous_vector(frame, smoothing)
+        else:
+            prev = ind.posture[-1] if ind.posture else None
+            if prev is not None and prev.midline is not None:
+                d = prev.midline.midline_direction(
+                    settings["midline_stiff_percentage"])
+                direction = -d  # head-pointing
+        jobs.append((ind, basic, direction))
+
+    def work(job):
+        ind, basic, direction = job
+        # posture source precedence (TrackingHelper::process_postures):
+        # pose skeleton > detection outline > pixels
+        pred = getattr(basic.blob, "prediction", None) or {}
+        kp = pred.get("keypoints") if isinstance(pred, dict) else None
+        orig = pred.get("original_outline") \
+            if isinstance(pred, dict) else None
+        if kp is not None and len(np.asarray(kp).reshape(-1, 2)):
+            res = calculate_posture_from_pose(
+                basic.blob, np.asarray(kp, np.float64).reshape(-1, 2)[:, :2],
+                settings, movement_direction=direction)
+        elif orig is not None and len(orig):
+            res = calculate_posture_from_outline(
+                basic.blob, orig, settings, movement_direction=direction)
+        else:
+            res = calculate_posture(basic.blob, settings,
+                                    tracker.background,
+                                    movement_direction=direction)
+        return ind, basic, res
+
+    results = pool.map(work, jobs) if pool else map(work, jobs)
+    cm = settings["cm_per_pixel"] or 1.0
+    for ind, basic, res in results:
+        if res is None:
+            continue
+        stuff = PostureStuff(frame=basic.frame)
+        ox, oy = res.offset
+        bx, by = basic.blob.bounds[:2]
+        if res.outline is not None and len(res.outline):
+            stuff.outline = res.outline + np.array([bx + ox, by + oy],
+                                                   np.float32)
+            stuff.outline_size = len(res.outline)
+        if res.midline is not None:
+            stuff.midline = res.midline
+            # the midline's coordinate frame is the posture crop: keep
+            # the crop offset with it (consumers add blob bounds + this)
+            res.midline.offset = (float(ox), float(oy))
+            stuff.midline_length = res.midline.len * cm
+            stuff.midline_angle = res.midline.angle
+            segs = res.midline.segments
+            # head = the segment posture_head_percentage into the
+            # (head-first) midline; posture centroid = the middle
+            # segment (Individual.cpp:1459-1503 real_point indices)
+            hp = settings["posture_head_percentage"]
+            hi = min(len(segs) - 1, int(round(len(segs) * hp)))
+            ci = min(len(segs) // 2, len(segs) - 1)
+            off = np.array([bx + ox, by + oy])
+            head_pt = segs[hi] + off
+            cen_pt = segs[ci] + off
+            prev_post = ind.posture[-1] if ind.posture else None
+            stuff.head = MotionRecord.create(
+                prev_post.head if prev_post else None,
+                basic.centroid.time, float(head_pt[0]), float(head_pt[1]),
+                res.midline.angle)
+            stuff.centroid_posture = MotionRecord.create(
+                prev_post.centroid_posture if prev_post else None,
+                basic.centroid.time, float(cen_pt[0]), float(cen_pt[1]),
+                res.midline.angle)
+        ind.add_posture(stuff)
+    st = tracker.statistics.get(frame)
+    if st is not None:
+        st.posture_seconds = _time.perf_counter() - t0
 
 
 def batch_convert(settings, sources: list, output_dir, names=None,
@@ -1022,6 +1168,7 @@ class TrackingState:
             settings, self.background, need_individuals,
             gray_pixels=self.pv.header.encoding in ("gray", "grey"),
             device=device)
+        self.engine_choice = self.tracker.engine_choice
 
     def run(self, frame_range=None):
         s = self.settings
@@ -1035,6 +1182,9 @@ class TrackingState:
                 and 0 <= rng[1] < n else n - 1
             frame_range = (min(lo, n - 1), hi)
         frame_rate = float(s["frame_rate"] or 25)
+        fast = not isinstance(self.tracker, Tracker)
+        if not fast and s["closed_loop_enable"]:
+            raise NotImplementedError(CLOSED_LOOP_MISSING)
         enc = self.pv.header.encoding
         if enc in ("rgb8", "r3g3b2"):
             from .io.encoding import storage_to_gray
@@ -1047,6 +1197,7 @@ class TrackingState:
                 return raw
 
         def load(idx):
+            t_load = _time.perf_counter()
             fr = self.pv.read_frame(idx)
             # tracking thresholds run on grayscale: decode stored color
             # pixel values (storage_to_gray) like the conversion did
@@ -1069,9 +1220,16 @@ class TrackingState:
             # timestamps (default_config doc)
             t = idx / frame_rate if s["track_enforce_frame_rate"] \
                 else fr.timestamp / 1e6
-            return idx, t, blobs
+            if fast:
+                return idx, t, blobs
+            pp = self.tracker.preprocess_frame(idx, blobs, time=t,
+                                               timestamp=fr.timestamp)
+            # reading and prefiltering the frame: the FrameStatistics'
+            # loading_seconds, which the JAX package leaves 0
+            return pp, _time.perf_counter() - t_load
 
-        with cf.ThreadPoolExecutor(max_workers=self.workers) as pool:
+        with cf.ThreadPoolExecutor(max_workers=self.workers) as pool, \
+                _posture_pool(self.tracker, s, self.workers) as posture_pool:
             futures = {}
             next_submit = frame_range[0]
             next_track = frame_range[0]
@@ -1089,8 +1247,17 @@ class TrackingState:
                        and len(futures) < window):
                     futures[next_submit] = pool.submit(load, next_submit)
                     next_submit += 1
-                idx, t, blobs = futures.pop(next_track).result()
-                self.tracker.add_frame_blobs(idx, t, blobs)
+                loaded = futures.pop(next_track).result()
+                if fast:
+                    self.tracker.add_frame_blobs(*loaded)
+                else:
+                    pp, load_s = loaded
+                    self.tracker.add(pp)
+                    self.tracker.statistics[pp.index].loading_seconds = \
+                        load_s
+                    if posture_pool is not None:
+                        run_postures(self.tracker, next_track, s,
+                                     posture_pool)
                 if self.progress:
                     self.progress(next_track - frame_range[0] + 1,
                                   frame_range[1] - frame_range[0] + 1)

@@ -188,6 +188,17 @@ class TrackBlob:
         self._last_recount = threshold
         return self._recount_cache[threshold]
 
+    def force_set_recount(self, threshold: int,
+                          value_px2: Optional[float] = None,
+                          settings=None):
+        """Cache a recount from a pixel count (scaled to cm^2 here), as
+        pv::Blob::force_set_recount does."""
+        cm = (settings["cm_per_pixel"] if settings else 1.0) or 1.0
+        self._recount_cache[threshold] = (
+            value_px2 * cm * cm if value_px2 is not None
+            else self.num_pixels * cm * cm)
+        self._last_recount = threshold
+
     def to_dense(self, pad: int = 0):
         """(mask, gray, (ox, oy)): dense uint8 crops of the blob,
         rasterized by the host labeler (``trex_blob_dense``)."""

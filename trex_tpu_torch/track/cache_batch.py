@@ -8,16 +8,19 @@ rows. ``FastTracker`` with ``track_speed_decay < 1`` evaluates
 ``window_motion`` over its windows and ``window_estimate_scalar`` for the
 fish whose window the array math cannot reproduce (chain breaks, frame
 gaps); the DeviceTracker's assist rebuilds the carry's accumulated walk
-with ``window_estimate_scalar``.
-
-``compute_caches``, the object tracker's batch path over Individual
-objects, comes with the port's object tracker.
+with ``window_estimate_scalar``. ``compute_caches`` is the object
+Tracker's batch path over Individual objects: the caches of
+``Individual.cache_for_frame`` for every fish at once, the scalar path
+kept for fish with manual matches or windows the array math cannot
+reproduce.
 """
 from __future__ import annotations
 
 import math
 
 import numpy as np
+
+from .individual import IndividualCache
 
 
 def window_motion(W4: np.ndarray, starts: np.ndarray, frame: int,
@@ -270,3 +273,73 @@ def window_estimate_scalar(win: np.ndarray, fish_start: int, frame: int,
             est_x += k * (dir_x + step * accd_x)
             est_y += k * (dir_y + step * accd_y)
     return est_x + last_x, est_y + last_y
+
+
+def compute_caches(individuals: list, frame: int, time: float,
+                   frame_times: dict, start_frame: int,
+                   settings) -> dict[int, IndividualCache]:
+    s = settings
+    out: dict[int, IndividualCache] = {}
+    todo = []
+    for ind in individuals:
+        if ind.empty():
+            out[ind.identity] = IndividualCache()
+        elif ind.manual_frames:
+            out[ind.identity] = ind.cache_for_frame(
+                frame, time, frame_times, start_frame)
+        else:
+            todo.append(ind)
+    if not todo:
+        return out
+
+    F = len(todo)
+    # right-aligned (F, W, 4) windows maintained incrementally by
+    # Individual.add: [frame, x, y, time], empty slots frame = -1e9.
+    W4 = np.stack([ind._win for ind in todo])
+    starts = np.fromiter((ind.start_frame for ind in todo), np.int64, F)
+    m = window_motion(W4, starts, frame, time, frame_times, s)
+
+    t_max = s["track_max_reassign_time"]
+    frame_rate = int(s["frame_rate"] or 25)
+    p_min = s["match_min_probability"]
+    time_prob_enabled = bool(s["track_time_probability_enabled"])
+
+    tdelta = m["tdelta"]
+    # global frame-to-frame delta (Individual.cpp:1753): shared by all
+    # fish; position_probability speeds divide by THIS, not by the
+    # fish-relative tdelta above
+    prev_frame_t = frame_times.get(frame - 1)
+    global_td = (time - prev_frame_t) if prev_frame_t is not None else 0.0
+
+    # time probability
+    t_delta_frame = 1.0 / frame_rate
+    minimum_frames = min(frame_rate, 5)
+    p = 1.0 - np.minimum(1.0, np.maximum(
+        0.0, (tdelta - t_delta_frame) / t_max))
+
+    for i, ind in enumerate(todo):
+        cache = IndividualCache()
+        cache.individual_empty = False
+        cache.previous_frame = int(m["prev_frames"][i])
+        cache.fish_tdelta = float(tdelta[i])
+        cache.local_tdelta = global_td
+        cache.last_seen_px = (float(m["last_x"][i]),
+                              float(m["last_y"][i]))
+        if m["need_scalar"][i]:
+            out[ind.identity] = ind.cache_for_frame(
+                frame, time, frame_times, start_frame)
+            continue
+        cache.estimated_px = (float(m["est_x"][i]), float(m["est_y"][i]))
+        if not time_prob_enabled:
+            cache.time_probability = 1.0
+        elif tdelta[i] > t_max:
+            cache.time_probability = 0.0
+        else:
+            pp = float(p[i])
+            if m["prev_frames"][i] >= start_frame + minimum_frames:
+                r = ind.recent_number_samples(frame)
+                pp *= min(1.0, (r - 1) / minimum_frames + p_min)
+            cache.time_probability = pp * 0.75 + 0.25
+        cache.valid_frame = False
+        out[ind.identity] = cache
+    return out

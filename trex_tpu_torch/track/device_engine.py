@@ -72,8 +72,9 @@ def check_device_supported(settings) -> None:
             "hungarian or tree (benchmark needs the host engines)")
     if s["calculate_posture"] and int(s["posture_closing_steps"]):
         raise EngineUnsupported(
-            "posture_closing_steps needs the per-blob host chain (ported "
-            "with the posture-closing slice)")
+            "posture_closing_steps needs the per-blob host chain (the "
+            "posture-closing chain is the object Tracker's: "
+            "track_engine=object)")
 
 
 def _rebuild_dacc(win: np.ndarray, got: np.ndarray, frame: int,

@@ -30,8 +30,9 @@ then the second pass (reactivation of inactive fish against centroids,
 then new fish in blob order while under ``track_max_individuals``),
 then posture.
 
-Posture closing steps raise ``EngineUnsupported`` in the constructor
-until their slice of the port (``ROADMAP.md``).
+Posture closing steps raise ``EngineUnsupported`` in the constructor,
+as in the JAX package: the object Tracker (``track/tracker.py``) takes
+them.
 """
 from __future__ import annotations
 
@@ -92,8 +93,8 @@ def check_supported(settings) -> None:
     if s["calculate_posture"]:
         # the native batch chain covers the closing-free configuration
         want(int(s["posture_closing_steps"]) == 0,
-             "posture_closing_steps (ported with the posture-closing "
-             "slice)")
+             "posture_closing_steps (the posture-closing chain is the "
+             "object Tracker's: track_engine=object)")
 
 
 @dataclass

@@ -8,9 +8,11 @@ of the matching stage.
 
 The archives of the port's engines (``track/archive.py``) replay their
 records through ``Individual.add``/``add_posture``; ``CACHE_WINDOW`` is
-the decay window of the engines. ``cache_for_frame`` and the
-probabilities belong to the object tracker, which the port does not have
-yet: nothing of the port calls them.
+the decay window of the engines. The object Tracker (``track/tracker.py``)
+adds its assignments through ``Individual.add`` and reads
+``cache_for_frame`` (through ``track/cache_batch.py::compute_caches``),
+the probabilities, ``basic_stuff``/``posture_stuff`` and, in the
+pipeline's ``run_postures``, ``calculate_previous_vector``.
 
 Equations implemented 1:1 from the reference:
 - velocity/acceleration averaging over the last <=6 assigned frames with

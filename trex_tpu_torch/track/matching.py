@@ -11,10 +11,10 @@ for the match modes the port's engines accept:
 - ``tree``: branch-and-bound maximising the sum of p over degree-sorted
   fish (PairingGraph.cpp:1196-1275), greedy on timeout;
 - ``automatic``: per clique the tree search for up to 8 fish, the
-  Hungarian optimum otherwise (Tracker.cpp:1805-1812).
-
-``benchmark`` mode (every algorithm on every frame) is not ported: no
-engine of the port accepts it.
+  Hungarian optimum otherwise (Tracker.cpp:1805-1812);
+- ``benchmark``: hungarian, tree and approximate on the whole frame,
+  each timed, their disagreements reported, the hungarian assignment
+  kept (PairingGraph.cpp:1277-1370). Only the object Tracker takes it.
 """
 from __future__ import annotations
 
@@ -61,6 +61,16 @@ class PairedProbabilities:
 
     def blob(self, i):
         return self._blobs[i]
+
+    def probability(self, fi: int, bi: int) -> float:
+        for b, p in self.edges.get(fi, ()):
+            if b == bi:
+                return p
+        return 0.0
+
+    def max_prob(self) -> float:
+        return max((p for es in self.edges.values() for _, p in es),
+                   default=0.0)
 
     def blob_edges(self) -> dict[int, list[tuple[int, float]]]:
         out = defaultdict(list)
@@ -222,6 +232,72 @@ def _tree_on(paired: PairedProbabilities, fish_idx: list[int],
     return dict(best["assign"])
 
 
+@dataclass
+class BenchmarkStats:
+    """Per-algorithm accumulation for match_mode=benchmark
+    (PairingGraph.cpp `benchmarks` map :1277)."""
+    time_acc: float = 0.0
+    samples: int = 0
+
+
+BENCHMARKS: dict[str, BenchmarkStats] = {}
+_bench_counter = [0]
+
+
+def benchmark_report() -> list[str]:
+    """Per-algorithm mean wall time, the lines the reference prints
+    every 100 benchmark frames (PairingGraph.cpp:1282-1288)."""
+    return [
+        f"{name}: {st.time_acc / max(1, st.samples) * 1000:.3f}ms "
+        f"({st.samples} samples)"
+        for name, st in sorted(BENCHMARKS.items())]
+
+
+def reset_benchmarks():
+    BENCHMARKS.clear()
+    _bench_counter[0] = 0
+
+
+def _match_benchmark(paired: PairedProbabilities, result: MatchResult,
+                     time_budget: float) -> dict[int, int]:
+    """benchmark mode (PairingGraph.cpp:1277-1370): run hungarian,
+    tree and approximate on the full frame, accumulate per-algorithm
+    wall time, print the periodic report, warn with per-fish diffs on
+    disagreement; the hungarian assignment is the one returned."""
+    runs: dict[str, dict[int, int]] = {}
+    for name in ("hungarian", "tree", "approximate"):
+        t0 = _time.perf_counter()
+        runs[name] = _match_raw(paired, name, time_budget)
+        st = BENCHMARKS.setdefault(name, BenchmarkStats())
+        st.time_acc += _time.perf_counter() - t0
+        st.samples += 1
+    _bench_counter[0] += 1
+    if _bench_counter[0] % 100 == 0:
+        for line in benchmark_report():
+            print(f"[match benchmark] {line}")
+    # per-fish comparison: fish -> blob maps per algorithm
+    by_fish = {name: {f: b for b, f in raw.items()}
+               for name, raw in runs.items()}
+    disagreements = []
+    for fi in range(paired.n_fish):
+        picks = {name: by_fish[name].get(fi) for name in by_fish}
+        if len(set(picks.values())) > 1:
+            disagreements.append((fi, picks))
+    if disagreements:
+        result.improvements_made = len(disagreements)
+        probs = {fi: dict(paired.edges.get(fi, ()))
+                 for fi, _ in disagreements}
+        for fi, picks in disagreements:
+            parts = []
+            for name, bi in sorted(picks.items()):
+                p = probs[fi].get(bi, 0.0) if bi is not None else 0.0
+                blob = paired.blob(bi) if bi is not None else None
+                parts.append(f"({name}) {blob} ({p:.4f})")
+            print(f"[match benchmark] warning: individual "
+                  f"{paired.fish(fi)}: " + " != ".join(parts))
+    return runs["hungarian"]
+
+
 def _match_raw(paired: PairedProbabilities, mode: str,
                time_budget: float) -> dict[int, int]:
     """Whole-frame blob slot -> fish slot assignment of one algorithm,
@@ -251,6 +327,8 @@ def match(paired: PairedProbabilities, mode: str = "automatic",
     raw: dict[int, int] = {}
     if mode == "approximate":
         raw = _greedy_on(paired)
+    elif mode == "benchmark":
+        raw = _match_benchmark(paired, result, time_budget)
     elif mode in ("hungarian", "tree", "automatic"):
         for fish_idx, blob_idx in paired.cliques():
             if not blob_idx:
@@ -293,8 +371,7 @@ def match(paired: PairedProbabilities, mode: str = "automatic",
                 sub = _hungarian_on(paired, fish_idx, blob_idx)
             raw.update(sub)
     else:
-        raise ValueError(f"match_mode {mode!r} is not supported by the "
-                         "port (benchmark needs every algorithm per frame)")
+        raise ValueError(f"unknown match_mode {mode!r}")
     for bi, fi in raw.items():
         result.pairings[paired.blob(bi)] = paired.fish(fi)
     return result

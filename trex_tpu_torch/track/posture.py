@@ -31,7 +31,10 @@ its steps run natively (``trex_trace_boundary``,
 the numpy twins of the native steps.
 
 Posture from pose or outline predictions comes with the YOLO slice of
-the port, closing steps with the posture-closing slice: both raise.
+the port (ROADMAP.md A item 3) and raises. ``posture_closing_steps``
+(the mask closed before the biggest component is kept) runs in the
+per-blob chain, which the object Tracker takes; the batch chains refuse
+it, as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -119,6 +122,34 @@ def _trace_boundary_py(mask: np.ndarray) -> np.ndarray:
     return pts
 
 
+def _rect_extreme(m: np.ndarray, lo: int, hi: int, reduce, fill: int):
+    """`reduce` (np.max or np.min) over the window [y + lo, y + hi] x
+    [x + lo, x + hi] of every pixel (lo <= 0 <= hi); pixels outside the
+    image read `fill`, the reduction's neutral value."""
+    padded = np.pad(m, ((-lo, hi), (-lo, hi)), constant_values=fill)
+    k = hi - lo + 1
+    return reduce(np.lib.stride_tricks.sliding_window_view(padded, (k, k)),
+                  axis=(2, 3))
+
+
+def close_mask(m: np.ndarray, steps: int, size: int) -> np.ndarray:
+    """``cv2.erode(cv2.dilate(m, k, iterations=steps), k,
+    iterations=steps)`` with ``k = np.ones((size, size))``, bit for bit,
+    without OpenCV: the kernel's anchor is its centre (``size // 2``),
+    pixels outside the crop are neutral (dilation never grows in from
+    outside, erosion never eats in from the edge), and `steps` passes of
+    a full rectangle are one rectangle of ``steps * (size - 1) + 1`` with
+    its anchor at ``steps * (size // 2)``, as OpenCV folds them. An empty
+    kernel (size 0) is OpenCV's default 3 x 3."""
+    if steps <= 0:
+        return m
+    size = int(size) if size > 0 else 3
+    anchor = size // 2
+    lo, hi = -steps * anchor, steps * (size - 1 - anchor)
+    m = _rect_extreme(np.asarray(m, np.uint8), lo, hi, np.max, 0)
+    return _rect_extreme(m, lo, hi, np.min, 255)
+
+
 def biggest_component(blob: TrackBlob, threshold: int,
                       background: Optional[np.ndarray], settings,
                       closing_steps: int = 0, closing_size: int = 2):
@@ -142,9 +173,10 @@ def biggest_component(blob: TrackBlob, threshold: int,
         keep = mask > 0
     m = keep.astype(np.uint8)
     if closing_steps > 0:
-        raise NotImplementedError(
-            "posture_closing_steps (ported with the posture-closing "
-            "slice)")
+        # dilate xN then erode xN (the reference's closing; repeated
+        # MORPH_CLOSE is near-idempotent and cannot bridge wider gaps
+        # or shed extremities as the parameter doc describes)
+        m = close_mask(m, closing_steps, closing_size)
     comps = label_blobs(m * 255)
     if not comps:
         return None, (ox, oy)
@@ -718,7 +750,7 @@ def calculate_posture_from_pose(blob, pose_points, settings,
 
     raise EngineUnsupported(
         "posture from pose or outline predictions (ported with the YOLO "
-        "slice)")
+        "slice, ROADMAP.md A item 3)")
 
 
 def calculate_posture_from_outline(blob, outline_points, settings,
