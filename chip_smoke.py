@@ -83,8 +83,8 @@ Phases, each raising on failure:
    ``track_video_device`` over the 64 frames with its frames per second,
    the frames it flags and how many of them a broken motion window
    flagged, and the CUDA launches a frame over frames 24-31 with and
-   without decay; ``DeviceTracker.track_frames`` over 32 frames (base
-   and product default) with its assists, frames scanned and replay
+   without decay; ``DeviceTracker.track_frames`` over 32 frames (base)
+   and 16 (product default) with its assists, frames scanned and replay
    seconds. On small chunks that replay frames the card gives the port's
    CPU path's integer outputs and flags, the carry's motion window and
    accumulated walk bit for bit, and the same DeviceTracker history;
@@ -116,7 +116,7 @@ Phases, each raising on failure:
     for byte those of ``auto`` on the CPU (the host FastTracker); on the
     256-fish chunk the individuals that depart from the FastTracker's
     are reported (``ROADMAP.md`` C1). The CLI also tracks the scene over
-    96 frames, where the DeviceTracker demotes to the host once past 64.
+    80 frames, where the DeviceTracker demotes to the host once past 64.
     Frames per second of the conversion and of the CLI's track task,
     with the seconds of detection, scans, replay, export and .results,
     the assists, frames scanned, overflowed frames and output bytes.
@@ -141,7 +141,22 @@ Phases, each raising on failure:
     and the track task, ``adding_seconds``, ``posture_seconds`` and
     ``loading_seconds`` a frame from ``FrameStatistics``, the detection
     thread's seconds, individuals and output bytes.
-12. Report: frames per second of phases 2-11, the replay's assist frames
+12. VI apply (``vi``): phase 11's .pv and .results (251 individuals over
+    64 frames) with a v118_3 network at 80x80, one class per individual,
+    made from a seeded ``torch.Generator``, its head the CPU twin test's
+    nearest-prototype head (``tests/test_torch_vi_apply.py``, scaled by
+    :data:`VI_HEAD_SCALE`), saved with the port's ``save_weights``; the
+    CLI runs ``-task track -load -auto_apply -output_recognition_data
+    true -output_tracklet_images true -auto_quit`` with the network on
+    the card. Every stored prediction row is held to the port's CPU
+    forward of the same crops within :data:`VI_PROB_TOL`, the
+    corrections to the CPU rows' for every tracklet whose decisions have
+    margins above twice that (:func:`vi_decided`), and the re-tracked
+    .results and npz files load again. Crops/s of the host crop path,
+    the network's images/s and ms per 512-batch on the card, seconds of
+    load, predict, assignment, re-track and both exports, crops,
+    tracklets, reassignments and peak device memory.
+13. Report: frames per second of phases 2-11, the replay's assist frames
    and seconds, the card's name and power limit, and one JSON line with
     every kernel's launches on its path, error against its plain
     version, time, bound, the plain version's time and the nearest
@@ -1463,7 +1478,7 @@ def decay_settings(base, decay=0.7):
     return dict(base, track_speed_decay=decay)
 
 
-def phase_decay(dev, report, bg, frames, dt_frames=(32, 32)):
+def phase_decay(dev, report, bg, frames, dt_frames=(32, 16)):
     """Speed decay on the card: the chunk of phase 4 with
     ``track_speed_decay`` 0.7 in the base configuration and the product
     default. ``track_video_device`` over the 64 frames (frames/s, flagged
@@ -1929,7 +1944,7 @@ def phase_product(dev, report, n_frames=PRODUCT_FRAMES):
     (DeviceTracker, not demoted; npz files and .results written). The
     DeviceTracker demotes to its host engine once assists pass a quarter
     of at least 64 frames, so at 64 frames it cannot have demoted: the
-    CLI also tracks a video half as long again, and the frame at which the
+    CLI also tracks a video a quarter longer, and the frame at which the
     card handed tracking to the host is reported and held to the assist
     share of the 64-frame run. On the sparse 64-fish chunk, ``-track_engine auto`` picks the card's
     engine and writes the same npz and .results bytes as ``auto`` on the
@@ -1947,7 +1962,7 @@ def phase_product(dev, report, n_frames=PRODUCT_FRAMES):
     root.mkdir(parents=True)
     values = product_settings()
     # the first n_frames of the longer video are synth_frames(n_frames)
-    bg, long_frames = synth_frames(n_frames + n_frames // 2)
+    bg, long_frames = synth_frames(n_frames + n_frames // 4)
     frames = long_frames[:n_frames]
     t_phase = time.perf_counter()
 
@@ -2008,7 +2023,7 @@ def phase_product(dev, report, n_frames=PRODUCT_FRAMES):
                    demote_rule_trips=len(tr.assist_frames)
                    > tr.demote_threshold * n_frames)
 
-    # video length: the same scene over 1.5 * n_frames frames, detected on
+    # video length: the same scene over 1.25 * n_frames frames, detected on
     # the card without tracking, then tracked through the CLI
     n_long = len(long_frames)
     convert(dev, long_frames, root / "long.pv", values, False)
@@ -2330,6 +2345,283 @@ def phase_object(dev, report, n_frames=PRODUCT_FRAMES, n_fish=N_FISH,
           flush=True)
 
 
+# The VI phase's network (v118_3 at 80x80, one class per individual): its
+# head is tests/test_torch_vi_apply.py's nearest-prototype head, scaled by
+# the factor that test states, and its rows are held to the port's CPU
+# forward within the bfloat16 policy's row tolerance that
+# tests/test_torch_vi_network.py (ROW_TOL) and that test state.
+VI_SEED = 12
+VI_HEAD_SCALE = 12.0
+VI_PROB_TOL = 0.02
+VI_BATCH = 512
+# depth of the VI phase's re-track (analysis_range) and of its CPU hold:
+# the first 32 of phase 11's 64 frames, which keeps the script near half
+# its time limit; the network predicts all 64
+VI_FRAMES = 32
+
+
+def vi_features(model, x):
+    """The penultimate features (relu of LayerNorm_0) of NCHW images."""
+    import torch
+
+    out = []
+    hook = model.LayerNorm_0.register_forward_hook(
+        lambda m, i, o: out.append(torch.relu(o)))
+    try:
+        model(x)
+    finally:
+        hook.remove()
+    return out[0]
+
+
+def vi_prototype_head(trainer, crops_by_fid, dev):
+    """tests/test_torch_vi_apply.py's head: class k scores the projection
+    of the features on the direction of individual (k + 1)'s mean
+    features from the mean of all, times VI_HEAD_SCALE."""
+    import torch
+
+    ids = sorted(crops_by_fid)
+    with torch.no_grad():
+        protos = torch.stack([
+            vi_features(trainer.model, torch.from_numpy(
+                crops_by_fid[f]).to(dev).permute(0, 3, 1, 2)).float()
+            .mean(0) for f in ids])
+        mu = protos.mean(0)
+        u = protos - mu
+        u = u / u.norm(dim=1, keepdim=True)
+        u = torch.roll(u, -1, 0)  # class k <- individual k + 1
+        head = trainer.model.Dense_1
+        head.weight.copy_(VI_HEAD_SCALE * u)
+        head.bias.copy_(-VI_HEAD_SCALE * (u @ mu))
+
+
+def vi_decided(preds, min_p, tol):
+    """The tracklets whose correction no change of the rows within `tol`
+    can alter (``auto_correct.assign_identities``' decisions): the best
+    class beats the second, and the confidence the threshold, by more
+    than 2 * tol, and every tracklet that may claim the same class over
+    overlapping frames before it is itself decided and apart from it in
+    confidence by more than 2 * tol."""
+    m = 2 * tol
+    claims = {}  # class -> tracklets that may claim it
+    for i, tp in enumerate(preds):
+        top = tp.probs.max()
+        if top >= min_p - m:
+            for c in np.flatnonzero(tp.probs >= top - m):
+                claims.setdefault(int(c), []).append(i)
+    decided = set()
+    for i in sorted(range(len(preds)), key=lambda i: -preds[i].confidence):
+        tp = preds[i]
+        p = np.sort(tp.probs)
+        ok = p[-1] - p[-2] > m and abs(tp.confidence - min_p) > m
+        if ok and tp.confidence >= min_p:
+            t0, t1 = tp.range
+            for j in claims.get(tp.best_id, ()):
+                o = preds[j]
+                if j == i or o.range[1] < t0 or o.range[0] > t1 \
+                        or o.confidence < tp.confidence - m:
+                    continue
+                if abs(o.confidence - tp.confidence) <= m \
+                        or j not in decided:
+                    ok = False
+                    break
+        if ok:
+            decided.add(i)
+    return [preds[i] for i in sorted(decided)]
+
+
+def phase_vi(dev, report, proto_every=8):
+    """VI apply (``vi``): phase 11's .pv and .results (256 fish at 1024^2,
+    64 frames, the object Tracker), a v118_3 network at 80x80 with one
+    class per loaded individual made from a seeded torch.Generator, its
+    head the CPU twin test's prototype head (scaled by VI_HEAD_SCALE) and
+    saved with the port's save_weights as ``o_weights.npz``; the port's
+    CLI runs ``-task track -load -auto_apply -output_recognition_data true
+    -output_tracklet_images true -auto_quit`` with the network on the
+    card. Held: every prediction row the tracker stores to the port's CPU
+    forward of the same crops (VI_PROB_TOL), the corrections to those the
+    CPU rows give for every tracklet whose decisions have margins above
+    twice that (:func:`vi_decided`: its top two classes, its confidence
+    against the threshold and its order among the tracklets that may
+    claim its class), and the re-tracked .results and npz files loading
+    again."""
+    import shutil
+
+    import torch
+
+    import trex_tpu_torch.export.export as export
+    import trex_tpu_torch.ml.auto_correct as auto_correct
+    from trex_tpu_torch.export.results import load_results
+    from trex_tpu_torch.models import VITrainer, build
+    from trex_tpu_torch.ops.crops import crops_for_individual
+    from trex_tpu_torch.pipeline import TrackingState
+
+    src = REPO / "build" / "smoke_object"
+    root = REPO / "build" / "smoke_vi"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    shutil.copy(src / "o.pv", root / "o.pv")
+    shutil.copy(src / "track" / "o.results", root / "o.results")
+    values = object_settings()
+    t_phase = time.perf_counter()
+
+    # the loaded state: one class per individual; the prototypes' crops
+    s = registry(dict(values, track_engine="object"))
+    state = TrackingState(s, root / "o.pv", device=dev)
+    load_results(state.tracker, root / "o.results")
+    tr = state.tracker
+    n = len(tr.individuals)
+    min_p = float(s["match_min_probability"])
+    check(n > 1, f"vi: -load restored {n} individuals")
+    # every proto_every-th frame of each individual
+    t0 = time.perf_counter()
+    protos = {fid: crops_for_individual(ind, tr, s, frames={
+        b.frame for b in ind.basic[::proto_every]})[0]
+        for fid, ind in tr.individuals.items()}
+    crop_s = time.perf_counter() - t0
+    n_proto = sum(len(c) for c in protos.values())
+    state.pv.close()
+    check(all(len(c) for c in protos.values()),
+          "vi: an individual without a crop")
+    trainer = VITrainer(build("v118_3", n), n, (80, 80, 1),
+                        generator=torch.Generator().manual_seed(VI_SEED),
+                        device=dev)
+    vi_prototype_head(trainer, protos, dev)
+    trainer.save_weights(root / "o_weights.npz")
+
+    # the network alone: warm, synchronised 512-image batches
+    x = torch.from_numpy(np.random.default_rng(VI_SEED).integers(
+        0, 256, (VI_BATCH, 1, 80, 80), dtype=np.uint8)).to(dev)
+    with torch.no_grad():
+        batch_ms = time_ms(lambda: trainer.model(x), iters=20, warmup=3)
+
+    # the CLI run; every predict call's crops and rows are kept
+    calls = []
+    predict = VITrainer.predict
+
+    def recorded(self, images, batch_size=VI_BATCH):
+        rows = predict(self, images, batch_size)
+        calls.append((np.asarray(images), rows))
+        return rows
+    torch.cuda.reset_peak_memory_stats(dev)
+    VITrainer.predict = recorded
+    try:
+        with Spy((auto_correct, "predict_tracklets"),
+                 (auto_correct, "assign_identities"),
+                 (export, "export_recognition"),
+                 (export, "export_tracklet_images")) as spy:
+            run = track_cli(dev, root / "o.pv", root / "run", values,
+                            "auto", ["-load", "-auto_apply",
+                                     "-output_recognition_data", "true",
+                                     "-output_tracklet_images", "true",
+                                     "-analysis_range",
+                                     f"[0,{VI_FRAMES - 1}]"])
+    finally:
+        VITrainer.predict = predict
+    peak = torch.cuda.max_memory_allocated(dev)
+    preds = spy.returned["predict_tracklets"][0]
+    corr = spy.returned["assign_identities"][0]
+    rt = run["tracker"]
+    check(len(calls) == 1 and len(preds) > 0 and corr.reassigned > 0
+          and spy.seconds["export_recognition"] > 0,
+          f"vi: {len(calls)} predict calls for {len(preds)} tracklets, "
+          f"{corr.reassigned} reassigned")
+
+    # every stored row against the CPU forward of the same crops
+    crops, card = calls[0]
+    stored = sum(len(v) for v in rt.predicted.values())
+    check(stored == len(card) == sum(tp.samples for tp in preds)
+          and np.isfinite(card).all() and card.shape == (len(crops), n),
+          f"vi: {stored} stored rows, {card.shape} predicted")
+    # the rows of the tracklets within the first VI_FRAMES frames
+    ends = np.cumsum([tp.samples for tp in preds])
+    inside = [tp.range[1] < VI_FRAMES for tp in preds]
+    rows = np.concatenate([np.arange(e - tp.samples, e) for tp, e, i
+                           in zip(preds, ends, inside) if i])
+    cpu = VITrainer(build("v118_3", n), n, (80, 80, 1), device="cpu")
+    cpu.load_weights(root / "o_weights.npz")
+    t0 = time.perf_counter()
+    ref = card.copy()
+    ref[rows] = cpu.predict(crops[rows], batch_size=64)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(card[rows] - ref[rows]).max())
+    check(err <= VI_PROB_TOL, f"vi: card rows depart from the CPU forward "
+          f"by {err:.3g} (> {VI_PROB_TOL})")
+
+    # the corrections of the CPU rows (the card's beyond VI_FRAMES), for
+    # every tracklet within VI_FRAMES whose decisions have a margin
+    cpu_preds = [auto_correct.TrackletPrediction(
+        fid=tp.fid, range=tp.range, probs=ref[e - tp.samples:e].mean(0),
+        samples=tp.samples) for tp, e in zip(preds, ends)]
+    cpu_corr = auto_correct.assign_identities(cpu_preds, n,
+                                              min_probability=min_p)
+
+    def claims(c):
+        return {(fid, t0_, t1_): cid for cid, rs in c.ranges.items()
+                for t0_, t1_, fid in rs}
+    want, got = claims(cpu_corr), claims(corr)
+    held = [tp for tp in vi_decided(preds, min_p, VI_PROB_TOL)
+            if tp.range[1] < VI_FRAMES]
+    moved = [(tp.fid, tp.range) for tp in held
+             if got.get((tp.fid, *tp.range)) != want.get((tp.fid,
+                                                          *tp.range))]
+    check(held and not moved, f"vi: {len(moved)} of {len(held)} tracklets "
+          f"corrected otherwise than from the CPU rows: {moved[:5]}")
+
+    # the re-tracked outputs load again
+    npz = sorted((root / "run" / "data").glob("*.npz"))
+    for f in npz:
+        with np.load(f) as z:
+            for k in z.files:
+                z[k]
+    check(any("_recognition_" in f.name for f in npz)
+          and any(f.name.endswith("_tracklet_images.npz") for f in npz),
+          f"vi: the run wrote {[f.name for f in npz][:8]}")
+    s = registry(dict(values, track_engine="object"))
+    again = TrackingState(s, root / "o.pv", device=dev)
+    load_results(again.tracker, run["results"])
+    again.pv.close()
+    check(len(again.tracker.individuals) > 0,
+          "vi: the re-tracked .results restored no individual")
+
+    r = dict(individuals=n, tracklets=len(preds), crops=len(crops),
+             reassigned=corr.reassigned, skipped=corr.skipped,
+             identities=len(corr.ranges), held_tracklets=len(held),
+             top2_margin_tracklets=int(sum(
+                 np.diff(np.sort(tp.probs)[-2:])[0] > 2 * VI_PROB_TOL
+                 for tp in preds)),
+             held_rows=len(rows), max_row_err=err, crop_s=crop_s,
+             proto_crops=n_proto, frames=VI_FRAMES,
+             crops_per_s=n_proto / crop_s, batch_ms=batch_ms,
+             images_per_s=VI_BATCH / (batch_ms / 1e3),
+             predict_s=spy.seconds["predict_tracklets"],
+             assign_s=spy.seconds["assign_identities"],
+             retrack_s=run["track_s"], load_s=run["load_s"],
+             recognition_s=spy.seconds["export_recognition"],
+             tracklet_images_s=spy.seconds["export_tracklet_images"],
+             export_s=run["export_s"], results_s=run["results_s"],
+             cli_s=run["wall_s"], cpu_forward_s=cpu_s,
+             peak_mem_gb=peak / 1e9, npz_files=len(npz),
+             s=time.perf_counter() - t_phase)
+    report["vi"] = r
+    print(f"phase 12 ok: VI apply, v118_3 at 80x80 with {n} classes on "
+          f"phase 11's {PRODUCT_FRAMES} frames, re-tracked over "
+          f"{VI_FRAMES}: host crop path {r['crops_per_s']:.0f} "
+          f"crops/s; network {r['images_per_s']:.0f} images/s, "
+          f"{batch_ms:.3f} ms per {VI_BATCH}-batch on the card; CLI "
+          f"{r['cli_s']:.2f} s (load {r['load_s']:.2f}, predict "
+          f"{r['predict_s']:.2f}, assignment {r['assign_s']:.3f}, re-track "
+          f"{r['retrack_s']:.2f}, recognition export "
+          f"{r['recognition_s']:.2f}, tracklet images "
+          f"{r['tracklet_images_s']:.2f}, .results {r['results_s']:.2f} s); "
+          f"{len(crops)} crops, {len(preds)} tracklets, "
+          f"{corr.reassigned} reassigned, {corr.skipped} skipped; "
+          f"{len(rows)} rows within {err:.3g} of the CPU forward "
+          f"({cpu_s:.1f} s), "
+          f"{len(held)} tracklets corrected as from the CPU rows; peak "
+          f"device memory {r['peak_mem_gb']:.2f} GB", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the report as JSON here")
@@ -2361,6 +2653,7 @@ def main():
     phase_archive(dev, report, *chunk[:2])
     phase_product(dev, report)
     phase_object(dev, report)
+    phase_vi(dev, report)
     report["total_s"] = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2377,7 +2670,7 @@ def main():
             json.dump(report, f, indent=1)
     print(json.dumps({k: report[k] for k in (
         "detect", "label", "track", "device_tracker", "auto_split",
-        "posture", "decay", "archive", "product", "object", "build_s",
+        "posture", "decay", "archive", "product", "object", "vi", "build_s",
         "total_s")}))
     print(card)
     print(json.dumps({"kernels": kern}))

@@ -11,8 +11,10 @@ output_statistics, output_heatmaps, track_annotations and the
 gui_show_memory_stats lines write the JAX CLI's bytes and lines too
 (the statistics' wall-clock columns compared for shape and finiteness
 only), and `pvinfo` prints the JAX inspector's lines. Also: argument
-parsing, task inference, the rst task, and the options that raise
-naming their ROADMAP.md item."""
+parsing, task inference, the rst task, the options that raise naming
+their ROADMAP.md item, and -auto_apply and the VI exports without a
+network, as the JAX CLI runs them (tests/test_torch_vi_apply.py runs
+them with one)."""
 import shutil
 import struct
 from pathlib import Path
@@ -25,6 +27,7 @@ from test_torch_engine import one_torch_thread  # noqa: F401
 from trex_tpu.cli import trex as jax_cli
 from trex_tpu.config import reset_global_settings as jax_reset
 from trex_tpu.io.pv import PVFile
+from trex_tpu.track.engine import EngineUnsupported as JaxEngineUnsupported
 from trex_tpu_torch.cli import trex as port_cli
 from trex_tpu_torch.config import reset_global_settings
 from trex_tpu_torch.track.engine import EngineUnsupported
@@ -147,32 +150,65 @@ def test_rst_task_equals_jax(tmp_path):
     assert a == (tmp_path / "p" / "parameters_trex.rst").read_bytes()
 
 
-@pytest.mark.parametrize("flags,exc,item", [
-    (["-auto_train"], NotImplementedError, "A item 3"),
-    (["-auto_apply"], NotImplementedError, "A item 3"),
-    (["-auto_categorize", "true"], NotImplementedError, "A item 3"),
-    (["-auto_tags", "true"], NotImplementedError, "A item 3"),
-    (["-tags_path", "tags"], NotImplementedError, "A item 3"),
-    (["-output_visual_fields", "true"], NotImplementedError, "A item 3"),
-    (["-output_recognition_data", "true"], NotImplementedError,
-     "A item 3"),
-    (["-output_tracklet_images", "true"], NotImplementedError, "A item 3"),
+@pytest.mark.parametrize("flags,exc,item,jax", [
+    (["-auto_train"], NotImplementedError, "A item 3b", False),
+    # ported: `auto` tracks with the object Tracker, and without a
+    # weights file auto_apply prints the JAX CLI's note and goes on
+    (["-auto_apply"], None, "[auto_apply] no weights at", True),
+    # the fast engines refuse auto_apply, as the JAX FastTracker does
+    (["-track_engine", "fast", "-auto_apply"], EngineUnsupported,
+     "auto_apply", True),
+    (["-auto_categorize", "true"], NotImplementedError, "A item 3b", False),
+    (["-auto_tags", "true"], NotImplementedError, "A item 3d", False),
+    (["-tags_path", "tags"], NotImplementedError, "A item 3d", False),
+    (["-output_visual_fields", "true"], NotImplementedError, "A item 3c",
+     False),
+    # ported: no prediction without -auto_apply, so no recognition file
+    (["-output_recognition_data", "true"], None, "vid_id0.npz", True),
+    (["-output_tracklet_images", "true"], None, "vid_tracklet_images.npz",
+     True),
     (["-track_engine", "object", "-tags_enable", "true"], EngineUnsupported,
-     "A item 3"),
+     "A item 3d", False),
     (["-track_engine", "object", "-closed_loop_enable", "true"],
-     NotImplementedError, "A item 3"),
+     NotImplementedError, "A item 3c", False),
 ])
-def test_unported_options_raise_naming_their_item(video, flags, exc, item):
+def test_unported_options_raise_naming_their_item(video, capfd, flags, exc,
+                                                  item, jax):
+    """The options the port does not have yet raise before any frame,
+    naming their ROADMAP.md item; the ones the port has since the VI
+    apply slice behave as the JAX CLI does: -auto_apply without weights
+    prints its note (`item`) and writes the same files, the fast engine
+    refuses it with the same message, and the two exports write the JAX
+    CLI's files (`item` names one of them)."""
     root, src = video
     out = root / "port_fast"
     if not (out / "vid.pv").exists():
         assert _run(port_cli, reset_global_settings,
                     _convert_args(src, out, "fast"), device="cpu") == 0
+    tag = "_".join(f.strip("-") for f in flags)
     argv = _track_args(out, "fast")[:-4] + ["-d", str(root / "refused")] \
         + flags
-    with pytest.raises(exc, match=item):
+    if exc is None:
+        dirs = {k: root / f"{tag}_{k}" for k in ("j", "p")}
+        for k, cli, reset, kw in (("j", jax_cli, jax_reset, {}),
+                                  ("p", port_cli, reset_global_settings,
+                                   {"device": "cpu"})):
+            a = argv[:-len(flags) - 2] + ["-d", str(dirs[k])] + flags
+            capfd.readouterr()
+            assert _run(cli, reset, a, **kw) == 0
+            err = capfd.readouterr().err
+            assert (item in err) == item.startswith("[")
+        want = _assert_trees_equal(dirs["j"], dirs["p"])
+        assert f"data/{item}" in want or item.startswith("[")
+        assert not any("_recognition_" in k for k in want)
+        return
+    with pytest.raises(exc, match=item) as got:
         _run(port_cli, reset_global_settings, argv, device="cpu")
     assert not (root / "refused").exists()
+    if jax:
+        with pytest.raises(JaxEngineUnsupported) as ref:
+            _run(jax_cli, jax_reset, argv)
+        assert str(got.value) == str(ref.value)
     # with error_terminate the CLI exits non-zero instead
     assert _run(port_cli, reset_global_settings,
                 argv + ["-error_terminate", "true"], device="cpu") == 1

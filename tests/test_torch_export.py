@@ -162,13 +162,40 @@ def test_save_results_equals_jax(tracked, engine, fmt):
     assert a.read_bytes() == b.read_bytes()
 
 
+def _recognition_and_tracklet_images(mod, tracker, s, d, pv):
+    mod.export_recognition(tracker, s, d, "v")
+    mod.export_tracklet_images(tracker, s, d, "v")
+
+
 def test_unported_exports_raise_naming_their_roadmap_item(tracked):
+    """export_recognition and export_tracklet_images (refused until the
+    VI apply slice) write the JAX package's bytes from the fast engine's
+    archives: one probability row per assigned blob with a stored
+    prediction (the same rows, drawn from a seed, on both trackers), the
+    tracklets' median crops and, with tracklet_max_images 0, every
+    sampled crop."""
     root, out = tracked
-    tracker, s, _ = out["fast"]
-    for fn, item in ((port_export.export_recognition, "A item 3"),
-                     (port_export.export_tracklet_images, "A item 3")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn(tracker, s, root / "none", "v")
+    ref_tracker = out["jax"][0]
+    tracker = out["fast"][0]
+    rng = np.random.default_rng(11)
+    predicted = {}
+    for fid, ind in sorted(ref_tracker.individuals.items()):
+        for b in ind.basic[::2]:
+            predicted.setdefault(b.frame, {})[b.blob.blob_id] = \
+                rng.dirichlet(np.ones(6)).astype(np.float32)
+    ref_tracker.predicted, tracker.predicted = predicted, dict(predicted)
+    try:
+        for max_images in (0, 3):
+            _export_pair(root, out, "fast", f"vi_{max_images}",
+                         _recognition_and_tracklet_images,
+                         tracklet_max_images=max_images)
+    finally:
+        ref_tracker.predicted, tracker.predicted = {}, {}
+    names = _files(root / "vi_0_fast")
+    assert sum("_recognition_" in k for k in names) == len(
+        ref_tracker.individuals)
+    assert "v_tracklet_images.npz" in names \
+        and "v_tracklet_images_single_part0.npz" in names
 
 
 STAT_TIMING = (0, 3, 4)   # adding, loading and posture seconds

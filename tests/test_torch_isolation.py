@@ -38,7 +38,7 @@ def test_port_imports_without_jax_or_trex_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.split(" ", 1)
-    assert int(n) >= 58 and bad.strip() == "[]"
+    assert int(n) >= 69 and bad.strip() == "[]"
 
 
 def test_no_jax_import_lines():
@@ -116,13 +116,15 @@ def test_stencil_on_other_devices_raises():
 
 def test_host_labeler_built_from_the_port():
     """The replay's labeler is compiled from trex_tpu_torch/native, never
-    loaded from the JAX package's library."""
+    loaded from the JAX package's library; beside the copies of native/
+    it holds the port's own warp.cpp (the identity crops' warp, which the
+    JAX package takes from OpenCV)."""
     from trex_tpu_torch.ops import labeling
 
     assert labeling.NATIVE == REPO / "trex_tpu_torch" / "native"
     assert labeling.SOURCES == ("labeling.cpp", "tracker_core.cpp",
                                 "posture_chain.cpp", "lzo1x.cpp",
-                                "imageops.cpp")
+                                "imageops.cpp", "warp.cpp")
     assert sorted(p.name for p in labeling.NATIVE.iterdir()) \
         == sorted(labeling.SOURCES + labeling.HEADERS)
     lib = labeling._lib()
@@ -151,7 +153,11 @@ def test_package_lists_every_module():
                  "export.results_binary", "export.results", "cli.trex",
                  "ml.categorize", "utils.memstats", "utils.memory",
                  "track.heatmap", "track.annotations", "cli.pvinfo",
-                 "cli.__main__"):
+                 "cli.__main__", "ops.crops", "models.layers",
+                 "models.vi_network", "models.backbones",
+                 "models.vi_params", "models.vi_convert",
+                 "models.training", "ml.vi_facade", "ml.uniqueness",
+                 "ml.auto_correct"):
         assert f"trex_tpu_torch.{name}" in mods
 
 

@@ -194,7 +194,7 @@ def test_closed_loop_raises_naming_its_item(video):
     root, src = video
     s = apply(reset_global_settings(), dict(CONVERT,
                                             closed_loop_enable=True))
-    with pytest.raises(NotImplementedError, match="A item 3"):
+    with pytest.raises(NotImplementedError, match="A item 3c"):
         pipeline.Segmenter(s, src, root / "cl.pv", device="cpu").run()
     assert not (root / "cl.pv").exists()
 

@@ -392,5 +392,5 @@ def test_frame_statistics_has_every_field():
 
 def test_tags_raise_naming_their_item():
     s = apply(reset_global_settings(), dict(tags_enable=True))
-    with pytest.raises(EngineUnsupported, match="A item 3"):
+    with pytest.raises(EngineUnsupported, match="A item 3d"):
         Tracker(s)

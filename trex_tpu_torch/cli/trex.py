@@ -16,11 +16,15 @@ the CUDA card under ``-detect_engine device`` and ``-track_engine
 device`` (or ``auto``); `main(argv, device="cpu")` runs their plain
 paths. ``-track_engine object``, ``-load`` (the .results restored into
 the object Tracker) and ``auto`` with settings both fast engines refuse
-track with the object Tracker on the host. What the port does not have
-yet raises, naming its ROADMAP.md item: the visual identification,
-categories and tags (``auto_train``, ``auto_apply``,
-``auto_categorize``, ``auto_tags``, ``tags_path``), visual fields,
-recognition data and tracklet images.
+track with the object Tracker on the host. ``-auto_apply`` loads the
+identity network's weights (``<pv stem>_weights.npz`` or
+``visual_identification_model_path``), predicts every tracklet's crops
+on the card, reassigns identities and re-tracks with the corrections;
+``output_recognition_data`` and ``output_tracklet_images`` export its
+probabilities and the tracklets' crops. What the port does not have yet
+raises, naming its ROADMAP.md item: training and categories
+(``auto_train``, ``auto_categorize``: A item 3b), visual fields (3c) and
+tags (``auto_tags``, ``tags_path``: 3d).
 
     python -m trex_tpu_torch.cli.trex -i <video|.pv> -d <dir> -auto_quit \
         -detect_engine device -track_engine device
@@ -284,23 +288,20 @@ def _generate_rst(s) -> str:
     return "\n".join(lines)
 
 
-_VI = "comes with the visual-identification slice (ROADMAP.md A item 3)"
+_TRAINING = "comes with the visual-identification training slice " \
+    "(ROADMAP.md A item 3b)"
+_TAGS = "comes with the tags slice (ROADMAP.md A item 3d)"
 
 # options whose modules the port does not have yet, with their items
 _UNPORTED_TRACK = (
-    ("auto_train", "auto_train (accumulation training) " + _VI),
-    ("auto_apply", "auto_apply (identity correction) " + _VI),
-    ("auto_categorize", "auto_categorize " + _VI),
-    ("auto_tags", "auto_tags needs -load and the tag model; it " + _VI),
-    ("auto_tags_on_startup", "auto_tags_on_startup " + _VI),
-    ("tags_path", "tags_path (tag detections) " + _VI))
+    ("auto_train", "auto_train (accumulation training) " + _TRAINING),
+    ("auto_categorize", "auto_categorize " + _TRAINING),
+    ("auto_tags", "auto_tags needs -load and the tag model; it " + _TAGS),
+    ("auto_tags_on_startup", "auto_tags_on_startup " + _TAGS),
+    ("tags_path", "tags_path (tag detections) " + _TAGS))
 _UNPORTED_OUTPUTS = (
-    ("output_recognition_data", "output_recognition_data: "
-     "export_recognition " + _VI),
     ("output_visual_fields", "output_visual_fields needs ops/raycast.py "
-     "and track/visual_field.py (ROADMAP.md A item 3)"),
-    ("output_tracklet_images", "output_tracklet_images: "
-     "export_tracklet_images needs ops/crops.py (ROADMAP.md A item 3)"))
+     "and track/visual_field.py (ROADMAP.md A item 3c)"),)
 
 
 def _refuse_unported(s, task: str, auto_quit: bool):
@@ -430,6 +431,8 @@ def _run_task(task, source, name, out_base, data_dir, s, sig, args,
         _dump_timing(s)
         if matching_log:
             _write_matching_log(tracker, out_base / str(matching_log))
+        if s["auto_apply"]:
+            _auto_apply(tracker, state, s, pv_path, device)
         if auto_quit and not s["auto_no_outputs"]:
             # every engine serves the full export surface in archive
             # mode (need_individuals default True)
@@ -492,13 +495,66 @@ def _write_matching_log(tracker, path):
     p.write_text(html)
 
 
+def _auto_apply(tracker, state, s, pv_path, device=None):
+    """auto_apply (main.cpp:908-931, the JAX package's
+    ``_auto_train_apply(train=False)``): load the identity network's
+    weights, auto-correct identities from its predictions and re-track
+    with the corrections. The network runs on `device` (the card when
+    None)."""
+    from ..ml import check_tracklets_identities
+    from ..models import VITrainer, build
+
+    weights = pv_path.with_name(pv_path.stem + "_weights.npz")
+    # visual_identification_model_path overrides the default weights
+    # location for apply (default_config)
+    override = str(s["visual_identification_model_path"] or "").strip()
+    if override:
+        weights = Path(override)
+    if not weights.exists():
+        print(f"[auto_apply] no weights at {weights}", file=sys.stderr)
+        return
+    n = len(tracker.individuals)
+    size = s["individual_image_size"]
+    trainer = VITrainer(build(s["visual_identification_version"], n), n,
+                        (int(size[1]), int(size[0]), 1), device=device)
+    trainer.load_weights(weights)
+
+    class _Net:
+        num_classes = n
+
+        def probabilities(self, images):
+            return trainer.predict(images)
+
+    matches, corrections = check_tracklets_identities(tracker, s, _Net())
+    print(f"[auto_correct] reassigned={corrections.reassigned} "
+          f"skipped={corrections.skipped} "
+          f"identities={len(corrections.ranges)}")
+    if corrections.reassigned:
+        existing = s["manual_matches"] or {}
+        merged = dict(existing)
+        for f, m in matches.items():
+            merged.setdefault(f, {}).update(
+                {str(k): v for k, v in m.items()})
+        s.set("manual_matches", merged, source="auto_correct")
+        print("[auto_correct] re-tracking with corrections...")
+        tracker.individuals.clear()
+        tracker.active.clear()
+        tracker._next_id = 0
+        tracker.start_frame = -1
+        tracker.manual_matches = merged
+        state.tracker = tracker
+        state.run()
+
+
 def _export(tracker, s, data_dir, name, pv_file=None):
     """The reference's export surface (ui/Export.cpp:156-900) that the
-    port has: per-fish data files, posture, statistics, heatmaps and
-    annotations. The other `output_*` products were refused before the
-    task ran (_UNPORTED_OUTPUTS)."""
+    port has: per-fish data files, posture, recognition data, heatmaps,
+    tracklet images, statistics and annotations. Visual fields were
+    refused before the task ran (_UNPORTED_OUTPUTS)."""
     from ..export.export import (export_data, export_posture,
-                                 export_statistics)
+                                 export_recognition,
+                                 export_statistics,
+                                 export_tracklet_images)
 
     paths = []
     if not s["auto_no_tracking_data"]:
@@ -508,10 +564,14 @@ def _export(tracker, s, data_dir, name, pv_file=None):
                              pv_file=pv_file)
     if s["output_posture_data"]:
         paths += export_posture(tracker, s, data_dir, name)
+    if s["output_recognition_data"]:
+        paths += export_recognition(tracker, s, data_dir, name)
     if s["output_heatmaps"]:
         from ..track.heatmap import export_heatmaps
 
         paths += [export_heatmaps(tracker, s, data_dir, name)]
+    if s["output_tracklet_images"]:
+        paths += export_tracklet_images(tracker, s, data_dir, name)
     if s["output_statistics"]:
         paths += export_statistics(tracker, s, data_dir, name)
     if s["track_annotations"]:

@@ -212,11 +212,34 @@ def export_posture(tracker, settings, output_dir, video_name: str) -> list[Path]
 
 def export_recognition(tracker, settings, output_dir,
                        video_name: str) -> list[Path]:
-    """`output_recognition_data`: the per-fish class probabilities of
-    the visual identification, which the port does not have yet."""
-    raise NotImplementedError(
-        "output_recognition_data: export_recognition comes with the "
-        "visual-identification slice (ROADMAP.md A item 3)")
+    """Per-fish recognition NPZ (`output_recognition_data`,
+    ui/Export.cpp:561-588): for every frame where the fish's assigned
+    blob has a stored prediction (tracker.predicted: frame ->
+    {blob_id: class probabilities}), one probs row — arrays `frames`
+    (n,) and `probs` (n, n_classes)."""
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    prefix = settings["individual_prefix"] or "fish"
+    predicted = getattr(tracker, "predicted", {}) or {}
+    paths = []
+    for fid, ind in sorted(tracker.individuals.items()):
+        frames, probs = [], []
+        for b in ind.basic:
+            preds = predicted.get(b.frame)
+            if not preds:
+                continue
+            p = preds.get(b.blob.blob_id)
+            if p is None:
+                continue
+            frames.append(b.frame)
+            probs.append(np.asarray(p, np.float32))
+        if not frames:
+            continue
+        path = output_dir / f"{video_name}_recognition_{prefix}{fid}.npz"
+        np.savez(path, frames=np.asarray(frames, np.int64),
+                 probs=np.stack(probs))
+        paths.append(path)
+    return paths
 
 
 # the reference's track::Statistics POD: 16 floats per frame, unset
@@ -276,8 +299,75 @@ def export_statistics(tracker, settings, output_dir,
 
 def export_tracklet_images(tracker, settings, output_dir,
                            video_name: str) -> list[Path]:
-    """`output_tracklet_images`: normalized crops per tracklet, which
-    need `ops/crops.py`."""
-    raise NotImplementedError(
-        "output_tracklet_images: export_tracklet_images needs "
-        "ops/crops.py (ROADMAP.md A item 3)")
+    """`output_tracklet_images` (ui/Export.cpp:479-530, 1240-1380):
+    one median normalized image per sufficiently long tracklet, all in
+    `<name>_tracklet_images.npz` (`images` (N, h, w) + `meta` (N, 3) =
+    [id, start, end]); with tracklet_max_images == 0 additionally
+    every sampled frame image in
+    `<name>_tracklet_images_single_part0.npz`
+    (`images`/`frames`/`ids`)."""
+    import math as _math
+
+    from ..ops.crops import normalized_crop
+
+    s = settings
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    size = s["individual_image_size"]
+    tw, th = int(size[0]), int(size[1])
+    min_frames = int(s["output_min_frames"])
+    max_images = int(s["tracklet_max_images"])
+    medians, meta = [], []
+    singles, single_frames, single_ids = [], [], []
+    for fid, ind in sorted(tracker.individuals.items()):
+        lengths = [p.midline_length for p in ind.posture
+                   if not _math.isnan(p.midline_length)]
+        med_len = float(np.median(lengths)) if lengths else None
+        for t0, t1 in ind.tracklets:
+            if t1 - t0 + 1 < min_frames:
+                continue
+            frames = list(range(t0, t1 + 1))
+            if max_images and len(frames) > max_images:
+                step = len(frames) // max_images
+                frames = frames[::step][:max_images]
+            imgs = []
+            for f in frames:
+                b = ind.basic_stuff(f)
+                if b is None or b.blob.pixels is None:
+                    continue
+                post = ind.posture_stuff(f)
+                # tracklet_normalize=false: plain un-rotated crops
+                # (Export.cpp do_normalize_tracklets gate)
+                img = normalized_crop(
+                    b.blob, tracker.background, s,
+                    midline=post.midline if post else None,
+                    median_midline_length=med_len,
+                    mode=None if s["tracklet_normalize"] else "none",
+                    # tracklet_force_normal_color (default): crops
+                    # keep the original-video grey appearance instead
+                    # of the background-difference image
+                    raw=bool(s["tracklet_force_normal_color"]))
+                imgs.append(img)
+                if max_images == 0:
+                    singles.append(img)
+                    single_frames.append(f)
+                    single_ids.append(fid)
+            if len(imgs) > 1:
+                medians.append(np.median(np.stack(imgs), axis=0)
+                               .astype(np.uint8))
+                meta.append((fid, t0, t1))
+    paths = []
+    path = output_dir / f"{video_name}_tracklet_images.npz"
+    np.savez(path,
+             images=(np.stack(medians) if medians
+                     else np.zeros((0, th, tw), np.uint8)),
+             meta=np.asarray(meta, np.int64).reshape(-1, 3))
+    paths.append(path)
+    if max_images == 0 and singles:
+        spath = output_dir / \
+            f"{video_name}_tracklet_images_single_part0.npz"
+        np.savez(spath, images=np.stack(singles),
+                 frames=np.asarray(single_frames, np.int64),
+                 ids=np.asarray(single_ids, np.int64))
+        paths.append(spath)
+    return paths

@@ -5,7 +5,8 @@ The ranged category labels per (individual, tracklet) of the
 reference's CategorizeDatastore (tracking/CategorizeDatastore.{h,cpp},
 ranged_label :199), which `.results` files carry and the `category`
 export fields read. The classifier that fills it (``Categorizer``)
-comes with the visual-identification slice (ROADMAP.md A item 3).
+comes with the visual-identification training slice (ROADMAP.md A
+item 3b).
 """
 from __future__ import annotations
 

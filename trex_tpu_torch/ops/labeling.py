@@ -14,7 +14,9 @@ outline resample). The per-blob chain of ``track/posture.py`` binds the
 boundary trace, the outline resample, the midline walk and the midline
 chain one by one. ``lzo1x.cpp`` (the ``.pv`` payload codec of
 ``io/lzo.py``) and ``imageops.cpp`` (the background average's mean and
-mode, ``io/video.py``) are built into the same library.
+mode, ``io/video.py``) are built into the same library, and so is the
+port's own ``warp.cpp`` (the identity crops' affine warp,
+``ops/crops.py``), which the JAX package takes from OpenCV.
 
 The library is compiled with ``g++`` at first use into
 ``build/trex_tpu_torch/`` (a directory git ignores), under a name that
@@ -41,7 +43,7 @@ from ..kernels import BUILD_DIR
 
 NATIVE = Path(__file__).resolve().parents[1] / "native"
 SOURCES = ("labeling.cpp", "tracker_core.cpp", "posture_chain.cpp",
-           "lzo1x.cpp", "imageops.cpp")
+           "lzo1x.cpp", "imageops.cpp", "warp.cpp")
 HEADERS = ("simd_clones.h",)
 GXX_FLAGS = ["-O3", "-ffp-contract=off", "-std=c++20", "-shared", "-fPIC"]
 
@@ -182,6 +184,9 @@ _SIGNATURES = {
     "trex_mean_u8": (None, [ctypes.POINTER(ctypes.c_uint32), _i64, _i64,
                             _u8p]),
     "trex_mode_u8_rows": (None, [ctypes.POINTER(_u8p), _i64, _i64, _u8p]),
+    # warp.cpp: the identity crops' affine warp (ops/crops.py)
+    "trex_warp_affine_u8": (None, [_u8p, _i32, _i32, _f64p, _i32, _i32,
+                                   _u8p]),
 }
 
 _lib_obj = None

@@ -48,7 +48,7 @@ _collector = _global_collector()
 
 CLOSED_LOOP_MISSING = ("closed_loop_enable: closed_loop.py and "
                        "track/visual_field.py come with ROADMAP.md A "
-                       "item 3")
+                       "item 3c")
 
 
 def _accelerator_healthy(device) -> bool:
@@ -957,7 +957,7 @@ def run_postures(tracker: Tracker, frame: int, settings: Settings,
     """Posture per new assignment (TrackingHelper::process_postures):
     the per-blob chain of `calculate_posture` on the pixels of every
     individual assigned in `frame`; pose and outline predictions raise
-    until ROADMAP.md A item 3. The frame's wall seconds go into its
+    until ROADMAP.md A item 3e. The frame's wall seconds go into its
     FrameStatistics' `posture_seconds`, which the JAX package leaves
     0."""
     t0 = _time.perf_counter()

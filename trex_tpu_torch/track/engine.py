@@ -86,9 +86,12 @@ def check_supported(settings) -> None:
          "track_consistent_categories")
     want(not s["closed_loop_enable"], "closed_loop_enable")
     want(not s["tags_recognize"], "tags_recognize")
+    # the auto_* curricula re-track through the object tracker's
+    # internals (manual_matches splice, _next_id reset)
     for flag in ("auto_train", "auto_apply", "auto_categorize",
                  "auto_tags"):
-        want(not s[flag], flag)
+        want(not s[flag], f"{flag} (re-tracks through the object "
+             "tracker)")
     # later slices of the port (ROADMAP.md)
     if s["calculate_posture"]:
         # the native batch chain covers the closing-free configuration

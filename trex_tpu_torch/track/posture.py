@@ -31,7 +31,7 @@ its steps run natively (``trex_trace_boundary``,
 the numpy twins of the native steps.
 
 Posture from pose or outline predictions comes with the YOLO slice of
-the port (ROADMAP.md A item 3) and raises. ``posture_closing_steps``
+the port (ROADMAP.md A item 3e) and raises. ``posture_closing_steps``
 (the mask closed before the biggest component is kept) runs in the
 per-blob chain, which the object Tracker takes; the batch chains refuse
 it, as the JAX package's do.
@@ -750,7 +750,7 @@ def calculate_posture_from_pose(blob, pose_points, settings,
 
     raise EngineUnsupported(
         "posture from pose or outline predictions (ported with the YOLO "
-        "slice, ROADMAP.md A item 3)")
+        "slice, ROADMAP.md A item 3e)")
 
 
 def calculate_posture_from_outline(blob, outline_points, settings,

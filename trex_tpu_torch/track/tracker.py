@@ -22,7 +22,7 @@ included (the registry's defaults ``track_threshold 0`` and
 ``track_background_subtraction false``, manual matches and splits, the
 shape filters, categories, ``match_topk``, ``match_mode=benchmark``).
 Tag detection and recognition (``tags_enable``, ``tags_recognize``) run
-on OpenCV and the tag network and raise (ROADMAP.md A item 3).
+on OpenCV and the tag network and raise (ROADMAP.md A item 3d).
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ from .prefilter import PrefilterResult, SizeFilters, prefilter
 from .splitting import HistorySplit, split_blob
 
 TAGS_MISSING = ("the tag detector and decoder (track/tags.py, "
-                "ml/tagwork.py) come with ROADMAP.md A item 3")
+                "ml/tagwork.py) come with ROADMAP.md A item 3d")
 
 
 @dataclass
@@ -88,7 +88,7 @@ class Tracker:
         self._next_id = 0
         self.manual_matches = settings["manual_matches"] or {}
         # VI / tag predictions store: frame -> {blob_id: probs}, which
-        # the export's fields read (empty until ROADMAP.md A item 3)
+        # the VI apply fills (ml/auto_correct.py) and the export reads
         self.predicted: dict[int, dict] = {}
         # physical-tag assignments: frame -> {identity: tag_id}
         # (Tracker.cpp:2056-2108 QR-tag <-> fish Hungarian matching)
