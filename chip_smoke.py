@@ -156,7 +156,35 @@ Phases, each raising on failure:
     the network's images/s and ms per 512-batch on the card, seconds of
     load, predict, assignment, re-track and both exports, crops,
     tracklets, reassignments and peak device memory.
-13. Report: frames per second of phases 2-11, the replay's assist frames
+13. VI training (``vi_train``): the port's ``Segmenter`` converts
+    ``synth_frames(128, n_fish=15, size=512)`` (15 distinct stamps) with
+    detection on the card under ``product_settings(15)`` and
+    ``track_engine=auto``; the CLI runs ``-task track -auto_train
+    -auto_quit -visual_identification_save_images true
+    -recognition_save_progress_images true``: ``auto`` picks the object
+    Tracker, the accumulation curriculum trains the registry's network
+    (v118_3 at 80x80, one class per individual, bfloat16 compute, batch
+    128) with the registry's training settings on the card, then the
+    network is applied (no identity needs a correction on this scene).
+    A second track task with ``-auto_apply`` swaps two identities at
+    frame 64 by manual matches and applies the trained weights, which
+    reassign them, so the video is re-tracked. Held: one train step on
+    a 128-batch of the saved training images, card against the port's
+    CPU path from the same weights with dropout 0 (loss, every gradient
+    and the BatchNorm statistics within ``tests/test_torch_vi_train.py``'s
+    bfloat16 tolerances); the saved weights loaded into a CPU
+    ``VITrainer`` give the card's rows on the discrimination set within
+    :data:`VI_PROB_TOL`; the saved training images are the crops of the
+    trained ranges; the first step's last epoch has a lower mean loss
+    than its first; the uniqueness after training is above the untrained
+    network's; the apply reassigned identities and a re-track ran, which
+    gave the two swapped identities the first track's blobs back, and
+    its .results and npz files load again. Ms per
+    training step and images/s on the card, epochs and steps per
+    accumulation step with its status and reason, uniqueness before and
+    after, seconds of the accumulation, save, apply and re-track, peak
+    device memory.
+14. Report: frames per second of phases 2-11, the replay's assist frames
    and seconds, the card's name and power limit, and one JSON line with
     every kernel's launches on its path, error against its plain
     version, time, bound, the plain version's time and the nearest
@@ -1926,7 +1954,8 @@ def track_cli(dev, pv, out, values, engine, extra=()):
                 tracker=loaded[0] if loaded else spy.returned["run"][0],
                 track_s=spy.seconds["run"], export_s=spy.seconds["_export"],
                 results_s=spy.seconds["save_results"],
-                load_s=spy.seconds["load_results"], results=kept)
+                load_s=spy.seconds["load_results"], results=kept,
+                runs=len(spy.returned["run"]))
 
 
 def output_files(out):
@@ -2622,6 +2651,355 @@ def phase_vi(dev, report, proto_every=8):
           f"device memory {r['peak_mem_gb']:.2f} GB", flush=True)
 
 
+# The VI training phase: tests/test_torch_vi_train.py's tolerances for
+# the bfloat16 policy (BF16_TOL for the loss and the statistics,
+# BF16_GRAD_TOL for the gradient vector in relative L2 norm, both against
+# the other implementation), the scene (synth_frames' first 15 stamps are
+# all distinct) and the frame at which the apply run swaps two identities
+VI_TRAIN_FISH = 15
+VI_TRAIN_FRAMES = 128
+VI_TRAIN_SIZE = 512
+VI_TRAIN_BATCH = 128
+VI_BF16_TOL = 0.05
+VI_BF16_GRAD_TOL = 0.4
+VI_SWAP_FRAME = 64
+
+
+def vi_float64(model):
+    """`model` computing in float64 throughout (the exact reference)."""
+    import torch
+
+    model.double()
+    for m in model.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = torch.float64
+    return model
+
+
+def vi_no_dropout(model):
+    from trex_tpu_torch.models.layers import Dropout
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    return model
+
+
+def vi_train_forward(model, x, y, n):
+    """Loss, gradients (by parameter name) and BatchNorm statistics after
+    one train-mode forward of `model` on NCHW `x`, all on the CPU in
+    float64 for comparison."""
+    import torch
+
+    from trex_tpu_torch.models.training import softmax_cross_entropy
+
+    dt = next(model.parameters()).dtype
+    dev = next(model.parameters()).device
+    loss = softmax_cross_entropy(model(x.to(dev, dt), train=True),
+                                 y.to(dev), n)
+    names = [k for k, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    stats = {k: v.detach().double().cpu() for k, v in
+             model.state_dict().items() if k.endswith((".mean", ".var"))}
+    return (float(loss.detach()),
+            {k: g.double().cpu() for k, g in zip(names, grads)}, stats)
+
+
+def vi_rel_l2(got, want):
+    """The relative L2 distance of `got` from `want`."""
+    return float((got - want).norm() / want.norm())
+
+
+def phase_vi_train(dev, report):
+    """VI training (``vi_train``): the port's Segmenter converts
+    ``synth_frames(128, n_fish=15, size=512)`` with detection on the
+    card under ``product_settings(15)`` and ``track_engine=auto``; the
+    CLI runs ``-task track -auto_train -auto_quit
+    -visual_identification_save_images true
+    -recognition_save_progress_images true`` with the registry's
+    network (v118_3 at 80x80, one class per individual, bfloat16
+    compute, batch 128) and training settings, training on the card,
+    then applies the network; a second track task swaps two identities
+    at VI_SWAP_FRAME by manual matches and runs ``-auto_apply`` with the
+    trained weights, which reassign them and re-track. Held: one train
+    step on a 128-batch of the saved training images, card against the
+    port's CPU path from the same weights with dropout 0 (the loss and
+    the BatchNorm statistics within VI_BF16_TOL, the gradient vector
+    within VI_BF16_GRAD_TOL in relative L2 norm); the saved weights loaded
+    into a CPU VITrainer give the card's rows on the discrimination set
+    within VI_PROB_TOL; the saved training images are the crops of the
+    trained ranges; the first step's last epoch has a lower mean loss
+    than its first; training raised the uniqueness above the untrained
+    network's; the swapped run's apply reassigned identities and
+    re-tracked, the re-track gave the swapped identities the first
+    track's blobs back, and its .results and npz files load again."""
+    import shutil
+
+    import torch
+
+    import trex_tpu_torch.ml as ml
+    import trex_tpu_torch.pipeline as pipeline
+    from trex_tpu_torch import kernels
+    from trex_tpu_torch.export.results import load_results
+    from trex_tpu_torch.ml import accumulation
+    from trex_tpu_torch.models import VITrainer, build, vi_params
+    from trex_tpu_torch.models.training import VITrainer as Trainer
+
+    root = REPO / "build" / "smoke_vi_train"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    n_fish = VI_TRAIN_FISH
+    values = dict(product_settings(n_fish), track_engine="auto")
+    _, frames = synth_frames(VI_TRAIN_FRAMES, n_fish=n_fish,
+                             size=VI_TRAIN_SIZE)
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    seg, convert_s = convert(dev, frames, root / "v.pv", values, False)
+    check(seg.detector.frames == VI_TRAIN_FRAMES,
+          f"vi_train: converted {seg.detector.frames} frames")
+
+    # the CLI run, with the accumulation, every train call and the
+    # steps of Adam they took kept
+    kept = {}
+    calls = []
+    start, train = accumulation.Accumulation.start, Trainer.train
+
+    def kept_start(self, *a, **kw):
+        t0 = time.perf_counter()
+        disc = self.generate_discrimination_data()
+        kept["untrained"] = self.step_uniqueness(*disc)[2]
+        kept["disc"] = disc
+        kept["disc_s"] = time.perf_counter() - t0
+        sync()
+        t0 = time.perf_counter()
+        res = start(self, *a, **kw)
+        sync()
+        kept["start_s"] = time.perf_counter() - t0
+        kept["acc"], kept["result"] = self, res
+        # the crops of the trained ranges, before the re-track moves the
+        # identities
+        kept["crops"] = [self._collect(r) for r in res.trained_ranges]
+        return res
+
+    def kept_train(self, *a, **kw):
+        steps = self.steps
+        sync()
+        t0 = time.perf_counter()
+        res = train(self, *a, **kw)
+        sync()
+        calls.append(dict(s=time.perf_counter() - t0, result=res,
+                          steps=self.steps - steps, images=len(a[0])))
+        return res
+    torch.cuda.reset_peak_memory_stats(dev)
+    accumulation.Accumulation.start, Trainer.train = kept_start, kept_train
+    try:
+        with Spy((ml, "check_tracklets_identities"),
+                 (Trainer, "save_weights")) as spy:
+            run = track_cli(dev, root / "v.pv", root / "run", values, "auto",
+                            ["-auto_train",
+                             "-visual_identification_save_images", "true",
+                             "-recognition_save_progress_images", "true"])
+    finally:
+        accumulation.Accumulation.start, Trainer.train = start, train
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = dict(kernels.launches)
+    acc, res = kept["acc"], kept["result"]
+    n = acc.num_individuals
+    tr = run["tracker"]
+    check(type(tr).__name__ == "Tracker",
+          f"vi_train: auto picked {type(tr).__name__}")
+    check(res.steps and any(st.status.value == "added" for st in res.steps),
+          f"vi_train: no accumulation step was added "
+          f"({[(st.status.value, st.reason.value) for st in res.steps]})")
+    check(kept["acc"].trainer.device.type == "cuda",
+          "vi_train: the network trained off the card")
+
+    # the saved files
+    weights = root / "v_weights.npz"
+    images_npz = root / "v_weights_training_images.npz"
+    pngs = sorted(root.glob("v_weights_uniqueness_step*.png"))
+    check(weights.is_file() and images_npz.is_file()
+          and len(pngs) == len(res.progress_maps) > 0,
+          f"vi_train: saved {sorted(p.name for p in root.iterdir())}")
+    with np.load(images_npz) as z:
+        saved_images, saved_labels = z["images"], z["labels"]
+    want_images = np.concatenate([c[0] for c in kept["crops"]])
+    want_labels = np.concatenate([c[1] for c in kept["crops"]])
+    check(np.array_equal(saved_images, want_images)
+          and np.array_equal(saved_labels, want_labels),
+          "vi_train: the saved training images are not the crops of the "
+          "trained ranges")
+
+    # the first accumulation step learned
+    first = calls[0]["result"].history
+    check(first[-1]["loss"] < first[0]["loss"],
+          f"vi_train: the first step's loss went from {first[0]['loss']} "
+          f"to {first[-1]['loss']}")
+    check(res.final_uniqueness > kept["untrained"],
+          f"vi_train: uniqueness {res.final_uniqueness} after training, "
+          f"{kept['untrained']} untrained")
+
+    # the saved weights on the CPU against the card's rows
+    disc_images, _ = kept["disc"]
+    card_rows = acc.trainer.predict(disc_images)
+    cpu = VITrainer(build("v118_3", n), n, (80, 80, 1), device="cpu")
+    cpu.load_weights(weights)
+    t0 = time.perf_counter()
+    cpu_rows = cpu.predict(disc_images, batch_size=VI_TRAIN_BATCH)
+    cpu_rows_s = time.perf_counter() - t0
+    row_err = float(np.abs(card_rows - cpu_rows).max())
+    check(np.isfinite(card_rows).all() and row_err <= VI_PROB_TOL,
+          f"vi_train: the saved weights' CPU rows depart from the card's "
+          f"by {row_err:.3g} (> {VI_PROB_TOL})")
+
+    # one train step on a 128-batch of the training images: card against
+    # the CPU from the same weights, dropout 0, against float64 on the CPU
+    x = torch.from_numpy(saved_images[:VI_TRAIN_BATCH]).permute(0, 3, 1, 2) \
+        .float()
+    y = torch.from_numpy(saved_labels[:VI_TRAIN_BATCH].astype(np.int64))
+    arrays = vi_params.to_flax_arrays(acc.trainer.model)
+    models = {}
+    for name, d in (("card", dev), ("cpu", "cpu"), ("f64", "cpu")):
+        t = VITrainer(build("v118_3", n), n, (80, 80, 1), device=d)
+        vi_params.from_flax_arrays(t.model, arrays)
+        models[name] = vi_no_dropout(t.model)
+    vi_float64(models["f64"])
+    fw = {k: vi_train_forward(m, x, y, n) for k, m in models.items()}
+    (lc, gc, sc), (lp, gp, sp), (lr, gr, sr) = fw["card"], fw["cpu"], \
+        fw["f64"]
+    loss_d = abs(lc - lp) / max(1.0, abs(lp))
+    g_max = max(float(g.abs().max()) for g in gp.values())
+    cat = [torch.cat([g[k].flatten() for k in sorted(gp)])
+           for g in (gc, gp, gr)]
+    grad_d = float((cat[0] - cat[1]).abs().max()) / g_max
+    grad_l2 = vi_rel_l2(cat[0], cat[1])
+    stat_d = []
+    for k in sorted(sp):
+        d = float((sc[k] - sp[k]).abs().max()) / max(
+            1.0, float(sp[k].abs().max()))
+        check(d <= VI_BF16_TOL,
+              f"vi_train: BatchNorm statistic {k} departs by {d:.3g}")
+        stat_d.append(d)
+    check(loss_d <= VI_BF16_TOL and grad_l2 <= VI_BF16_GRAD_TOL,
+          f"vi_train: one step's loss ({lc} card, {lp} CPU) or gradients "
+          f"({grad_l2:.3g} in relative L2 norm) differ beyond the "
+          f"bfloat16 tolerances")
+    grad_f64 = [float(max((g[k] - gr[k]).abs().max() for k in gr)) / g_max
+                for g in (gc, gp)]
+
+    # the step alone on the card: a warm 128-batch of the training images
+    trainer = acc.trainer
+    xb, yb = x.to(dev), y.to(dev)
+    snap = trainer.state
+    step_ms = time_ms(lambda: trainer._train_step(
+        trainer.opt, xb, yb, trainer._dropout_rng), iters=20, warmup=3)
+    trainer.state = snap
+
+    # the trained weights applied to a track in which identities 0 and 1
+    # swap blobs at VI_SWAP_FRAME (manual matches): the apply reassigns
+    # their tracklets from there and the run re-tracks
+    f = VI_SWAP_FRAME
+    first = {i: [tr.individuals[i].basic_stuff(k).blob.blob_id
+                 for k in (f, VI_TRAIN_FRAMES - 1)] for i in (0, 1)}
+    swap = {str(f): {"0": first[1][0], "1": first[0][0]}}
+    first_reassigned = spy.returned["check_tracklets_identities"][0][1] \
+        .reassigned
+    with Spy((ml, "check_tracklets_identities")) as spy2:
+        applied = track_cli(dev, root / "v.pv", root / "apply",
+                            dict(values, manual_matches=swap), "auto",
+                            ["-auto_apply"])
+    corr = spy2.returned["check_tracklets_identities"][0][1]
+    last = {i: applied["tracker"].individuals[i].basic_stuff(
+        VI_TRAIN_FRAMES - 1).blob.blob_id for i in (0, 1)}
+    restored = all(last[i] == first[i][1] for i in (0, 1))
+    check(corr.reassigned > 0 and applied["runs"] == 2,
+          f"vi_train: the swapped run's apply reassigned {corr.reassigned}"
+          f" tracklets and tracked {applied['runs']} times")
+    check(restored, f"vi_train: after the re-track identities 0 and 1 hold "
+          f"blobs {last} at the last frame, the first track {first}")
+    # the re-tracked outputs load again
+    npz = sorted((root / "apply" / "data").glob("*.npz"))
+    for path in npz:
+        with np.load(path) as z:
+            for k in z.files:
+                z[k]
+    s = registry(dict(values, track_engine="object"))
+    again = pipeline.TrackingState(s, root / "v.pv", device=dev)
+    load_results(again.tracker, applied["results"])
+    again.pv.close()
+    check(len(npz) > 0 and len(again.tracker.individuals) > 0,
+          f"vi_train: the re-tracked run wrote {len(npz)} npz files, its "
+          f".results {len(again.tracker.individuals)} individuals")
+
+    steps = [dict(range=list(st.range), status=st.status.value,
+                  reason=st.reason.value, uniqueness=st.uniqueness)
+             for st in res.steps]
+    train_calls = [dict(epochs=c["result"].epochs, steps=c["steps"],
+                        images=c["images"], s=c["s"],
+                        stopped_early=c["result"].stopped_early,
+                        first_loss=c["result"].history[0]["loss"],
+                        last_loss=c["result"].history[-1]["loss"])
+                   for c in calls]
+    train_s = sum(c["s"] for c in calls)
+    n_steps = sum(c["steps"] for c in calls)
+    runs = spy.seconds
+    r = dict(fish=n_fish, frames=VI_TRAIN_FRAMES, size=VI_TRAIN_SIZE,
+             individuals=n, convert_s=convert_s, cli_s=run["wall_s"],
+             track_s=run["track_s"], accumulation_s=kept["start_s"],
+             discrimination_s=kept["disc_s"], train_s=train_s,
+             train_steps=n_steps, train_calls=train_calls,
+             ms_per_step_in_run=1e3 * train_s / max(1, n_steps),
+             step_ms=step_ms,
+             images_per_s=VI_TRAIN_BATCH / (step_ms / 1e3),
+             accumulation_steps=steps, success=res.success,
+             untrained_uniqueness=kept["untrained"],
+             final_uniqueness=res.final_uniqueness,
+             save_s=runs["save_weights"],
+             apply_s=runs["check_tracklets_identities"],
+             export_s=run["export_s"], results_s=run["results_s"],
+             training_images=len(saved_images),
+             progress_images=len(pngs), max_row_err=row_err,
+             cpu_rows_s=cpu_rows_s, loss_departure=loss_d,
+             grad_departure=grad_d, grad_l2=grad_l2,
+             grad_f64_card=grad_f64[0],
+             grad_f64_cpu=grad_f64[1], stat_departure=max(stat_d),
+             peak_mem_gb=peak / 1e9, kernel_launches=launches,
+             npz_files=len(npz), first_reassigned=first_reassigned,
+             swap_reassigned=corr.reassigned, swap_restored=restored,
+             swap_cli_s=applied["wall_s"], swap_track_s=applied["track_s"],
+             s=time.perf_counter() - t_phase)
+    report["vi_train"] = r
+    st_line = "; ".join(
+        f"{st['range'][0]}-{st['range'][1]} {st['status']} "
+        f"({st['reason']}, {st['uniqueness']:.3f})" for st in steps)
+    call_line = ", ".join(f"{c['epochs']} epochs / {c['steps']} steps"
+                          for c in train_calls)
+    print(f"phase 13 ok: VI training, v118_3 at 80x80 with {n} classes "
+          f"on {n_fish} fish, {VI_TRAIN_SIZE}^2, {VI_TRAIN_FRAMES} frames "
+          f"(convert {convert_s:.2f} s): a {VI_TRAIN_BATCH}-batch step "
+          f"{step_ms:.3f} ms on the card ({r['images_per_s']:.0f} "
+          f"images/s; {r['ms_per_step_in_run']:.3f} ms a step in the run "
+          f"with validation); accumulation {kept['start_s']:.2f} s "
+          f"(discrimination set {kept['disc_s']:.2f} s), train calls "
+          f"{call_line}; steps {st_line}; uniqueness untrained "
+          f"{kept['untrained']:.3f}, final {res.final_uniqueness:.3f}, "
+          f"success {res.success}; save {r['save_s']:.3f} s, apply "
+          f"{r['apply_s']:.2f} s, tracking and re-track {run['track_s']:.2f}"
+          f" s, CLI {run['wall_s']:.2f} s; {len(saved_images)} training "
+          f"images = the trained ranges' crops, {len(pngs)} progress "
+          f"images; saved weights on the CPU within {row_err:.3g} of the "
+          f"card's rows; one step card vs CPU: loss {loss_d:.3g}, "
+          f"gradients {grad_l2:.3g} in relative L2 norm, {grad_d:.3g} of "
+          f"the largest (float64: card "
+          f"{grad_f64[0]:.3g}, CPU {grad_f64[1]:.3g}), statistics "
+          f"{max(stat_d):.3g}; {first_reassigned} identities reassigned; "
+          f"the run with identities 0 and 1 swapped at frame {f}: "
+          f"{corr.reassigned} reassigned, re-tracked, the first track's "
+          f"blobs back (CLI {applied['wall_s']:.2f} s, tracking and "
+          f"re-track {applied['track_s']:.2f} s); peak device memory "
+          f"{r['peak_mem_gb']:.2f} GB; phase {r['s']:.1f} s", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the report as JSON here")
@@ -2654,6 +3032,7 @@ def main():
     phase_product(dev, report)
     phase_object(dev, report)
     phase_vi(dev, report)
+    phase_vi_train(dev, report)
     report["total_s"] = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2670,8 +3049,8 @@ def main():
             json.dump(report, f, indent=1)
     print(json.dumps({k: report[k] for k in (
         "detect", "label", "track", "device_tracker", "auto_split",
-        "posture", "decay", "archive", "product", "object", "vi", "build_s",
-        "total_s")}))
+        "posture", "decay", "archive", "product", "object", "vi",
+        "vi_train", "build_s", "total_s")}))
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@ only), and `pvinfo` prints the JAX inspector's lines. Also: argument
 parsing, task inference, the rst task, the options that raise naming
 their ROADMAP.md item, and -auto_apply and the VI exports without a
 network, as the JAX CLI runs them (tests/test_torch_vi_apply.py runs
-them with one)."""
+them with one). -auto_train runs the accumulation as the JAX CLI does,
+with its saved training images, progress and debug images, and its
+auto_train_on_startup failure."""
 import shutil
 import struct
 from pathlib import Path
@@ -33,6 +35,16 @@ from trex_tpu_torch.config import reset_global_settings
 from trex_tpu_torch.track.engine import EngineUnsupported
 
 N = 4
+
+# accumulation settings that keep the training runs short on the CPU: 16^2
+# crops, two epochs, two ranges
+TRAIN = ["-individual_image_size", "[16,16]", "-gpu_max_epochs", "2",
+         "-gpu_min_iterations", "1", "-accumulation_max_tracklets", "2"]
+# the printed uniqueness and the uniqueness of each step: both packages
+# train in bfloat16 from the same weights with dropout off, and their
+# networks' rows part by the bfloat16 policy's row tolerance
+# (tests/test_torch_vi_network.py ROW_TOL) after every step
+UNIQUENESS_TOL = 0.02
 
 
 @pytest.fixture(scope="module")
@@ -151,14 +163,19 @@ def test_rst_task_equals_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flags,exc,item,jax", [
-    (["-auto_train"], NotImplementedError, "A item 3b", False),
+    # ported: `auto` tracks with the object Tracker, trains the network
+    # and, with auto_train_dont_apply, writes the tracking's files
+    (["-auto_train", "-auto_train_dont_apply", "true", *TRAIN], None,
+     "vid_id0.npz", True),
     # ported: `auto` tracks with the object Tracker, and without a
     # weights file auto_apply prints the JAX CLI's note and goes on
     (["-auto_apply"], None, "[auto_apply] no weights at", True),
     # the fast engines refuse auto_apply, as the JAX FastTracker does
     (["-track_engine", "fast", "-auto_apply"], EngineUnsupported,
      "auto_apply", True),
-    (["-auto_categorize", "true"], NotImplementedError, "A item 3b", False),
+    # ported: without categories_ordered both CLIs print the same note
+    (["-auto_categorize", "true"], None,
+     "[auto_categorize] categories_ordered is empty", True),
     (["-auto_tags", "true"], NotImplementedError, "A item 3d", False),
     (["-tags_path", "tags"], NotImplementedError, "A item 3d", False),
     (["-output_visual_fields", "true"], NotImplementedError, "A item 3c",
@@ -176,18 +193,23 @@ def test_unported_options_raise_naming_their_item(video, capfd, flags, exc,
                                                   item, jax):
     """The options the port does not have yet raise before any frame,
     naming their ROADMAP.md item; the ones the port has since the VI
-    apply slice behave as the JAX CLI does: -auto_apply without weights
+    slices behave as the JAX CLI does: -auto_apply without weights
     prints its note (`item`) and writes the same files, the fast engine
-    refuses it with the same message, and the two exports write the JAX
-    CLI's files (`item` names one of them)."""
+    refuses it with the same message, -auto_train (short, not applied)
+    and the two exports write the JAX CLI's files (`item` names one of
+    them), and -auto_categorize without categories prints the JAX CLI's
+    note."""
     root, src = video
     out = root / "port_fast"
     if not (out / "vid.pv").exists():
         assert _run(port_cli, reset_global_settings,
                     _convert_args(src, out, "fast"), device="cpu") == 0
     tag = "_".join(f.strip("-") for f in flags)
-    argv = _track_args(out, "fast")[:-4] + ["-d", str(root / "refused")] \
-        + flags
+    # each case its own copy of the .pv: -auto_train saves its weights
+    # beside it, where -auto_apply would find them
+    pv = _copy_pv(out / "vid.pv", root / f"pv_{tag}")
+    argv = _track_args(pv.parent, "fast")[:-4] \
+        + ["-d", str(root / "refused")] + flags
     if exc is None:
         dirs = {k: root / f"{tag}_{k}" for k in ("j", "p")}
         for k, cli, reset, kw in (("j", jax_cli, jax_reset, {}),
@@ -371,3 +393,159 @@ def test_pvinfo_fix_merge_and_module_entry(video, capfd):
                         str(pv), "-quiet"], capture_output=True, text=True,
                        timeout=120, cwd=Path(__file__).resolve().parents[1])
     assert r.returncode == 0 and r.stdout.strip() == "20", r.stderr
+
+
+
+
+@pytest.fixture
+def same_start(monkeypatch):
+    """Dropout off in both packages (flax's built with rate 0, the
+    port's modules set to rate 0), and every port VITrainer starts from
+    the weights the JAX VITrainer of the same network draws; the
+    accumulation results of both CLIs are kept."""
+    import flax.linen
+
+    from test_torch_vi_network import _flat
+    from trex_tpu.ml import accumulation as jax_acc
+    from trex_tpu.models.training import VITrainer as JaxTrainer
+    from trex_tpu.models.vi_network import build as jax_build
+    from trex_tpu_torch.ml import accumulation
+    from trex_tpu_torch.models import layers, training, vi_params
+
+    orig = flax.linen.Dropout
+    monkeypatch.setattr(flax.linen, "Dropout",
+                        lambda rate, *a, **k: orig(0.0, *a, **k))
+    init = training.VITrainer.__init__
+
+    def from_jax(self, model, num_classes, image_shape, *a, **kw):
+        init(self, model, num_classes, image_shape, *a, **kw)
+        jt = JaxTrainer(jax_build("v118_3", num_classes), num_classes,
+                        image_shape)
+        vi_params.from_flax_arrays(self.model, _flat(
+            {"params": jt.state.params,
+             "batch_stats": jt.state.batch_stats}))
+        for m in self.model.modules():
+            if isinstance(m, layers.Dropout):
+                m.rate = 0.0
+    monkeypatch.setattr(training.VITrainer, "__init__", from_jax)
+    results = {}
+    for k, mod in (("j", jax_acc), ("p", accumulation)):
+        start = mod.Accumulation.start
+
+        def kept(self, *a, _start=start, _k=k, **kw):
+            results[_k] = _start(self, *a, **kw)
+            return results[_k]
+        monkeypatch.setattr(mod.Accumulation, "start", kept)
+    return results
+
+
+def _train_task(pv, *flags):
+    return ["-i", str(pv), "-d", str(pv.parent / "t"), "-task", "track",
+            "-nowindow", "-auto_quit", "-auto_train", *TRAIN, *flags]
+
+
+def test_auto_train_writes_the_jax_cli_outputs(video, capfd, same_start):
+    """`-task track -auto_train -auto_train_dont_apply true` with the
+    saved training images, the progress images and the debug image of
+    the normalizations, on the JAX CLI and the port's from the same
+    starting weights: the same accumulation steps (ranges, statuses,
+    reasons; uniqueness within UNIQUENESS_TOL) and printed lines, the
+    training images' npz byte-equal, the PNG files decoding to the same
+    pixels where their uniqueness curves are the same (and always to the
+    curve cv2.line draws from the port's own values; the PNG bytes are
+    not compared, OpenCV's zlib settings and row filters are its own),
+    the weights saved and the track task's output files byte-equal."""
+    root, src = video
+    out = root / "port_fast"
+    if not (out / "vid.pv").exists():
+        assert _run(port_cli, reset_global_settings,
+                    _convert_args(src, out, "fast"), device="cpu") == 0
+    flags = ["-auto_train_dont_apply", "true",
+             "-visual_identification_save_images", "true",
+             "-recognition_save_progress_images", "true",
+             "-debug_recognition_output_all_methods", "true"]
+    printed, pvs = {}, {}
+    for k, cli, reset, kw in (("j", jax_cli, jax_reset, {}),
+                              ("p", port_cli, reset_global_settings,
+                               {"device": "cpu"})):
+        pvs[k] = _copy_pv(out / "vid.pv", root / f"train_{k}")
+        capfd.readouterr()
+        assert _run(cli, reset, _train_task(pvs[k], *flags), **kw) == 0
+        printed[k] = [ln for ln in capfd.readouterr().out.splitlines()
+                      if ln.startswith("[auto_train]")]
+    want, got = same_start["j"], same_start["p"]
+    assert len(got.steps) == len(want.steps) >= 2
+    for a, b in zip(want.steps, got.steps):
+        assert (b.range, b.status.value, b.reason.value) \
+            == (a.range, a.status.value, a.reason.value)
+        assert abs(b.uniqueness - a.uniqueness) <= UNIQUENESS_TOL
+    assert got.trained_ranges == want.trained_ranges
+    assert got.success == want.success
+
+    def masked(lines):
+        return [ln.split("uniqueness=")[0] + ln.split(" steps=")[-1]
+                if "uniqueness=" in ln else ln.replace(str(root), "")
+                .replace("train_j", "train_").replace("train_p", "train_")
+                for ln in lines]
+    assert masked(printed["p"]) == masked(printed["j"])
+    assert len(printed["p"]) == 6
+    assert abs(float(printed["p"][2].split("uniqueness=")[1].split()[0])
+               - float(printed["j"][2].split("uniqueness=")[1].split()[0])) \
+        <= UNIQUENESS_TOL
+
+    # the files beside the .pv
+    d = {k: pv.parent for k, pv in pvs.items()}
+    names = sorted(p.name for p in d["j"].iterdir() if p.is_file())
+    assert names == sorted(p.name for p in d["p"].iterdir() if p.is_file())
+    assert (d["p"] / "vid_weights_training_images.npz").read_bytes() \
+        == (d["j"] / "vid_weights_training_images.npz").read_bytes()
+    with np.load(d["p"] / "vid_weights_training_images.npz") as z:
+        assert z["images"].shape[1:] == (16, 16, 1) and len(z["labels"])
+    dbg = "vid_normalization_methods.png"
+    np.testing.assert_array_equal(
+        cv2.imread(str(d["p"] / dbg), cv2.IMREAD_UNCHANGED),
+        cv2.imread(str(d["j"] / dbg), cv2.IMREAD_UNCHANGED))
+    steps = [n for n in names if "_uniqueness_step" in n]
+    assert len(steps) == len(got.progress_maps) == len(want.progress_maps)
+    for n, (_, _, per), (_, _, jper) in zip(steps, got.progress_maps,
+                                             want.progress_maps):
+        img = cv2.imread(str(d["p"] / n), cv2.IMREAD_UNCHANGED)
+        ref = np.full((128, 512), 255, np.uint8)
+        fs = sorted(per)
+        xs = np.linspace(0, 511, len(fs)).astype(int)
+        ys = 127 - (np.array([per[f] for f in fs]) * 127).astype(int)
+        for i in range(1, len(fs)):
+            cv2.line(ref, (xs[i - 1], ys[i - 1]), (xs[i], ys[i]), 0, 1)
+        np.testing.assert_array_equal(img, ref)
+        jys = 127 - (np.array([jper[f] for f in sorted(jper)])
+                     * 127).astype(int)
+        if np.array_equal(ys, jys):
+            np.testing.assert_array_equal(
+                img, cv2.imread(str(d["j"] / n), cv2.IMREAD_UNCHANGED))
+    with np.load(d["p"] / "vid_weights.npz") as z:
+        assert "params/Dense_1/kernel" in z.files
+    _assert_trees_equal(d["j"] / "t", d["p"] / "t")
+
+
+def test_auto_train_on_startup_failure_exits_as_jax(video, same_start):
+    """With auto_train_on_startup an accumulation that does not reach the
+    sufficient uniqueness (here 1.01, out of reach) ends the run with
+    the JAX CLI's SystemExit, before any weights are saved."""
+    root, src = video
+    out = root / "port_fast"
+    if not (out / "vid.pv").exists():
+        assert _run(port_cli, reset_global_settings,
+                    _convert_args(src, out, "fast"), device="cpu") == 0
+    flags = ["-auto_train_on_startup", "true",
+             "-accumulation_sufficient_uniqueness", "1.01"]
+    msgs = []
+    for k, cli, reset, kw in (("j", jax_cli, jax_reset, {}),
+                              ("p", port_cli, reset_global_settings,
+                               {"device": "cpu"})):
+        pv = _copy_pv(out / "vid.pv", root / f"startup_{k}")
+        with pytest.raises(SystemExit) as e:
+            _run(cli, reset, _train_task(pv, *flags), **kw)
+        msgs.append(str(e.value))
+        assert not (pv.parent / "vid_weights.npz").exists()
+        assert not same_start[k].success
+    assert msgs[1] == msgs[0] and "auto_train_on_startup" in msgs[0]

@@ -232,8 +232,7 @@ def test_auto_apply_writes_the_jax_cli_files(scene, capfd):
 def test_auto_apply_with_a_model_path_and_the_facade(scene, capfd):
     """visual_identification_model_path names the weights; a missing file
     prints the JAX CLI's note and the task goes on; the VINetwork facade
-    loads the weights and refuses the training modes, naming their
-    item."""
+    loads the weights, and its training modes train."""
     root, src, preds, _ = scene
     d = root / "model_path"
     d.mkdir()
@@ -261,10 +260,16 @@ def test_auto_apply_with_a_model_path_and_the_facade(scene, capfd):
     net.train(None, None, n, TrainingMode.LoadWeights,
               weights_file=src / "vid.pv")
     assert net.train(None, None, n, TrainingMode.Apply) is None
-    for mode in (TrainingMode.Restart, TrainingMode.Continue,
-                 TrainingMode.Accumulate):
-        with pytest.raises(NotImplementedError, match="A item 3b"):
-            net.train(None, None, n, mode)
+    images = np.random.default_rng(0).integers(
+        0, 256, (2 * n, 32, 32, 1)).astype(np.uint8)
+    labels = np.arange(2 * n) % n
+    # Continue and Accumulate train the loaded network on (one step a
+    # call), Restart a fresh one
+    for mode, steps in ((TrainingMode.Continue, 1),
+                        (TrainingMode.Accumulate, 2),
+                        (TrainingMode.Restart, 1)):
+        res = net.train(images, labels, n, mode, max_epochs=1)
+        assert res.epochs == 1 and net.trainer.steps == steps
     rows = net.probabilities(np.zeros((3, 32, 32, 1), np.uint8))
     assert rows.shape == (3, n)
     np.testing.assert_allclose(rows.sum(1), 1.0, atol=1e-5)

@@ -15,7 +15,10 @@ matcher and the history split on the card; the product engine over the
 chunk's first 32 frames, as ``chip_smoke.py`` phase 6 runs it), and
 with posture (``chip_smoke.posture_settings``: ``fused_scan_packed``
 with the posture pass over the 64 frames in both configurations, the
-product engine over the first 32 frames in the base one).
+product engine over the first 32 frames in the base one), and ten
+steps of the VI network's training (``vi_train_step_128``:
+``VITrainer``'s train step, v118_3 at 80x80 with 15 classes in
+bfloat16 on 128-batches, as ``chip_smoke.py`` phase 13 trains it).
 ``--only`` profiles the named targets alone. For each it
 prints the host wall time, the summed device time of the kernels and the
 device's idle share over the call, the kernels with the most device time,
@@ -140,6 +143,21 @@ def main():
             posture_spec=posture_spec(s, crop_h=96, crop_w=96), device=dev,
             **_detect_kwargs(s, smoke.TRACK_CAPS))
 
+    def vi_train_steps(n=10, classes=15):
+        from trex_tpu_torch.models import VITrainer, build
+
+        t = VITrainer(build("v118_3", classes), classes, (80, 80, 1),
+                      device=dev)
+        x = torch.randint(0, 256, (128, 1, 80, 80), device=dev,
+                          generator=torch.Generator(dev).manual_seed(0)) \
+            .float()
+        y = torch.arange(128, device=dev) % classes
+
+        def run():
+            for _ in range(n):
+                t._train_step(t.opt, x, y, t._dropout_rng)
+        return run
+
     targets = {
         "detect_batch_pallas_32": lambda: detect_batch(
             fr[:32], bgt, use_pallas=True, device=dev, **kw),
@@ -163,6 +181,7 @@ def main():
         "device_tracker_posture_32": lambda: DeviceTracker(
             smoke.posture_settings(settings), bg, chunk=32,
             caps=smoke.TRACK_CAPS, device=dev).track_frames(frames[:32]),
+        "vi_train_step_128": vi_train_steps(),
     }
     report = {name: profile_call(fn) for name, fn in targets.items()
               if not args.only or name in args.only}

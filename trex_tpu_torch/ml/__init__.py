@@ -1,8 +1,13 @@
 """Machine-learning side of the port (counterpart of ``trex_tpu/ml``):
-the apply half of the visual identification (``VINetwork``, uniqueness,
-auto-correction) and the category label store that ``.results`` files
-carry (``categorize.py``). Training (``Accumulation``, ``Categorizer``)
-is the training slice's (ROADMAP.md A item 3b)."""
+the visual identification (``VINetwork``, the accumulation curriculum,
+uniqueness, auto-correction) and categorization (``Categorizer`` and
+the label store that ``.results`` files carry)."""
+from .accumulation import (
+    Accumulation,
+    AccumulationReason,
+    AccumulationResult,
+    AccumulationStatus,
+)
 from .auto_correct import (
     Corrections,
     TrackletPrediction,
@@ -10,13 +15,14 @@ from .auto_correct import (
     check_tracklets_identities,
     predict_tracklets,
 )
-from .categorize import DataStore, RangedLabel
+from .categorize import Categorizer, DataStore, RangedLabel
 from .uniqueness import calculate_uniqueness, good_uniqueness
 from .vi_facade import TrainingMode, VINetwork
 
 __all__ = [
-    "Corrections", "TrackletPrediction", "assign_identities",
-    "check_tracklets_identities", "predict_tracklets", "DataStore",
-    "RangedLabel", "calculate_uniqueness", "good_uniqueness",
-    "TrainingMode", "VINetwork",
+    "Accumulation", "AccumulationReason", "AccumulationResult",
+    "AccumulationStatus", "Corrections", "TrackletPrediction",
+    "assign_identities", "check_tracklets_identities", "predict_tracklets",
+    "Categorizer", "DataStore", "RangedLabel", "calculate_uniqueness",
+    "good_uniqueness", "TrainingMode", "VINetwork",
 ]

@@ -9,7 +9,9 @@ xception). These are the JAX package's flax re-implementations of the
 same architectures, as torch modules over NCHW tensors that compute
 what the flax modules compute (``layers.py``): bfloat16 convolution and
 dense compute with float32 normalization, the zoo's x/127.5-1 input
-Lambda, and a GAP + Dense(num_classes) head.
+Lambda, and a GAP + Dense(num_classes) head. Train mode (``train=True``)
+uses the batch statistics with flax's default momentum 0.99 and the
+head dropouts of the flax modules.
 """
 from __future__ import annotations
 
@@ -154,7 +156,7 @@ class EfficientNetB0(_Net):
                 x = self.child(_MBConv, expand, out, k, s if i == 0 else 1,
                                d)(x)
         x = self.child(ConvBN, 1280, 1, act=silu, dtype=d)(x)
-        return self.head(x.mean(dim=(2, 3)))
+        return self.head(self.dropout(x.mean(dim=(2, 3)), 0.2))
 
 
 # ------------------------------------------------------------- MobileNetV3
@@ -221,7 +223,7 @@ class MobileNetV3(_Net):
         head = 1024 if self.small else 1280
         x = self.child(ConvBN, last, 1, act=hard_swish, dtype=d)(x)
         x = hard_swish(self.dense(x.mean(dim=(2, 3)), head))
-        return self.head(x)
+        return self.head(self.dropout(x, 0.2))
 
 
 # ------------------------------------------------------------ ConvNeXtBase
@@ -415,7 +417,7 @@ class InceptionV3(_Net):
         x = self.child(_InceptionD, d)(x)
         x = self.child(_InceptionE, d)(x)
         x = self.child(_InceptionE, d)(x)
-        return self.head(x.mean(dim=(2, 3)))
+        return self.head(self.dropout(x.mean(dim=(2, 3)), 0.5))
 
 
 # ---------------------------------------------------------------- Xception

@@ -12,12 +12,19 @@ Tensors are NCHW; flax's are NHWC. The dtype policy is flax's: a layer
 with ``dtype`` bfloat16 casts its input and its float32 parameters to
 bfloat16 and computes there, and adds its bias after the product's
 rounding (flax's ``y += bias`` in the compute type). ``BatchNorm`` and
-``LayerNorm`` compute in float32 with flax's formulas; LayerNorm's
+``LayerNorm`` compute in (at least) float32 with flax's formulas; LayerNorm's
 epsilon is flax's 1e-6. ``SAME`` padding is XLA's, asymmetric where the
-total is odd (stride 2). Dropout is off: these layers serve inference.
+total is odd (stride 2).
+
+A network runs in train mode when it is called with ``train=True``
+(flax's ``train`` argument): :class:`Compact` hands the flag to every
+child it makes, ``BatchNorm`` then normalizes with the batch's
+statistics and updates its running ones, and ``Dropout`` drops with the
+generator passed as ``rng`` (flax's ``rngs={"dropout": ...}``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Union
 
@@ -57,18 +64,26 @@ def _pad_hw(x, padding, k, s):
 class Compact(nn.Module):
     """A module whose children are made at its first call and named as
     flax names them: class name and the count of that class's children
-    made before it in the same call."""
+    made before it in the same call. ``train`` and ``rng`` of the call
+    reach every child that takes them (``Compact``, ``BatchNorm``,
+    ``Dropout``)."""
 
     def __init__(self):
         super().__init__()
         self._seen: dict = {}
         self._inits: dict = {}  # raw parameter -> initializer tag
+        self._train = False
+        self._rng: Optional[torch.Generator] = None
 
-    def __call__(self, *args, **kwargs):
+    def __call__(self, *args, train: bool = False,
+                 rng: Optional[torch.Generator] = None, **kwargs):
         self._seen = {}
+        self._train, self._rng = bool(train), rng
         return super().__call__(*args, **kwargs)
 
-    def child(self, cls, *args, **kwargs) -> nn.Module:
+    def child(self, cls, *args, **kwargs):
+        """The child of `cls` made at this position (made now, from the
+        arguments, at the first call), called with this call's mode."""
         name = cls.__name__
         i = self._seen.get(name, 0)
         self._seen[name] = i + 1
@@ -77,6 +92,10 @@ class Compact(nn.Module):
         if mod is None:
             mod = cls(*args, **kwargs)
             self.add_module(key, mod)
+        if isinstance(mod, (Compact, Dropout)):
+            return functools.partial(mod, train=self._train, rng=self._rng)
+        if isinstance(mod, BatchNorm):
+            return functools.partial(mod, train=self._train)
         return mod
 
     def param(self, name: str, shape, init: str) -> torch.Tensor:
@@ -137,22 +156,68 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(use_running_average=True)`` over axis 1, in
-    float32: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    """flax ``nn.BatchNorm`` over axis 1, in float32: ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias``. With ``train`` False the
+    running statistics are read (``use_running_average=True``); with
+    ``train`` True the batch's mean and biased variance ``max(0, E[x^2]
+    - E[x]^2)`` (flax's fast variance) are used, gradients flow through
+    them, and the running statistics become ``momentum * running + (1 -
+    momentum) * batch`` with that same biased variance. flax's momentum
+    weighs the old value (its default 0.99); ``torch.nn.BatchNorm2d``'s
+    weighs the new one and updates with the unbiased variance, so it
+    does not serve."""
 
-    def __init__(self, features: int, epsilon: float = 1e-5):
+    def __init__(self, features: int, epsilon: float = 1e-5,
+                 momentum: float = 0.99):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.empty(features))
         self.bias = nn.Parameter(torch.empty(features))
         self.register_buffer("mean", torch.empty(features))
         self.register_buffer("var", torch.empty(features))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(self.var + self.epsilon) * self.scale
-        y = (x.float() - self.mean.reshape(shape)) * mul.reshape(shape)
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        if train:
+            axes = [0] + list(range(2, x.dim()))
+            mean = x.mean(axes)
+            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        y = (x - mean.reshape(shape)) * mul.reshape(shape)
         return y + self.bias.reshape(shape)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)``: in train mode each value is kept with
+    probability ``1 - rate`` and divided by ``1 - rate`` (in its own
+    type), else zeroed; the mask is ``torch.rand(..., generator=rng) <
+    1 - rate``, drawn from the generator the caller passes (flax's
+    ``dropout`` stream; ``F.dropout`` takes none). Identity outside
+    train mode and at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, train: bool = False,
+                rng: Optional[torch.Generator] = None):
+        if not train or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        if rng is None:
+            raise ValueError("train-mode dropout needs a generator (rng)")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class LayerNorm(nn.Module):
@@ -166,7 +231,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(features))
 
     def forward(self, x):
-        x = x.float()
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         mu = x.mean(-1, keepdim=True)
         var = torch.clamp((x * x).mean(-1, keepdim=True) - mu * mu, min=0)
         mul = torch.rsqrt(var + self.epsilon) * self.scale

@@ -1,43 +1,185 @@
-"""The identity network's trainer object (counterpart of the inference
-half of ``trex_tpu/models/training.py``'s ``VITrainer``).
+"""Identity-CNN training loop (counterpart of
+``trex_tpu/models/training.py``, replacing the embedded torch path of the
+reference: python/visual_recognition_torch.py).
 
-Semantics mirrored from the reference:
-- predict(): batched softmax probabilities (visual_recognition_torch.py
-  :984), in batches of 512 with the tail batch padded, as the JAX
-  package pads it to keep one compiled program;
-- per-class accuracy;
+Semantics mirrored from the reference, through the JAX package:
+- Adam with lr = gpu_learning_rate (1e-4), epochs <= gpu_max_epochs (150)
+  (visual_recognition_torch.py train() :1036), computed as
+  ``optax.adam(lr)`` computes it (:func:`adam`);
+- ValidationCallback early stop: per-class validation accuracy computed
+  each epoch; training stops once the worst class stayed above 0.97 for
+  5 epochs or reaches 0.99 (visual_recognition_torch.py:355-689, :607);
+- predict(): batched softmax probabilities (:984), in batches of 512
+  with the tail batch padded, as the JAX package pads it;
 - checkpoints saved as <filename>_weights.npz in the JAX package's flat
   layout (``vi_params.py``), so either package loads the other's files.
 
-The network runs on the card unless the caller names the CPU
-(``device.py``). Training (``train``: the backward pass, augmentation
-and the accumulation curriculum) is the training slice's.
+The network, its forward and backward passes, the optimizer and the
+augmentation run on the card unless the caller names the CPU
+(``device.py``). The batch order and the validation split are drawn in
+numpy exactly as the JAX package draws them; dropout and augmentation
+draw from ``torch.Generator``s of the trainer on its device.
 """
 from __future__ import annotations
 
+import copy
 import json
-from typing import Optional
+import math
+import warnings
+from dataclasses import dataclass, field
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
 from .layers import materialize
 from .vi_params import from_flax_arrays, to_flax_arrays
 
-TRAINING_SLICE = ("VITrainer.train comes with the visual-identification "
-                  "training slice (ROADMAP.md A item 3b)")
+MULTI_GPU = ("VITrainer(mesh=...): data-parallel training over several "
+             "cards comes with the multi-GPU slice (ROADMAP.md A item 4)")
+
+
+def softmax_cross_entropy(logits, labels, num_classes):
+    """optax.softmax_cross_entropy against one-hot labels, batch mean."""
+    onehot = F.one_hot(labels.long(), num_classes).to(logits.dtype)
+    return -(onehot * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
+
+
+def focal_loss(logits, labels, num_classes, gamma: float = 2.0):
+    """Focal loss option (visual_identification_network.py:15-110)."""
+    onehot = F.one_hot(labels.long(), num_classes).to(logits.dtype)
+    logp = torch.log_softmax(logits, dim=-1)
+    w = (1 - torch.exp(logp)) ** gamma
+    return -(onehot * w * logp).sum(-1).mean()
+
+
+def adam(params, lr: float = 1e-4) -> torch.optim.Adam:
+    """``optax.adam(lr)``: b1 0.9, b2 0.999, eps 1e-8 added after the
+    square root of the bias-corrected second moment, no weight decay.
+    ``torch.optim.Adam`` computes that function (``p -= lr / bc1 * mu /
+    (sqrt(nu) / sqrt(bc2) + eps)``); its fused kernel orders the
+    operations otherwise, within float32 rounding of optax
+    (tests/test_torch_vi_train.py::test_adam_equals_optax)."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            fused=True)
+
+
+def adam_steps(opt: torch.optim.Adam) -> int:
+    """The count of steps `opt` has taken (optax's ``count``)."""
+    for st in opt.state.values():
+        return int(st["step"])
+    return 0
+
+
+def make_train_step(model, num_classes: int, loss: str = "ce"):
+    """One training step: the loss of a train-mode forward (batch
+    statistics, dropout from `rng`), its gradients, the Adam update and
+    the BatchNorm running statistics of the same forward. Returns the
+    loss and the batch accuracy as device scalars."""
+    loss_fn = focal_loss if loss == "focal" else softmax_cross_entropy
+
+    def train_step(opt: torch.optim.Adam, images, labels, rng):
+        opt.zero_grad(set_to_none=True)
+        logits = model(images, train=True, rng=rng)
+        loss_val = loss_fn(logits, labels, num_classes)
+        loss_val.backward()
+        opt.step()
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return loss_val.detach(), acc
+
+    return train_step
+
+
+def augment_draws(batch: int, height: int, width: int,
+                  generator: torch.Generator, device=None) -> dict:
+    """The augmentation's random draws for `batch` images
+    (visual_recognition_torch.py:1301-1337: RandomAffine(+-5 deg,
+    translate +-move_range) and brightness/contrast jitter 0.85-1.15):
+    angle in radians, shifts in pixels, brightness and contrast."""
+    move_range = min(0.05, 2 / min(width, height))
+    deg = 5.0
+    u = torch.rand((5, batch), generator=generator, device=device)
+
+    def uniform(k, lo, hi):
+        return u[k] * (hi - lo) + lo
+    return dict(ang=uniform(0, -deg, deg) * (math.pi / 180.0),
+                tx=uniform(1, -move_range, move_range) * width,
+                ty=uniform(2, -move_range, move_range) * height,
+                bright=uniform(3, 0.85, 1.15), contr=uniform(4, 0.85, 1.15))
+
+
+def augment_transform(images, ang, tx, ty, bright, contr):
+    """The augmentation applied to (B, C, H, W) float32 images with the
+    given draws: each output pixel samples the input at the inverse
+    rotation about the centre and shift, bilinearly as
+    ``jax.scipy.ndimage.map_coordinates(order=1, mode="constant",
+    cval=0)`` does (each of the four corners outside the image reads 0
+    on its own; scipy's instead zeroes the whole sample), then the
+    brightness factor, the contrast about each image's mean and the clip
+    to [0, 255]."""
+    b, c, h, w = images.shape
+    dev = images.device
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None] \
+        .expand(h, w) - cy
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :] \
+        .expand(h, w) - cx
+    ca = torch.cos(ang)[:, None, None]
+    sa = torch.sin(ang)[:, None, None]
+    # inverse transform: rotate by -ang, shift by -t
+    sx = ca * xx[None] + sa * yy[None] + cx - tx[:, None, None]
+    sy = -sa * xx[None] + ca * yy[None] + cy - ty[:, None, None]
+
+    def nodes(coord):
+        lower = torch.floor(coord)
+        upper_w = coord - lower
+        index = lower.to(torch.int64)
+        return ((index, 1 - upper_w), (index + 1, upper_w))
+
+    flat = images.reshape(b, c, h * w)
+    out = None
+    for iy, wy in nodes(sy):
+        for ix, wx in nodes(sx):
+            valid = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+            idx = (iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)) \
+                .reshape(b, 1, h * w).expand(b, c, h * w)
+            v = torch.gather(flat, 2, idx).reshape(b, c, h, w)
+            v = torch.where(valid[:, None], v, torch.zeros((), device=dev))
+            term = (wy * wx)[:, None] * v
+            out = term if out is None else out + term
+    out = out * bright[:, None, None, None]
+    mean = out.mean(dim=(1, 2, 3), keepdim=True)
+    out = (out - mean) * contr[:, None, None, None] + mean
+    return torch.clamp(out, 0.0, 255.0)
+
+
+@dataclass
+class TrainResult:
+    epochs: int = 0
+    history: list = field(default_factory=list)
+    per_class_accuracy: Optional[np.ndarray] = None
+    best_worst_accuracy: float = 0.0
+    stopped_early: bool = False
+    uniqueness_history: list = field(default_factory=list)
 
 
 class VITrainer:
-    """The identity network's predict side: `model` (from
+    """Trains the identity network and predicts with it: `model` (from
     ``vi_network.build``) is made for `image_shape` (H, W, C) with
     parameters drawn from `generator` (seeded with `seed` when None) and
-    placed on `device` (the card when None)."""
+    placed on `device` (the card when None). Dropout draws from a
+    generator on that device seeded with ``seed + 1``, the augmentation
+    from one seeded with ``seed + 7`` (the JAX package's augmentation
+    key)."""
 
     def __init__(self, model, num_classes: int, image_shape,
+                 learning_rate: float = 1e-4, loss: str = "ce",
                  seed: int = 0, generator: Optional[torch.Generator] = None,
-                 device=None):
+                 device=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(MULTI_GPU)
         self.device = resolve_device(device)
         self.num_classes = num_classes
         self.image_shape = tuple(int(v) for v in image_shape)
@@ -45,9 +187,153 @@ class VITrainer:
             generator = torch.Generator().manual_seed(seed)
         self.model = materialize(model, self.image_shape, generator,
                                  self.device)
+        self.opt = adam(self.model.parameters(), learning_rate)
+        self._train_step = make_train_step(self.model, num_classes, loss)
+        self._dropout_rng = torch.Generator(self.device).manual_seed(
+            seed + 1)
+        self._aug_rng = torch.Generator(self.device).manual_seed(seed + 7)
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(TRAINING_SLICE)
+    # ------------------------------------------------------------------
+    @property
+    def state(self) -> dict:
+        """A deep snapshot of everything a training step changes: the
+        parameters and BatchNorm statistics, Adam's moments and step,
+        and the dropout generator. Setting it copies a snapshot back (the
+        accumulation's rollback), so one snapshot may be restored more
+        than once."""
+        return copy.deepcopy(dict(
+            model=self.model.state_dict(), opt=self.opt.state_dict(),
+            dropout_rng=self._dropout_rng.get_state()))
+
+    @state.setter
+    def state(self, snap: dict):
+        self.model.load_state_dict(snap["model"])
+        # the optimizer keeps the tensors it is given: copy them, so that
+        # its steps leave the snapshot as it was
+        self.opt.load_state_dict(copy.deepcopy(snap["opt"]))
+        self._dropout_rng.set_state(snap["dropout_rng"])
+
+    @property
+    def steps(self) -> int:
+        """Training steps taken so far (Adam's count)."""
+        return adam_steps(self.opt)
+
+    # ------------------------------------------------------------------
+    def train(self, images: np.ndarray, labels: np.ndarray,
+              val_images: Optional[np.ndarray] = None,
+              val_labels: Optional[np.ndarray] = None,
+              max_epochs: int = 150, batch_size: int = 128,
+              min_iterations: int = 100,
+              accuracy_stop_all: float = 0.97,
+              accuracy_stop_worst: float = 0.99,
+              uniqueness_fn: Optional[Callable[[], float]] = None,
+              callbacks: Optional[Callable[[int, dict], None]] = None,
+              seed: int = 0, augment: bool = False) -> TrainResult:
+        images = np.asarray(images, np.float32)
+        labels = np.asarray(labels, np.int32)
+        if images.size and float(images.max()) <= 1.5:
+            warnings.warn(
+                "VI networks expect 0-255 gray inputs (the model "
+                "normalizes x/127.5-1); inputs look 0-1 scaled",
+                stacklevel=2)
+        n = len(images)
+        if val_images is None:
+            # stratified 25% split: every class keeps at least one
+            # validation sample (a plain permutation can drop a rare
+            # class from validation entirely, pinning its per-class
+            # accuracy at 0 and blocking early stopping forever)
+            rng = np.random.default_rng(seed)
+            val_idx = []
+            train_idx = []
+            for c in np.unique(labels):
+                rows = np.flatnonzero(labels == c)
+                rows = rows[rng.permutation(len(rows))]
+                k = max(1, len(rows) // 4) if len(rows) > 1 else 0
+                val_idx.extend(rows[:k])
+                train_idx.extend(rows[k:])
+            val_idx = np.asarray(val_idx, np.int64)
+            train_idx = np.asarray(train_idx, np.int64)
+            if not len(val_idx):  # single tiny class: fall back
+                cut = max(1, n // 4)
+                order = rng.permutation(n)
+                val_idx, train_idx = order[:cut], order[cut:]
+            val_images, val_labels = images[val_idx], labels[val_idx]
+            images, labels = images[train_idx], labels[train_idx]
+            n = len(images)
+        # the training set lives on the device for the whole call; every
+        # batch has the same shape (small sets are upsampled to a full
+        # batch), as the JAX package keeps it for one compiled step
+        dev_images = torch.from_numpy(images).to(self.device) \
+            .permute(0, 3, 1, 2).contiguous()
+        dev_labels = torch.from_numpy(labels.astype(np.int64)) \
+            .to(self.device)
+        h, w = self.image_shape[:2]
+        result = TrainResult()
+        rng = np.random.default_rng(seed + 1)
+        steps_done = 0
+        steps_per_epoch = max(1, n // batch_size)
+        worst_backlog: list = []
+        patience = 5  # reference backlog length
+
+        for epoch in range(max_epochs):
+            order = rng.permutation(n)
+            if n < batch_size:
+                order = np.concatenate(
+                    [order, rng.integers(0, n, batch_size - n)])
+            losses, accs = [], []
+            for step_i in range(steps_per_epoch):
+                sidx = (step_i * batch_size) % max(1, n)
+                idx = order[sidx : sidx + batch_size]
+                if len(idx) < batch_size:
+                    idx = np.concatenate(
+                        [idx, order[: batch_size - len(idx)]])
+                at = torch.from_numpy(idx).to(self.device)
+                bi, bl = dev_images[at], dev_labels[at]
+                if augment:
+                    bi = augment_transform(bi, **augment_draws(
+                        batch_size, h, w, self._aug_rng, self.device))
+                loss_v, acc = self._train_step(self.opt, bi, bl,
+                                               self._dropout_rng)
+                losses.append(loss_v)
+                accs.append(acc)
+                steps_done += 1
+            losses = torch.stack(losses).tolist()
+            accs = torch.stack(accs).tolist()
+            per_class = self.per_class_accuracy(val_images, val_labels,
+                                                batch_size)
+            worst = float(np.min(per_class)) if len(per_class) else 0.0
+            entry = {
+                "epoch": epoch,
+                "loss": float(np.mean(losses)) if losses else 0.0,
+                "acc": float(np.mean(accs)) if accs else 0.0,
+                "val_worst": worst,
+                "val_mean": float(np.mean(per_class)) if len(per_class) else 0.0,
+            }
+            if uniqueness_fn is not None:
+                u = uniqueness_fn()
+                entry["uniqueness"] = u
+                result.uniqueness_history.append(u)
+            result.history.append(entry)
+            result.per_class_accuracy = per_class
+            result.best_worst_accuracy = max(result.best_worst_accuracy,
+                                             worst)
+            result.epochs = epoch + 1
+            if callbacks:
+                callbacks(epoch, entry)
+            worst_backlog.append(worst)
+            # reference ValidationCallback (visual_recognition_torch.py
+            # :607): stop when the WORST class accuracy stayed above
+            # 0.97 for `patience` consecutive epochs, or instantly at
+            # worst >= 0.99 (an instantaneous all-classes check stops
+            # one lucky epoch too early)
+            backlog = worst_backlog[-patience:]
+            if steps_done >= min_iterations and (
+                    (len(backlog) >= patience
+                     and all(v > accuracy_stop_all for v in backlog))
+                    or worst >= accuracy_stop_worst):
+                result.stopped_early = True
+                break
+        return result
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -11,7 +11,10 @@ tensors that compute what the JAX package's flax modules compute
 Inputs are uint8-valued crops (individual_image_size, default 80x80, 1
 channel), cast to the compute type before ``x/127.5 - 1``; convolutions
 and hidden dense layers compute in bfloat16, normalization and the last
-dense layer in float32, parameters are float32.
+dense layer in float32, parameters are float32. Called with
+``train=True`` (and a dropout generator as ``rng``), a network applies
+the dropouts and batch statistics its flax module applies, in the same
+order (``layers.py``).
 
 :func:`build` returns the module unmade; ``layers.materialize`` makes
 its children for an image shape and initializes them.
@@ -22,7 +25,7 @@ from typing import Callable
 
 import torch
 
-from .layers import (BatchNorm, Compact, Conv, Dense, LayerNorm,
+from .layers import (BatchNorm, Compact, Conv, Dense, Dropout, LayerNorm,
                      MultiHeadDotProductAttention, flatten, gelu, max_pool)
 
 relu = torch.relu
@@ -34,21 +37,22 @@ def scale_input(x, dtype):
 
 
 class ConvBlock(Compact):
-    """conv -> BN -> relu -> max pool (the JAX block's dropout is off at
-    inference)."""
+    """conv -> BN -> relu -> max pool -> dropout."""
 
     def __init__(self, features: int, kernel: int, pool: int,
-                 dtype=torch.bfloat16):
+                 dropout: float, dtype=torch.bfloat16):
         super().__init__()
         self.features, self.kernel, self.pool = features, kernel, pool
-        self.dtype = dtype
+        self.dropout, self.dtype = dropout, dtype
 
     def forward(self, x):
         x = self.child(Conv, x.shape[1], self.features, self.kernel,
                        dtype=self.dtype)(x)
-        x = relu(self.child(BatchNorm, self.features)(x))
+        x = relu(self.child(BatchNorm, self.features, momentum=0.9)(x))
         if self.pool > 1:
             x = max_pool(x, self.pool, self.pool)
+        if self.dropout > 0:
+            x = self.child(Dropout, self.dropout)(x)
         return x
 
 
@@ -69,6 +73,13 @@ class _Net(Compact):
     def head(self, x):
         return self.dense(x, self.num_classes, torch.float32)
 
+    def bn(self, x):
+        """The networks' BatchNorm (flax momentum 0.9)."""
+        return self.child(BatchNorm, x.shape[1], momentum=0.9)(x)
+
+    def dropout(self, x, rate):
+        return self.child(Dropout, rate)(x)
+
 
 class V118_3(_Net):
     """Compact default VI network (visual_identification_version v118_3)."""
@@ -76,38 +87,41 @@ class V118_3(_Net):
     def forward(self, x):
         x = scale_input(x, self.dtype)
         for f in (16, 64, 128):
-            x = self.child(ConvBlock, f, 5, 2, self.dtype)(x)
+            x = self.child(ConvBlock, f, 5, 2, 0.05, self.dtype)(x)
         x, chw = flatten(x)
         x = self.dense(x, 100, chw=chw)
         x = relu(self.child(LayerNorm, 100)(x))
+        x = self.dropout(x, 0.05)
         return self.head(x)
 
 
 class V110(_Net):
-    """Shallow legacy CNN (v110): conv -> pool -> BN -> relu stages."""
+    """Shallow legacy CNN (v110): conv -> pool -> BN -> relu -> dropout
+    stages."""
 
     def forward(self, x):
         x = scale_input(x, self.dtype)
         for feat in (16, 64, 100):
             x = self.conv(x, feat, 5)
             x = max_pool(x, 2, 2)
-            x = relu(self.child(BatchNorm, feat)(x))
+            x = self.dropout(relu(self.bn(x)), 0.25)
         x, chw = flatten(x)
         x = self.dense(x, 100, chw=chw)
-        x = relu(self.child(BatchNorm, 100)(x))
+        x = self.dropout(relu(self.bn(x)), 0.25)
         return self.head(x)
 
 
 class V100(_Net):
-    """The original layout (v100): conv -> relu -> pool, no
+    """The original layout (v100): conv -> relu -> pool -> dropout, no
     normalization."""
 
     def forward(self, x):
         x = scale_input(x, self.dtype)
         for feat in (16, 64, 100):
             x = max_pool(relu(self.conv(x, feat, 5)), 2, 2)
+            x = self.dropout(x, 0.25)
         x, chw = flatten(x)
-        x = relu(self.dense(x, 100, chw=chw))
+        x = self.dropout(relu(self.dense(x, 100, chw=chw)), 0.5)
         return self.head(x)
 
 
@@ -115,21 +129,22 @@ class V119(_Net):
     def forward(self, x):
         x = scale_input(x, self.dtype)
         for feat in (256, 128, 32, 128):
-            x = self.child(ConvBlock, feat, 5, 2, self.dtype)(x)
+            x = self.child(ConvBlock, feat, 5, 2, 0.05, self.dtype)(x)
         x, chw = flatten(x)
         x = self.dense(x, 1024, chw=chw)
-        x = relu(self.child(BatchNorm, 1024)(x))
+        x = relu(self.bn(x))
         return self.head(x)
 
 
 class V200(_Net):
     def forward(self, x):
         x = scale_input(x, self.dtype)
-        for f, p in ((64, 1), (128, 3), (256, 1), (512, 3), (512, 3)):
-            x = self.child(ConvBlock, f, 3, p, self.dtype)(x)
+        for f, p, d in ((64, 1, 0.0), (128, 3, 0.05), (256, 1, 0.0),
+                        (512, 3, 0.25), (512, 3, 0.05)):
+            x = self.child(ConvBlock, f, 3, p, d, self.dtype)(x)
         x = x.mean(dim=(2, 3))  # global average pool
         x = self.dense(x, 1024)
-        x = relu(self.child(BatchNorm, 1024)(x))
+        x = self.dropout(relu(self.bn(x)), 0.05)
         return self.head(x)
 
 
@@ -158,7 +173,7 @@ class ViT(_Net):
             x = x + y
             y = self.child(LayerNorm, self.dim)(x)
             y = gelu(self.dense(y, self.dim * 4))
-            y = self.dense(y, self.dim)
+            y = self.dropout(self.dense(y, self.dim), 0.1)
             x = x + y
         x = self.child(LayerNorm, self.dim)(x)
         return self.head(x.mean(dim=1))
@@ -175,7 +190,7 @@ class SmallMLP(_Net):
     def forward(self, x):
         x = scale_input(x, self.dtype)
         x, chw = flatten(x)
-        x = relu(self.dense(x, self.hidden, chw=chw))
+        x = self.dropout(relu(self.dense(x, self.hidden, chw=chw)), 0.25)
         x = relu(self.dense(x, self.hidden))
         return self.head(x)
 
@@ -196,7 +211,7 @@ class VGG(_Net):
                 x = relu(self.conv(x, f, 3))
             x = max_pool(x, 2, 2)
         x = x.mean(dim=(2, 3))  # GAP head
-        x = relu(self.dense(x, 1024))
+        x = self.dropout(relu(self.dense(x, 1024)), 0.05)
         return self.head(x)
 
 
@@ -210,7 +225,7 @@ class _BottleneckV2(Compact):
 
     def forward(self, x):
         f, s, d = self.features, self.stride, self.dtype
-        pre = relu(self.child(BatchNorm, x.shape[1])(x))
+        pre = relu(self.child(BatchNorm, x.shape[1], momentum=0.9)(x))
         if s > 1 or x.shape[1] != f * 4:
             shortcut = self.child(Conv, pre.shape[1], f * 4, 1, s,
                                   dtype=d)(pre)
@@ -218,9 +233,9 @@ class _BottleneckV2(Compact):
             shortcut = x
         y = self.child(Conv, pre.shape[1], f, 1, use_bias=False,
                        dtype=d)(pre)
-        y = relu(self.child(BatchNorm, f)(y))
+        y = relu(self.child(BatchNorm, f, momentum=0.9)(y))
         y = self.child(Conv, f, f, 3, s, use_bias=False, dtype=d)(y)
-        y = relu(self.child(BatchNorm, f)(y))
+        y = relu(self.child(BatchNorm, f, momentum=0.9)(y))
         y = self.child(Conv, f, f * 4, 1, dtype=d)(y)
         return shortcut + y
 
@@ -236,7 +251,7 @@ class ResNet50V2(_Net):
             for i in range(n):
                 x = self.child(_BottleneckV2, f, s if i == 0 else 1,
                                self.dtype)(x)
-        x = relu(self.child(BatchNorm, x.shape[1])(x))
+        x = relu(self.bn(x))
         return self.head(x.mean(dim=(2, 3)))
 
 
