@@ -67,8 +67,8 @@ Phases, each raising on failure:
    share with a posture, the frames posture flags by cause (a split
    child, a blob too big for the crop, a capacity overflow), the most
    escalation rounds and trace points of any lane, the CUDA launches and
-   device time inside the ``trex.posture`` range, and the pass's peak
-   memory. ``DeviceTracker.track_frames`` over 64 frames (base) and 16
+   device time a frame inside the ``trex.posture`` range over the first
+   16 frames (a depth cut of the profile), and the pass's peak memory. ``DeviceTracker.track_frames`` over 64 frames (base) and 16
    (product default) with its assists, frames scanned, replay seconds
    and postures. Held to the port's FastTracker on the card, under
    ``tests/test_device_posture.py::_compare_posture``'s rule (equal
@@ -184,7 +184,26 @@ Phases, each raising on failure:
     accumulation step with its status and reason, uniqueness before and
     after, seconds of the accumulation, save, apply and re-track, peak
     device memory.
-14. Report: frames per second of phases 2-11, the replay's assist frames
+14. Visual fields and the closed loop (``vf``): phase 11's .pv and
+    .results (251 individuals over 64 frames, posture from the object
+    Tracker); the CLI runs ``-task track -load -output_visual_fields true
+    -auto_quit`` with two view-blocking ``visual_field_shapes``
+    (:data:`VF_SHAPES`), the projection (B11, ``ops/raycast.py``) on the
+    card. At frames 0, 21, 42 and 63 the export holds the card's planes,
+    and the card's planes equal the port's CPU path's but in cells whose
+    deciding point lies within a few ulps of a bin or depth-level edge
+    (:func:`vf_departures`; counted, ``ROADMAP.md`` C6). ``TrackingState``
+    runs the live loop over the first 16 frames with a user module that
+    requests positions, midlines and visual fields: every frame reaches
+    it, and its planes at frame 8 are the card's. ``track_video_hybrid``
+    on phase 4's chunk cut to 16 frames takes the engine the scan's flags
+    pick (the host FastTracker at 256 fish, held to a FastTracker run on
+    the same frames) and on a sparse 64-fish chunk the card's (held to
+    ``track_video_device``). Seconds of the export, host and total
+    milliseconds a frame, the raycast's device time a frame (CUDA events)
+    with its eyes and points, peak device memory, the loop's seconds a
+    frame, the hybrid's engine and seconds.
+15. Report: frames per second of phases 2-11, the replay's assist frames
    and seconds, the card's name and power limit, and one JSON line with
     every kernel's launches on its path, error against its plain
     version, time, bound, the plain version's time and the nearest
@@ -202,6 +221,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1269,13 +1289,19 @@ def posture_aux(P, T):
     return make_aux(vec, frame_times(T, 25.0), np.arange(T))
 
 
+# frames of the chunk whose posture pass phase 7 profiles (a depth cut:
+# the profiler's cost grows with the events, about 30 s over 64 frames)
+POSTURE_PROFILE_FRAMES = 16
+
+
 def posture_chunk(dev, settings, fr, bgt):
     """``fused_scan_packed`` over the chunk with the posture pass and
     without it (``calculate_posture`` off), warm; then the posture pass
-    alone under torch.profiler, over the same chunk's detections and
-    assignments (profiling the scan too would cost the profiler tens of
-    seconds). Returns the report and the unpacked history with
-    posture."""
+    alone under torch.profiler, over the detections and assignments of
+    the chunk's first :data:`POSTURE_PROFILE_FRAMES` frames (profiling
+    the scan too would cost the profiler tens of seconds; the scan and
+    the pass are frame-sequential, so those frames are the chunk's).
+    Returns the report and the unpacked history with posture."""
     import torch
 
     from trex_tpu_torch.ops.device_posture import spec_from_settings
@@ -1313,19 +1339,22 @@ def posture_chunk(dev, settings, fr, bgt):
     packed = packed.cpu().numpy()
     posture_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base_mem
-    det = detections_from_runcc(detect_batch_runs(fr, bgt, device=dev, **kw),
+    Tp = min(T, POSTURE_PROFILE_FRAMES)
+    fp = fr[:Tp]
+    det = detections_from_runcc(detect_batch_runs(fp, bgt, device=dev, **kw),
                                 P)
     carry0, pdir0, times, fidx = _aux_split(
         torch.as_tensor(aux, device=dev), T, P)
-    hist, _ = _scan_impl(det, times, fidx, P, carry0, fr, bgt, split)
+    hist, _ = _scan_impl(det, times[:Tp], fidx[:Tp], P, carry0, fp, bgt,
+                         split)
     sync()
     t0 = time.perf_counter()
     again, launches, by_part, part_ms = launches_by_range(
-        lambda: _posture_scan(fr, bgt, det, dict(hist), pdir0, P, spec),
+        lambda: _posture_scan(fp, bgt, det, dict(hist), pdir0, P, spec),
         (POSTURE_RANGE,))
     profile_s = time.perf_counter() - t0
     h, _ = unpack_result(packed, T, P)
-    check(np.array_equal(again["p_ok"].cpu().numpy(), h["p_ok"]),
+    check(np.array_equal(again["p_ok"].cpu().numpy(), h["p_ok"][:Tp]),
           "posture: the profiled pass differs from the timed one")
     h0, _ = unpack_result(plain, T, P0)
     for k in ("fish_row", "fish_seen", "fish_child", "n_assigned",
@@ -1358,10 +1387,11 @@ def posture_chunk(dev, settings, fr, bgt):
         round_lanes=stats["round_lanes"],
         trace_points_max=stats["trace_points_max"],
         walk_segments_max=stats["walk_segments_max"],
+        profile_frames=Tp,
         posture_launches_per_frame=None if launches is None
-        else by_part[POSTURE_RANGE] / T,
+        else by_part[POSTURE_RANGE] / Tp,
         posture_device_ms_per_frame=None if launches is None
-        else part_ms[POSTURE_RANGE] / T,
+        else part_ms[POSTURE_RANGE] / Tp,
         peak_mem_mb=peak / 2 ** 20), h
 
 
@@ -3000,6 +3030,323 @@ def phase_vi_train(dev, report):
           f"{r['peak_mem_gb']:.2f} GB; phase {r['s']:.1f} s", flush=True)
 
 
+
+
+def vf_scene(seed, n_fish, n_points, shape_points=None, size=1000.0):
+    """Inputs of ``ops/raycast.py::visual_field`` for a seeded scene:
+    `n_fish` noisy ellipses of `n_points` points (a tenth of them
+    padding) with two eyes each near their centre, and two point clouds
+    standing in for tesselated shapes, of `shape_points` points each
+    (100-2000 drawn when None)."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(50, size - 50, (n_fish, 2))
+    t = np.linspace(0, 2 * np.pi, n_points, endpoint=False)
+    ring = np.stack([np.cos(t), np.sin(t)], -1)[None]
+    r = rng.uniform(3, 12, (n_fish, 1, 1)) \
+        * rng.uniform(0.5, 1.5, (n_fish, 1, 2))
+    pts = (c[:, None, :] + r * ring).reshape(-1, 2)
+    ids = np.repeat(np.arange(n_fish), n_points).astype(np.int32)
+    valid = rng.random(len(ids)) < 0.9
+    ids[~valid] = -1
+    for j, m in enumerate(shape_points or [None, None]):
+        m = int(rng.integers(100, 2000)) if m is None else m
+        e = rng.uniform(0, size, 2) + rng.normal(0, 30, (m, 2))
+        pts = np.concatenate([pts, e])
+        ids = np.concatenate([ids, np.full(m, n_fish + j, np.int32)])
+        valid = np.concatenate([valid, np.ones(m, bool)])
+    eye_pos = c[:, None, :] + rng.normal(0, 4, (n_fish, 2, 2))
+    eye_angle = rng.uniform(-4, 4, (n_fish, 2))
+    return (pts.astype(np.float32), ids, valid, eye_pos.astype(np.float32),
+            eye_angle.astype(np.float32), np.float32(math.hypot(size, size)))
+
+
+# Phase 14's rule for the visual-field projection on the card against its
+# CPU path: CUDA's atan2f is not the C library's, so a point within a few
+# ulps of a bin edge can fall into the neighbouring bin (and, were the
+# distances to differ, a depth level could move the same way). A cell of
+# a layer departs when any of its planes differs; it is explained by a
+# point of one of the cell's two ids that lies within VF_EDGE_ULPS
+# float32 ulps (of pi for the angle, of the level for the depth) of the
+# cell's bin edges or of a depth-level edge inside the bin. A layer-1
+# cell is also explained by a layer-0 departure at the same cell, whose
+# winner layer 1 excludes.
+VF_EDGE_ULPS = 8
+
+
+def vf_departures(inputs, got, want, n_bins=512):
+    """Cells where `got` departs from `want` (the projection's planes
+    with positional ids, numpy) on `inputs` (visual_field's arguments),
+    with those no near-edge point explains. Returns dict(cells, id_cells,
+    unexplained=[(fish, eye, bin, layer), ...])."""
+    pts, pids, valid, eye_pos, eye_angle, max_d = inputs
+    fov = math.radians(130.0)
+    to_bin = n_bins / (2 * fov)
+    tol_u = VF_EDGE_ULPS * float(np.spacing(np.float32(math.pi))) * to_bin
+    levels = (1 << 13) - 1
+    tol_v = VF_EDGE_ULPS * float(np.spacing(np.float32(levels)))
+    pts = np.asarray(pts, np.float32)
+    pids = np.asarray(pids)
+    valid = np.asarray(valid, bool)
+    cells = id_cells = 0
+    unexplained = []
+    departed0 = set()
+    for layer in (0, 1):
+        d = np.zeros(got[f"id{layer}"].shape, bool)
+        for k in ("depth", "id", "fov"):
+            d |= got[f"{k}{layer}"] != want[f"{k}{layer}"]
+        id_cells += int((got[f"id{layer}"] != want[f"id{layer}"]).sum())
+        for f, e, b in zip(*np.nonzero(d)):
+            cells += 1
+            if layer == 0:
+                departed0.add((f, e, b))
+            elif (f, e, b) in departed0:
+                continue
+            who = {int(got[f"id{layer}"][f, e, b]),
+                   int(want[f"id{layer}"][f, e, b])} - {-1}
+            sel = valid & np.isin(pids, list(who))
+            dx = pts[sel, 0] - eye_pos[f, e, 0]
+            dy = pts[sel, 1] - eye_pos[f, e, 1]
+            ang = np.arctan2(dy.astype(np.float64), dx.astype(np.float64)) \
+                - float(eye_angle[f, e])
+            ang = np.mod(ang + math.pi, 2 * math.pi) - math.pi
+            u = (ang + fov) * to_bin
+            v = np.hypot(dx.astype(np.float64), dy.astype(np.float64)) \
+                / float(max_d) * levels
+            edge = (np.abs(u - b) <= tol_u) | (np.abs(u - b - 1) <= tol_u)
+            inside = (u >= b - tol_u) & (u < b + 1 + tol_u)
+            level = inside & (np.abs(v - np.round(v)) <= tol_v)
+            if not (edge | level).any():
+                unexplained.append((int(f), int(e), int(b), layer))
+    return dict(cells=cells, id_cells=id_cells, unexplained=unexplained)
+
+
+
+# Phase 14's view-blocking shapes (visual_field_shapes) inside the
+# 1024^2 arena: a wall and a triangle
+VF_SHAPES = [[[500, 100], [520, 100], [520, 900], [500, 900]],
+             [[150, 700], [300, 650], [220, 850]]]
+VF_HELD_FRAMES = (0, 21, 42, 63)
+VF_LOOP_FRAMES = 16
+VF_HYBRID_FRAMES = 16
+
+VF_LOOP_MODULE = """
+import numpy as np
+frames = []
+def request_features():
+    return 'position,midline,visual_field'
+def update_tracking(data):
+    vf = data.visual_fields or {{}}
+    frames.append(data.frame)
+    np.savez({out!r} + f'/{{data.frame}}.npz', ids=data.ids,
+             vf_ids=np.asarray(list(vf), np.int64),
+             **{{f'{{k}}_{{fid}}': v for fid, p in vf.items()
+                for k, v in p.items()}})
+"""
+
+
+def vf_held(dev, tracker, s, frame):
+    """One frame's projection on the card and on the CPU from the same
+    inputs: (ids, inputs, card planes, CPU planes), positional ids."""
+    from trex_tpu_torch.ops.raycast import visual_field
+    from trex_tpu_torch.track.visual_field import visual_field_inputs
+
+    ids, inputs = visual_field_inputs(tracker, frame, s)
+    card = {k: v.cpu().numpy()
+            for k, v in visual_field(*inputs, device=dev).items()}
+    cpu = {k: v.numpy()
+           for k, v in visual_field(*inputs, device="cpu").items()}
+    return ids, inputs, card, cpu
+
+
+def phase_vf(dev, report, bg, frames):
+    """Visual fields and the closed loop (``vf``): phase 11's .pv and
+    .results (256 fish at 1024^2, 64 frames, 251 individuals with
+    posture). The CLI's ``-task track -load -output_visual_fields true``
+    with :data:`VF_SHAPES` exports every individual's planes, projected on
+    the card; at :data:`VF_HELD_FRAMES` the card's planes equal the
+    export's and the CPU path's but at bin and depth edges
+    (:func:`vf_departures`). TrackingState runs the live loop over the
+    first :data:`VF_LOOP_FRAMES` frames with a user module that requests
+    positions, midlines and visual fields: every frame reaches it, and
+    its planes at one frame are the card's. ``track_video_hybrid`` on
+    phase 4's chunk cut to :data:`VF_HYBRID_FRAMES` frames (the engine the
+    scan's flags pick, held to the host FastTracker or to
+    ``track_video_device``) and on a sparse 64-fish chunk (the card's
+    engine, held to ``track_video_device``)."""
+    import shutil
+
+    import torch
+
+    import trex_tpu_torch.closed_loop as closed_loop
+    import trex_tpu_torch.track.visual_field as vfmod
+    from trex_tpu_torch.ops.device_tracker import (
+        _history_from_fast_tracker, track_video_device, track_video_hybrid)
+    from trex_tpu_torch.ops.raycast import _visual_field
+    from trex_tpu_torch.pipeline import TrackingState
+    from trex_tpu_torch.track.visual_field import map_ids
+
+    src = REPO / "build" / "smoke_object"
+    root = REPO / "build" / "smoke_vf"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    shutil.copy(src / "o.pv", root / "o.pv")
+    shutil.copy(src / "track" / "o.results", root / "o.results")
+    values = object_settings()
+    t_phase = time.perf_counter()
+
+    # 1. the export through the CLI, on the card
+    with Spy((vfmod, "visual_field_inputs"),
+             (vfmod, "compute_visual_fields"),
+             (vfmod, "export_visual_fields")) as spy:
+        run = track_cli(dev, root / "o.pv", root / "track", values, "auto",
+                        ["-load", "-output_visual_fields", "true",
+                         "-visual_field_shapes",
+                         json.dumps(VF_SHAPES, separators=(",", ":"))])
+    tr = run["tracker"]
+    s = registry(dict(values, visual_field_shapes=VF_SHAPES))
+    paths = spy.returned["export_visual_fields"][0]
+    n_frames = len(spy.returned["visual_field_inputs"])
+    check(len(paths) > 1 and n_frames == PRODUCT_FRAMES,
+          f"vf: the export wrote {len(paths)} files over {n_frames} frames")
+    exported = {}
+    for p in paths:
+        with np.load(p) as z:
+            exported[p.name] = {k: z[k] for k in z.files}
+    prefix = s["individual_prefix"] or "fish"
+    held = {}
+    dep_cells = dep_ids = 0
+    for f in VF_HELD_FRAMES:
+        ids, inputs, card, cpu = vf_held(dev, tr, s, f)
+        dep = vf_departures(inputs, card, cpu)
+        check(not dep["unexplained"],
+              f"vf: frame {f}: card and CPU depart away from every bin and "
+              f"depth edge at (fish, eye, bin, layer) "
+              f"{dep['unexplained'][:5]}")
+        dep_cells += dep["cells"]
+        dep_ids += dep["id_cells"]
+        mapped = map_ids(card, ids)
+        for i, fid in enumerate(ids):
+            e = exported[f"o_visual_field_{prefix}{fid}.npz"]
+            j = int(np.nonzero(e["frames"] == f)[0][0])
+            for k, v in mapped.items():
+                check(np.array_equal(e[k][j], v[i]),
+                      f"vf: frame {f}: the export's {k} of {fid} is not the "
+                      "card's")
+        held[f] = dict(fish=len(ids), points=int(len(inputs[0])),
+                       eyes=2 * len(ids), departed_cells=dep["cells"],
+                       departed_id_cells=dep["id_cells"],
+                       shape_hits=int((card["id0"] >= len(ids)).sum()))
+
+    # the projection alone on the card at frame 0's inputs: device time,
+    # peak memory
+    ids, inputs = vfmod.visual_field_inputs(tr, 0, s)
+    t_in = [torch.as_tensor(np.asarray(a), device=dev) for a in inputs[:5]]
+    t_in[1] = t_in[1].to(torch.int32)
+    t_in[2] = t_in[2].to(torch.int32)
+    max_d = float(inputs[5])
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    _visual_field(*t_in, max_d)
+    sync()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    ray_ms = time_ms(lambda: _visual_field(*t_in, max_d), iters=10)
+    export_r = dict(
+        frames=n_frames, s=spy.seconds["export_visual_fields"],
+        files=len(paths), cli_s=run["wall_s"],
+        host_s_per_frame=spy.seconds["visual_field_inputs"] / n_frames,
+        frame_s=spy.seconds["compute_visual_fields"] / n_frames,
+        raycast_ms=ray_ms, points=int(len(inputs[0])), eyes=2 * len(ids),
+        pairs=2 * len(ids) * int(len(inputs[0])), peak_mem_gb=peak / 1e9,
+        departed_cells=dep_cells, departed_id_cells=dep_ids, held=held)
+
+    # 2. the live loop over the first frames, with a user module
+    out = root / "loop"
+    out.mkdir()
+    module = root / "live_loop.py"
+    module.write_text(VF_LOOP_MODULE.format(out=str(out)))
+    ls = registry(dict(values, closed_loop_enable=True,
+                       closed_loop_path=str(module)))
+    state = TrackingState(ls, root / "o.pv", device=dev)
+    with Spy((closed_loop.ClosedLoop, "update")) as lspy:
+        t0 = time.perf_counter()
+        state.run(frame_range=(0, VF_LOOP_FRAMES - 1))
+        loop_wall = time.perf_counter() - t0
+    state.pv.close()
+    got = sorted(int(p.stem) for p in out.glob("*.npz"))
+    check(got == list(range(VF_LOOP_FRAMES)),
+          f"vf: the loop's module saw frames {got}")
+    f = VF_LOOP_FRAMES // 2
+    ids, inputs, card, cpu = vf_held(dev, state.tracker, ls, f)
+    dep = vf_departures(inputs, card, cpu)
+    check(not dep["unexplained"],
+          f"vf: the loop's frame {f}: card and CPU depart at "
+          f"{dep['unexplained'][:5]}")
+    mapped = map_ids(card, ids)
+    with np.load(out / f"{f}.npz") as z:
+        check(z["vf_ids"].tolist() == list(ids),
+              f"vf: the loop's frame {f} fields of {z['vf_ids'][:5]}")
+        for i, fid in enumerate(ids):
+            for k, v in mapped.items():
+                check(np.array_equal(z[f"{k}_{fid}"], v[i]),
+                      f"vf: the loop's {k} of {fid} at frame {f} is not the "
+                      "card's")
+    loop_r = dict(frames=VF_LOOP_FRAMES, wall_s=loop_wall,
+                  update_s_per_frame=lspy.seconds["update"]
+                  / VF_LOOP_FRAMES,
+                  fields=len(ids), departed_cells=dep["cells"])
+
+    # 3. track_video_hybrid: phase 4's chunk cut short, a sparse chunk
+    hybrid_r = {}
+    sbg, sframes = synth_frames(VF_HYBRID_FRAMES, n_fish=64, seed=0)
+    for name, hbg, hframes, hs in (
+            ("dense_256", bg, frames[:VF_HYBRID_FRAMES], track_settings()),
+            ("sparse_64", sbg, sframes, track_settings(64))):
+        t0 = time.perf_counter()
+        h = track_video_hybrid(hframes, hbg, hs, device=dev, **TRACK_CAPS)
+        wall = time.perf_counter() - t0
+        d = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+             for k, v in track_video_device(hframes, hbg, hs, device=dev,
+                                            **TRACK_CAPS).items()}
+        flagged = bool(d["needs_host"].any() or d["detect_overflow"].any())
+        check(h["engine"] == ("host" if flagged else "device"),
+              f"vf: hybrid {name} took the {h['engine']} engine")
+        if flagged:
+            host, _ = host_track(hframes, hbg, hs)
+            want = _history_from_fast_tracker(
+                host, len(hframes), hs["track_max_individuals"])
+        else:
+            want = d
+        for k in ("fish_x", "fish_y", "fish_seen", "n_assigned", "n_fish",
+                  "needs_host"):
+            check(np.array_equal(h[k], want[k]),
+                  f"vf: hybrid {name} {k} != the {h['engine']} engine's")
+        hybrid_r[name] = dict(engine=h["engine"], s=wall,
+                              flagged_frames=int(d["needs_host"].sum()),
+                              n_fish=int(h["n_fish"]))
+    check(hybrid_r["sparse_64"]["engine"] == "device",
+          "vf: the sparse chunk left the card's engine")
+
+    r = report["vf"] = dict(export=export_r, loop=loop_r, hybrid=hybrid_r,
+                            s=time.perf_counter() - t_phase)
+    e = export_r
+    print(f"phase 14 ok: visual fields of {len(tr.individuals)} "
+          f"individuals over {n_frames} frames at {SIZE}^2 with "
+          f"{len(VF_SHAPES)} shapes: export {e['s']:.2f} s ({e['files']} "
+          f"files; {e['frame_s'] * 1e3:.1f} ms a frame, of which "
+          f"{e['host_s_per_frame'] * 1e3:.1f} ms on the host for eyes and "
+          f"tesselation); raycast {ray_ms:.3f} ms a frame on "
+          f"the card for {e['eyes']} eyes x {e['points']} points, peak "
+          f"device memory {e['peak_mem_gb']:.2f} GB; card vs CPU at frames "
+          f"{list(VF_HELD_FRAMES)}: {dep_cells} cells departed "
+          f"({dep_ids} in an id plane), each at a bin or depth edge; "
+          f"closed loop over {VF_LOOP_FRAMES} frames "
+          f"{loop_r['update_s_per_frame']:.3f} s a frame; hybrid "
+          + ", ".join(f"{k} {v['engine']} {v['s']:.2f} s"
+                      for k, v in hybrid_r.items())
+          + f"; phase {r['s']:.1f} s", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the report as JSON here")
@@ -3033,6 +3380,7 @@ def main():
     phase_object(dev, report)
     phase_vi(dev, report)
     phase_vi_train(dev, report)
+    phase_vf(dev, report, *chunk[:2])
     report["total_s"] = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3050,7 +3398,7 @@ def main():
     print(json.dumps({k: report[k] for k in (
         "detect", "label", "track", "device_tracker", "auto_split",
         "posture", "decay", "archive", "product", "object", "vi",
-        "vi_train", "build_s", "total_s")}))
+        "vi_train", "vf", "build_s", "total_s")}))
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,9 @@ gui_show_memory_stats lines write the JAX CLI's bytes and lines too
 (the statistics' wall-clock columns compared for shape and finiteness
 only), and `pvinfo` prints the JAX inspector's lines. Also: argument
 parsing, task inference, the rst task, the options that raise naming
-their ROADMAP.md item, and -auto_apply and the VI exports without a
-network, as the JAX CLI runs them (tests/test_torch_vi_apply.py runs
+their ROADMAP.md item, -output_visual_fields and closed_loop_enable, and
+-auto_apply and the VI exports without a network, as the JAX CLI runs
+them (tests/test_torch_vi_apply.py runs
 them with one). -auto_train runs the accumulation as the JAX CLI does,
 with its saved training images, progress and debug images, and its
 auto_train_on_startup failure."""
@@ -178,27 +179,34 @@ def test_rst_task_equals_jax(tmp_path):
      "[auto_categorize] categories_ordered is empty", True),
     (["-auto_tags", "true"], NotImplementedError, "A item 3d", False),
     (["-tags_path", "tags"], NotImplementedError, "A item 3d", False),
-    (["-output_visual_fields", "true"], NotImplementedError, "A item 3c",
-     False),
+    # ported: the visual fields of every posture frame, with and without
+    # view-blocking shapes
+    (["-output_visual_fields", "true"], None, "vid_visual_field_id0.npz",
+     True),
+    (["-output_visual_fields", "true", "-visual_field_shapes",
+      "[[[120,0],[126,0],[126,255],[120,255]]]"], None,
+     "vid_visual_field_id3.npz", True),
     # ported: no prediction without -auto_apply, so no recognition file
     (["-output_recognition_data", "true"], None, "vid_id0.npz", True),
     (["-output_tracklet_images", "true"], None, "vid_tracklet_images.npz",
      True),
     (["-track_engine", "object", "-tags_enable", "true"], EngineUnsupported,
      "A item 3d", False),
-    (["-track_engine", "object", "-closed_loop_enable", "true"],
-     NotImplementedError, "A item 3c", False),
+    # ported: the object Tracker runs the loop; without the user module
+    # both CLIs print the same note and write the same files
+    (["-track_engine", "object", "-closed_loop_enable", "true"], None,
+     "[closed_loop] enabled but module", True),
 ])
 def test_unported_options_raise_naming_their_item(video, capfd, flags, exc,
                                                   item, jax):
-    """The options the port does not have yet raise before any frame,
-    naming their ROADMAP.md item; the ones the port has since the VI
-    slices behave as the JAX CLI does: -auto_apply without weights
-    prints its note (`item`) and writes the same files, the fast engine
-    refuses it with the same message, -auto_train (short, not applied)
-    and the two exports write the JAX CLI's files (`item` names one of
-    them), and -auto_categorize without categories prints the JAX CLI's
-    note."""
+    """The options the port does not have yet (tags) raise before any
+    frame, naming their ROADMAP.md item; the ones the port has since the
+    VI and visual-field slices behave as the JAX CLI does: -auto_apply
+    without weights prints its note (`item`) and writes the same files,
+    the fast engine refuses it with the same message, -auto_train (short,
+    not applied) and the exports write the JAX CLI's files (`item` names
+    one of them), -auto_categorize without categories and
+    closed_loop_enable without its module print the JAX CLI's note."""
     root, src = video
     out = root / "port_fast"
     if not (out / "vid.pv").exists():

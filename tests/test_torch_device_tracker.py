@@ -263,3 +263,44 @@ def test_plain_dict_defaults():
     """Missing keys fall back to the JAX package's defaults."""
     P = T.params_from_settings({})
     assert tuple(P) == tuple(J.params_from_settings(reset_global_settings()))
+
+
+@pytest.mark.parametrize("scene", ["clean", "merged"])
+def test_hybrid_picks_device_or_host_as_jax(scene):
+    """Port of tests/test_device_tracker.py::test_hybrid_picks_device_or_host:
+    separated fish stay on the device scan, a merge into one oversized
+    blob flags needs_host and the chunk is tracked again by the host
+    FastTracker. Both packages pick the same engine and return the same
+    history."""
+    bg = np.full((128, 128), 200, np.uint8)
+    s = _settings(2)
+    if scene == "clean":
+        frames = np.stack([_render([(30.0 + f, 40.0), (90.0, 100.0)],
+                                   size=128) for f in range(6)])
+    else:
+        s.set("track_max_speed", 300)
+        frames = []
+        for f in range(6):
+            img = np.full((128, 128), 200, np.uint8)
+            if f < 3:
+                img[40:46, 20 + 2 * f:30 + 2 * f] = 80
+                img[60:66, 20 + 2 * f:30 + 2 * f] = 80
+            else:  # the two fish merge into one 60x30 oversized blob
+                img[40:70, 30:60] = 80
+            frames.append(img)
+        frames = np.stack(frames)
+    ref = J.track_video_hybrid(frames, bg, s, **CAPS)
+    got = T.track_video_hybrid(frames, bg, _as_dict(s), device="cpu", **CAPS)
+    assert got["engine"] == ref["engine"] == ("device" if scene == "clean"
+                                              else "host")
+    keys = ("fish_seen", "needs_host", "n_assigned", "n_fish",
+            "detect_overflow", "fish_x", "fish_y")
+    if scene == "clean":
+        keys += ("fish_row", "fish_child")
+        assert int(got["n_fish"]) == 2
+    else:
+        assert got["fish_seen"].shape == (6, 2)
+        assert got["fish_seen"][0].sum() == 2
+    for k in keys:
+        assert isinstance(got[k], (np.ndarray, np.generic)), k
+        np.testing.assert_array_equal(got[k], np.asarray(ref[k]), err_msg=k)

@@ -118,13 +118,14 @@ def test_host_labeler_built_from_the_port():
     """The replay's labeler is compiled from trex_tpu_torch/native, never
     loaded from the JAX package's library; beside the copies of native/
     it holds the port's own warp.cpp (the identity crops' warp, which the
-    JAX package takes from OpenCV)."""
+    JAX package takes from OpenCV) and hostmath.cpp (the C library's
+    atan2f for the visual fields' CPU path, which XLA calls)."""
     from trex_tpu_torch.ops import labeling
 
     assert labeling.NATIVE == REPO / "trex_tpu_torch" / "native"
     assert labeling.SOURCES == ("labeling.cpp", "tracker_core.cpp",
                                 "posture_chain.cpp", "lzo1x.cpp",
-                                "imageops.cpp", "warp.cpp")
+                                "imageops.cpp", "warp.cpp", "hostmath.cpp")
     assert sorted(p.name for p in labeling.NATIVE.iterdir()) \
         == sorted(labeling.SOURCES + labeling.HEADERS)
     lib = labeling._lib()
@@ -158,8 +159,42 @@ def test_package_lists_every_module():
                  "models.vi_params", "models.vi_convert",
                  "models.training", "ml.vi_facade", "ml.uniqueness",
                  "ml.auto_correct", "ml.accumulation", "ml.learn_static",
-                 "track.dataset_quality", "track.foi", "utils.drawing"):
+                 "track.dataset_quality", "track.foi", "utils.drawing",
+                 "ops.raycast", "track.visual_field", "closed_loop"):
         assert f"trex_tpu_torch.{name}" in mods
+
+
+def _imports(tree, top_level_only):
+    """The module names an AST imports (at its top level only, or
+    anywhere in it)."""
+    import ast
+
+    nodes = tree.body if top_level_only else ast.walk(tree)
+    for node in nodes:
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_module_imports_opencv_at_import_time():
+    """The machine with the card has no OpenCV: no module of the port
+    imports cv2 at its top level (a function that needs it imports it
+    where it runs), and the visual-field modules, whose convex hull
+    replaces cv2.convexHull, import it nowhere, nor JAX or trex_tpu."""
+    import ast
+
+    new = {"ops/raycast.py", "track/visual_field.py", "closed_loop.py"}
+    root = REPO / "trex_tpu_torch"
+    files = sorted(root.rglob("*.py"))
+    assert {f.relative_to(root).as_posix() for f in files} >= new
+    for f in files:
+        tree = ast.parse(f.read_text())
+        top = {m.split(".")[0] for m in _imports(tree, True)}
+        assert "cv2" not in top, f
+        if f.relative_to(root).as_posix() in new:
+            every = {m.split(".")[0] for m in _imports(tree, False)}
+            assert not every & {"cv2", "jax", "trex_tpu"}, (f, every)
 
 
 @pytest.mark.parametrize("name", ["labeling.cpp", "tracker_core.cpp",

@@ -190,13 +190,30 @@ def test_tracking_state_object_branch_equals_jax(video, over):
                for st in got.statistics.values())
 
 
-def test_closed_loop_raises_naming_its_item(video):
+def test_closed_loop_raises_naming_its_item(video, tmp_path):
+    """closed_loop_enable, refused until the port had the loop, now runs
+    it through the object Tracker while the Segmenter converts: the user
+    module sees every frame with the JAX package's ids and positions."""
     root, src = video
-    s = apply(reset_global_settings(), dict(CONVERT,
-                                            closed_loop_enable=True))
-    with pytest.raises(NotImplementedError, match="A item 3c"):
-        pipeline.Segmenter(s, src, root / "cl.pv", device="cpu").run()
-    assert not (root / "cl.pv").exists()
+    logs = {}
+    for k, reset, seg_cls, kw in (("j", jax_reset, JaxSegmenter, {}),
+                                  ("p", reset_global_settings,
+                                   pipeline.Segmenter, {"device": "cpu"})):
+        log = tmp_path / f"{k}.txt"
+        module = tmp_path / f"{k}.py"
+        module.write_text(
+            "def update_tracking(data):\n"
+            f"    open({str(log)!r}, 'a').write(\n"
+            "        f'{data.frame} {data.ids.tolist()} "
+            "{data.positions.tolist()}\\n')\n")
+        s = apply(reset(), dict(CONVERT, closed_loop_enable=True,
+                                closed_loop_path=str(module)))
+        seg = seg_cls(s, src, tmp_path / f"cl_{k}.pv", **kw)
+        tracker = seg.run()
+        logs[k] = log.read_text().splitlines()
+    assert type(tracker) is Tracker
+    assert [int(line.split()[0]) for line in logs["p"]] == list(range(16))
+    assert logs["p"] == logs["j"]
 
 
 def _angles(tracker):

@@ -18,7 +18,11 @@ with the posture pass over the 64 frames in both configurations, the
 product engine over the first 32 frames in the base one), and ten
 steps of the VI network's training (``vi_train_step_128``:
 ``VITrainer``'s train step, v118_3 at 80x80 with 15 classes in
-bfloat16 on 128-batches, as ``chip_smoke.py`` phase 13 trains it).
+bfloat16 on 128-batches, as ``chip_smoke.py`` phase 13 trains it), and
+one frame's visual-field projection (``raycast_251``:
+``ops/raycast.py::_visual_field`` on ``chip_smoke.vf_scene`` with 251
+fish of 256 points and shapes of 20000 and 10000 points in a 1024^2
+arena, the size of ``chip_smoke.py`` phase 14's frames).
 ``--only`` profiles the named targets alone. For each it
 prints the host wall time, the summed device time of the kernels and the
 device's idle share over the call, the kernels with the most device time,
@@ -34,6 +38,8 @@ import json
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 import chip_smoke as smoke
 
@@ -158,6 +164,15 @@ def main():
                 t._train_step(t.opt, x, y, t._dropout_rng)
         return run
 
+    def raycast(n_fish=251):
+        from trex_tpu_torch.ops.raycast import _visual_field
+
+        pts, ids, valid, eye_pos, eye_angle, max_d = smoke.vf_scene(
+            0, n_fish, 256, shape_points=(20000, 10000), size=1024.0)
+        t = [torch.as_tensor(a, device=dev) for a in (
+            pts, ids, valid.astype(np.int32), eye_pos, eye_angle)]
+        return lambda: _visual_field(*t, float(max_d))
+
     targets = {
         "detect_batch_pallas_32": lambda: detect_batch(
             fr[:32], bgt, use_pallas=True, device=dev, **kw),
@@ -182,6 +197,7 @@ def main():
             smoke.posture_settings(settings), bg, chunk=32,
             caps=smoke.TRACK_CAPS, device=dev).track_frames(frames[:32]),
         "vi_train_step_128": vi_train_steps(),
+        "raycast_251": raycast(),
     }
     report = {name: profile_call(fn) for name, fn in targets.items()
               if not args.only or name in args.only}

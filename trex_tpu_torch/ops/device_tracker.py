@@ -1318,3 +1318,77 @@ def track_video_device(frames, background, settings, device=None,
                       stats=stats)
     hist["detect_overflow"] = out["overflow"]
     return hist
+
+
+def _history_from_fast_tracker(tracker, n_frames: int,
+                               max_fish: int) -> dict:
+    """FastTracker per-frame history -> the track_scan output schema
+    (numpy arrays)."""
+    fx = np.zeros((n_frames, max_fish))
+    fy = np.zeros((n_frames, max_fish))
+    seen = np.zeros((n_frames, max_fish), bool)
+    n_assigned = np.zeros(n_frames, np.int64)
+    for f in range(n_frames):
+        h = tracker.history.get(f)
+        if not h:
+            continue
+        fid = np.asarray(h["fish"], np.int64)
+        ok = fid < max_fish
+        fx[f, fid[ok]] = np.asarray(h["x"])[ok]
+        fy[f, fid[ok]] = np.asarray(h["y"])[ok]
+        seen[f, fid[ok]] = True
+        n_assigned[f] = int(tracker.statistics[f].number_fish) \
+            if f in tracker.statistics else ok.sum()
+    # carry last positions forward like the scan does
+    for f in range(1, n_frames):
+        hold = ~seen[f] & (seen[:f].any(axis=0))
+        fx[f, hold] = fx[f - 1, hold]
+        fy[f, hold] = fy[f - 1, hold]
+    return dict(fish_x=fx, fish_y=fy, fish_seen=seen,
+                n_assigned=n_assigned,
+                needs_host=np.zeros(n_frames, bool),
+                n_fish=np.int32(tracker.n_fish))
+
+
+def track_video_hybrid(frames, background, settings, device=None,
+                       **caps) -> dict:
+    """Device-first tracking with the host engine behind it: run the
+    fused detect+scan chunk on `device` (the card when None); when any
+    frame flagged needs_host (split candidates) or overflowed the
+    detection caps, track the chunk again with the host FastTracker
+    (history splits, automatic matching) and return its history in the
+    same schema. The returned dict (numpy arrays) carries `engine`:
+    "device" or "host". An error on the card propagates; only the scan's
+    own flags send the chunk to the host."""
+    from ..track.engine import FastTracker
+    from .labeling import label_blobs_raw
+
+    def host(v):
+        if isinstance(v, dict):
+            return {k: host(x) for k, x in v.items()}
+        return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+    frames = np.asarray(frames)
+    hist = host(track_video_device(frames, background, settings,
+                                   device=device, **caps))
+    if not (hist["needs_host"].any() or hist["detect_overflow"].any()):
+        hist["engine"] = "device"
+        return hist
+
+    s = SettingsView(settings)
+    det = dict(threshold=int(s["detect_threshold"]),
+               absolute=bool(s["detect_threshold_is_absolute"]),
+               track_threshold=int(s["track_threshold"])
+               if s["track_background_subtraction"] else 0,
+               track_absolute=bool(s["track_threshold_is_absolute"]))
+    fr = float(s["frame_rate"] or 25)
+    background = np.asarray(background)
+    tracker = FastTracker(settings, background)
+    for i, frame in enumerate(frames):
+        tracker.add_frame(i, i / fr, **label_blobs_raw(frame, background,
+                                                       **det))
+    out = _history_from_fast_tracker(tracker, len(frames),
+                                     int(s["track_max_individuals"]))
+    out["engine"] = "host"
+    out["detect_overflow"] = hist["detect_overflow"]
+    return out

@@ -16,7 +16,9 @@ chain one by one. ``lzo1x.cpp`` (the ``.pv`` payload codec of
 ``io/lzo.py``) and ``imageops.cpp`` (the background average's mean and
 mode, ``io/video.py``) are built into the same library, and so is the
 port's own ``warp.cpp`` (the identity crops' affine warp,
-``ops/crops.py``), which the JAX package takes from OpenCV.
+``ops/crops.py``), which the JAX package takes from OpenCV, and
+``hostmath.cpp`` (the C library's ``atan2f`` over an array, the
+visual-field projection's CPU angles, ``ops/raycast.py``).
 
 The library is compiled with ``g++`` at first use into
 ``build/trex_tpu_torch/`` (a directory git ignores), under a name that
@@ -43,7 +45,7 @@ from ..kernels import BUILD_DIR
 
 NATIVE = Path(__file__).resolve().parents[1] / "native"
 SOURCES = ("labeling.cpp", "tracker_core.cpp", "posture_chain.cpp",
-           "lzo1x.cpp", "imageops.cpp", "warp.cpp")
+           "lzo1x.cpp", "imageops.cpp", "warp.cpp", "hostmath.cpp")
 HEADERS = ("simd_clones.h",)
 GXX_FLAGS = ["-O3", "-ffp-contract=off", "-std=c++20", "-shared", "-fPIC"]
 
@@ -187,6 +189,9 @@ _SIGNATURES = {
     # warp.cpp: the identity crops' affine warp (ops/crops.py)
     "trex_warp_affine_u8": (None, [_u8p, _i32, _i32, _f64p, _i32, _i32,
                                    _u8p]),
+    # hostmath.cpp: the visual-field projection's CPU angles
+    # (ops/raycast.py)
+    "trex_atan2f": (None, [_f32p, _f32p, _f32p, _i64]),
 }
 
 _lib_obj = None
@@ -473,3 +478,15 @@ class SplitExecutor:
             self._r.shape[0], self._max_pieces, out.ctypes.data_as(_f64p),
             counts.ctypes.data_as(_i32p))
         return [out[j, :counts[j]].copy() for j in range(n_jobs)]
+
+
+def atan2f(y: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """The C library's float32 atan2, element by element (hostmath.cpp)."""
+    y = np.ascontiguousarray(y, np.float32)
+    x = np.ascontiguousarray(x, np.float32)
+    if y.shape != x.shape:
+        raise ValueError(f"atan2f: shapes {y.shape} and {x.shape} differ")
+    out = np.empty_like(y)
+    _lib().trex_atan2f(y.ctypes.data_as(_f32p), x.ctypes.data_as(_f32p),
+                       out.ctypes.data_as(_f32p), y.size)
+    return out

@@ -46,11 +46,6 @@ from .utils.timing import global_collector as _global_collector
 
 _collector = _global_collector()
 
-CLOSED_LOOP_MISSING = ("closed_loop_enable: closed_loop.py and "
-                       "track/visual_field.py come with ROADMAP.md A "
-                       "item 3c")
-
-
 def _accelerator_healthy(device) -> bool:
     """True when CUDA is available and one tiny compute on `device`
     comes back to the host with the right value."""
@@ -558,6 +553,7 @@ class Segmenter:
         self.workers = workers
         self.background: Optional[np.ndarray] = None
         self.tracker = None
+        self._closed_loop = None  # built lazily once the tracker exists
         self.detector: Optional[DeviceDetector] = None
         self.pv_file: Optional[PVFile] = None
         self.fps_stat = 0.0
@@ -694,8 +690,6 @@ class Segmenter:
             s, self.background, self.need_individuals,
             device=self.device) if self.track else None
         self.engine_choice = getattr(self.tracker, "engine_choice", None)
-        if isinstance(self.tracker, Tracker) and s["closed_loop_enable"]:
-            raise NotImplementedError(CLOSED_LOOP_MISSING)
         device_det = self.detector = select_detector(
             s, self.background, device=self.device)
         frame_rate = float(s["frame_rate"] or 25)
@@ -903,6 +897,14 @@ class Segmenter:
         tracker.add(pp)
         if posture_pool is not None:
             run_postures(tracker, index, self.settings, posture_pool)
+        if self._closed_loop is None and \
+                self.settings["closed_loop_enable"]:
+            from .closed_loop import maybe_closed_loop
+
+            self._closed_loop = maybe_closed_loop(tracker, self.settings,
+                                                  device=self.device)
+        if self._closed_loop is not None:
+            self._closed_loop.update(index)
 
 
 def filter_blobs_by_prediction(blobs: list, settings: Settings) -> list:
@@ -1144,6 +1146,7 @@ class TrackingState:
         import os
 
         self.settings = settings
+        self.device = device
         if workers is None:
             workers = min(8, max(4, os.cpu_count() or 4))
         self.pv = PVFile.open(pv_path)
@@ -1183,8 +1186,12 @@ class TrackingState:
             frame_range = (min(lo, n - 1), hi)
         frame_rate = float(s["frame_rate"] or 25)
         fast = not isinstance(self.tracker, Tracker)
-        if not fast and s["closed_loop_enable"]:
-            raise NotImplementedError(CLOSED_LOOP_MISSING)
+        closed_loop = None
+        if not fast:
+            from .closed_loop import maybe_closed_loop
+
+            closed_loop = maybe_closed_loop(self.tracker, s,
+                                            device=self.device)
         enc = self.pv.header.encoding
         if enc in ("rgb8", "r3g3b2"):
             from .io.encoding import storage_to_gray
@@ -1258,6 +1265,8 @@ class TrackingState:
                     if posture_pool is not None:
                         run_postures(self.tracker, next_track, s,
                                      posture_pool)
+                    if closed_loop is not None:
+                        closed_loop.update(next_track)
                 if self.progress:
                     self.progress(next_track - frame_range[0] + 1,
                                   frame_range[1] - frame_range[0] + 1)
