@@ -203,7 +203,42 @@ Phases, each raising on failure:
     milliseconds a frame, the raycast's device time a frame (CUDA events)
     with its eyes and points, peak device memory, the loop's seconds a
     frame, the hybrid's engine and seconds.
-15. Report: frames per second of phases 2-11, the replay's assist frames
+15. Physical tags (``tags``): 256 fish at 1024^2 over 32 frames, the
+    stamps at :data:`TAG_SCALE` (26-34 x 16-20 px), each fish carrying
+    its own 12x12 code of an 8-bit id (:func:`tag_code`, a seeded
+    permutation of 0-255) 6 px beside its stamp, under
+    :func:`tag_settings` (the size filter keeps the fish and leaves the
+    codes as noise, ``cm_per_pixel`` puts them inside
+    ``tags_size_range``). The port's ``train_tag_decoder`` trains the
+    default tag network (``TagDecoderNet(256, 32)``: 16/32/64 filters, a
+    1024x256 dense layer) on the card from :func:`tag_crops` (32
+    rendered crops an id with sub-pixel jitter up to
+    :data:`TAG_JITTER` and noise, through ``prettify_blobs``), and the
+    port's HDF5 writer saves it; the ``Segmenter`` converts with
+    detection on the card; the CLI runs ``-task track -tags_recognize
+    true -tags_model_path <h5> -tags_path tags -tags_save_predictions
+    true -auto_quit`` (``auto`` picks the object Tracker, both fast
+    engines refuse ``tags_recognize``; the network decodes each frame's
+    tags in one forward on the card), then ``-task track -load
+    -auto_tags true -auto_quit``. Held: the decoder's accuracy at least
+    :data:`TAG_MIN_ACCURACY` on two held-out rendered sets, one at the
+    training offsets and one on the pixel grid as the scene's codes
+    sit; at frames :data:`TAG_HELD_FRAMES` each frame's tag crops
+    through the card and the port's CPU path, logits within
+    :data:`TAG_RTOL`/:data:`TAG_ATOL` and ids equal wherever the top-two
+    margin exceeds twice that tolerance; the .h5 read back bit for bit;
+    the tags npz and the PNGs (decoded by :func:`read_png_gray`) hold the
+    tags' crops; the .results carries the tags; ``-auto_tags``
+    reassigned identities and re-tracked, and the share of tracked
+    (frame, identity) pairs whose identity is the tag id the scene gave
+    that fish rose. Candidates, tags past the variance gate, past the
+    shape test and decoded a frame; host-clock seconds a frame of the
+    crops and gates and of the decode calls (the copies to and from the
+    card, the forward and the wait; the card's own time of one frame's
+    decode is ``torch_profile.py``'s ``tag_decode_256``); training ms a
+    step and images/s; seconds of the track task, of ``-auto_tags`` and
+    of its re-track; peak device memory.
+16. Report: frames per second of phases 2-11, the replay's assist frames
    and seconds, the card's name and power limit, and one JSON line with
     every kernel's launches on its path, error against its plain
     version, time, bound, the plain version's time and the nearest
@@ -246,6 +281,18 @@ def synth_frames(n_frames, n_fish=N_FISH, size=SIZE, seed=0):
     """Synthetic video of `n_fish` dark elongated blobs on a bright
     background; every fish has its own slightly asymmetric stamp and
     fish reflect at the walls."""
+    bg, frames, _ = synth_scene(n_frames, n_fish, size, seed)
+    return bg, frames
+
+
+def synth_scene(n_frames, n_fish=N_FISH, size=SIZE, seed=0, codes=None,
+                scale=1):
+    """:func:`synth_frames` with each fish's top-left position a frame,
+    (n_frames, n_fish, 2) as (x, y). With `codes` (one uint8 image a
+    fish), each fish carries its code at :data:`TAG_OFFSET` (times
+    `scale`) from its stamp's top-left corner. `scale` enlarges every
+    stamp `scale` times a side, pixel for pixel; the positions and
+    motion stay those of scale 1."""
     rng = np.random.default_rng(seed)
     pos = rng.uniform(30, size - 30, (n_fish, 2))
     vel = rng.normal(0, 2.0, (n_fish, 2))
@@ -258,9 +305,10 @@ def synth_frames(n_frames, n_fish=N_FISH, size=SIZE, seed=0):
         st[3:h - 3, 0:w] = 110
         st[2, w - 3:w - 1] = 0
         st[h - 3, 1:3] = 70
-        stamps.append(st)
+        stamps.append(np.kron(st, np.ones((scale, scale), np.uint8)))
     bg = np.full((size, size), 200, np.uint8)
     frames = []
+    track = []
     for _ in range(n_frames):
         img = bg.copy()
         vel += rng.normal(0, 0.6, vel.shape)
@@ -269,14 +317,92 @@ def synth_frames(n_frames, n_fish=N_FISH, size=SIZE, seed=0):
         over = (pos < 20) | (pos > size - 25)
         vel[over] *= -1
         pos = np.clip(pos, 20, size - 25)
+        track.append(pos.copy())
         for k, (x, y) in enumerate(pos):
             st = stamps[k]
             xi, yi = int(x), int(y)
             region = img[yi:yi + st.shape[0], xi:xi + st.shape[1]]
             np.minimum(region, 200 - st[:region.shape[0], :region.shape[1]],
                        out=region)
+            if codes is not None:
+                cx = xi + TAG_OFFSET[0] * scale
+                cy = yi + TAG_OFFSET[1] * scale
+                c = codes[k]
+                region = img[max(cy, 0):cy + c.shape[0],
+                             max(cx, 0):cx + c.shape[1]]
+                np.minimum(region, c[max(-cy, 0):][:region.shape[0],
+                                                   max(-cx, 0):][
+                               :, :region.shape[1]], out=region)
         frames.append(img)
-    return bg, np.stack(frames)
+    return bg, np.stack(frames), np.stack(track)
+
+
+# where a tagged fish carries its code, from its stamp's top-left corner
+# at scale 1: 3 px right of the widest stamp (17 px), so that the code is
+# a blob of its own
+TAG_OFFSET = (20, 1)
+TAG_DARK, TAG_LIGHT = 10, 150
+
+
+def tag_code(tid: int, scale: int = 1) -> np.ndarray:
+    """The code of tag `tid` (0-255), 6 `scale` px a side: a dark frame
+    around a 4x4 grid, bit b of the id a light 1x2 cell in row b // 2,
+    each grid pixel `scale` px a side. Beside :func:`synth_scene`'s fish
+    at the same scale (46-96 pixels times scale^2) a code has fewer (36
+    times scale^2) and stays noise."""
+    c = np.full((6, 6), TAG_DARK, np.uint8)
+    for b in range(8):
+        if (tid >> b) & 1:
+            r, k = divmod(b, 2)
+            c[1 + r, 1 + 2 * k:3 + 2 * k] = TAG_LIGHT
+    return np.kron(c, np.ones((scale, scale), np.uint8))
+
+
+def tag_crops(ids, per_id, seed=0, jitter=0.0625, noise=3.0):
+    """Training crops of tag codes (:func:`tag_code` at
+    :data:`TAG_SCALE`) as phase 15's tracker sees them: each code rendered at a sub-pixel offset of up to
+    `jitter` px in steps of 1/16 (16x supersampled, area-averaged onto
+    the pixel grid) on the scene's background, with Gaussian noise of
+    `noise` grey levels, thresholded into a blob like the scene's
+    detection (difference over 20) and cropped through
+    ``prettify_blobs``. The first crop of each id sits on the grid
+    without noise, as the scene's codes do. Returns
+    (len(ids) * per_id, 32, 32) uint8 crops and their labels. An offset
+    of 1/8 px or more can grow the code's box by a faint column or row
+    (an eighth of the dark frame passes the threshold)."""
+    from trex_tpu_torch.track.blob import TrackBlob
+    from trex_tpu_torch.track.tags import prettify_blobs
+
+    rng = np.random.default_rng(seed)
+    up = 16
+    side = 6 * TAG_SCALE + 10
+    bg = np.full((side, side), 200, np.uint8)
+    blobs, labels = [], []
+    for tid in ids:
+        code = np.kron(tag_code(int(tid), TAG_SCALE).astype(np.float64),
+                       np.ones((up, up)))
+        for k in range(per_id):
+            dx, dy = (0, 0) if k == 0 else \
+                np.rint(rng.uniform(-jitter, jitter, 2) * up).astype(int)
+            canvas = np.full((side * up, side * up), 200.0)
+            y0, x0 = 5 * up + dy, 5 * up + dx
+            canvas[y0:y0 + code.shape[0], x0:x0 + code.shape[1]] = code
+            img = canvas.reshape(side, up, side, up).mean(axis=(1, 3))
+            if k:
+                img = img + rng.normal(0, noise, img.shape)
+            img = np.clip(np.rint(img), 0, 255).astype(np.uint8)
+            on = (200 - img.astype(np.int64)) > 20
+            lines, px = [], []
+            for y in np.flatnonzero(on.any(axis=1)):
+                xs = np.flatnonzero(on[y])
+                lines.append([y, xs[0], xs[-1]])
+                px.append(img[y, xs[0]:xs[-1] + 1])
+            blobs.append(TrackBlob(np.array(lines, np.int32),
+                                   np.concatenate(px)))
+            labels.append(int(tid))
+    crops = np.stack([t.image for t in prettify_blobs(
+        blobs, bg, max_size=[80, 80])])
+    return crops, np.asarray(labels, np.int64)
 
 
 def track_settings(n_fish=N_FISH):
@@ -3347,6 +3473,306 @@ def phase_vf(dev, report, bg, frames):
           + f"; phase {r['s']:.1f} s", flush=True)
 
 
+TAG_FISH = N_FISH
+TAG_FRAMES = 32
+TAG_HELD_FRAMES = (0, 10, 21, 31)
+TAG_PER_ID = 32
+TAG_EPOCHS = 12
+TAG_BATCH = 128
+TAG_LR = 1e-3
+# the scene's stamps and codes at twice synth_frames' size a side: the
+# codes 12 px a side, the fish 26-34 x 16-20 px
+TAG_SCALE = 2
+TAG_JITTER = 0.125   # px, the rendered crops' sub-pixel offsets
+TAG_NOISE = 3.0      # grey levels, the rendered crops' noise
+TAG_MIN_ACCURACY = 0.95   # tests/test_tagwork.py's
+# the twin tolerance of the tag network's forward
+# (tests/test_torch_tagwork.py: rtol 1e-4, atol 1e-3)
+TAG_RTOL, TAG_ATOL = 1e-4, 1e-3
+
+
+def tag_settings(n_fish=TAG_FISH):
+    """A tagged recording's settings for :func:`synth_scene` with codes
+    at :data:`TAG_SCALE`: grey storage, a ``max`` background, detection
+    on the card, the tracker's background subtraction at threshold 20, a
+    size filter (0.4-10 cm^2 at 0.05 cm a pixel: the fish hold 184-384
+    pixels, 0.46-0.96 cm^2) that leaves the 144-pixel codes (0.36 cm^2,
+    inside ``tags_size_range`` 0.08-2.0) as noise, no posture, and
+    ``track_engine=auto``."""
+    return dict(meta_encoding="gray", averaging_method="max",
+                detect_engine="device", track_engine="auto", frame_rate=25,
+                cm_per_pixel=0.1 / TAG_SCALE,
+                track_size_filter=[[0.4, 10.0]],
+                track_threshold=20, track_background_subtraction=True,
+                detect_threshold=20, calculate_posture=False,
+                track_max_individuals=n_fish)
+
+
+def read_png_gray(path) -> np.ndarray:
+    """An 8-bit grey, non-interlaced PNG as ``utils/drawing.write_png``
+    writes it (every row filter 0), decoded without OpenCV."""
+    import struct
+    import zlib
+
+    data = Path(path).read_bytes()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+            check(depth == 8 and color == 0, f"{path}: not 8-bit grey")
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    check(not raw[:, 0].any(), f"{path}: a row filter other than 0")
+    return raw[:, 1:].copy()
+
+
+def tag_identity_share(tracker, pos, tag_of_fish, max_px=12.0):
+    """The share of tracked (frame, identity) pairs whose identity is the
+    tag id of the scene's fish under its blob (the fish whose stamp
+    centre, at :data:`TAG_SCALE`, lies nearest the blob's centroid,
+    within `max_px`)."""
+    n = pos.shape[1]
+    half = TAG_SCALE * np.array([[(13 + k % 5) / 2, (8 + k % 3) / 2]
+                             for k in range(n)])
+    hits = pairs = 0
+    for fid, ind in tracker.individuals.items():
+        for b in ind.basic:
+            f = b.frame
+            if f >= len(pos):
+                continue
+            c = np.floor(pos[f]) + half
+            d = np.hypot(*(c - np.asarray(b.centroid.pos)).T)
+            k = int(np.argmin(d))
+            pairs += 1
+            hits += bool(d[k] <= max_px and tag_of_fish[k] == fid)
+    return hits / max(pairs, 1), pairs
+
+
+def phase_tags(dev, report):
+    """Physical tags at full width (phase 15 of the module docstring)."""
+    import shutil
+
+    import torch
+
+    import trex_tpu_torch.cli.trex as cli
+    import trex_tpu_torch.ml.auto_tags as auto_tags
+    from trex_tpu_torch import kernels
+    from trex_tpu_torch.export.results_binary import read_results
+    from trex_tpu_torch.io import hdf5
+    from trex_tpu_torch.ml.tagwork import (Tagwork, load_keras_sequential_h5,
+                                           save_keras_sequential_h5,
+                                           train_tag_decoder)
+    from trex_tpu_torch.track.tracker import Tracker
+
+    root = REPO / "build" / "smoke_tags"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    n_ids = 256
+    tag_of_fish = np.random.default_rng(15).permutation(n_ids)[:TAG_FISH]
+
+    # 1. the decoder, trained on the card from rendered crops
+    x, y = tag_crops(range(n_ids), TAG_PER_ID, seed=0, jitter=TAG_JITTER,
+                     noise=TAG_NOISE)
+    # held out: crops at the training offsets, and crops on the grid
+    # with noise, as the scene's codes sit
+    xh, yh = tag_crops(range(n_ids), 8, seed=1, jitter=TAG_JITTER,
+                       noise=TAG_NOISE)
+    xg, yg = tag_crops(range(n_ids), 8, seed=2, jitter=0.0,
+                       noise=TAG_NOISE)
+    # a short run first: cuDNN's and the fused Adam's first calls are
+    # not the step's time
+    train_tag_decoder(x[:2 * TAG_BATCH], y[:2 * TAG_BATCH], n_ids,
+                      epochs=1, batch_size=TAG_BATCH, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    net = train_tag_decoder(x, y, n_ids, epochs=TAG_EPOCHS,
+                            batch_size=TAG_BATCH, lr=TAG_LR, seed=0,
+                            device=dev)
+    sync()
+    train_s = time.perf_counter() - t0
+    steps = TAG_EPOCHS * -(-len(x) // TAG_BATCH)
+    check(net.device.type == "cuda", "tags: the decoder trained off the card")
+    h5 = root / "tags.h5"
+    specs = net.layer_specs()
+    save_keras_sequential_h5(h5, specs)
+    # the .h5 read back bit for bit
+    with hdf5.File(h5) as f:
+        cfg = json.loads(f.attrs["model_config"].decode())
+        check([(l["class_name"], l["config"]) for l in
+               cfg["config"]["layers"]] == [(k, c) for k, c, _ in specs],
+              "tags: the .h5's model_config differs from the layer specs")
+        for kind, c, ws in specs:
+            grp = f["model_weights"][c["name"]]
+            names = [n.decode() for n in grp.attrs["weight_names"]]
+            check(len(names) == len(ws), f"tags: {c['name']} weights")
+            for n, w in zip(names, ws):
+                got = grp[n][()]
+                check(got.dtype == np.float32 and got.shape == w.shape
+                      and got.tobytes() == np.asarray(w).tobytes(),
+                      f"tags: {c['name']}/{n} did not read back bit for "
+                      "bit")
+    tw = Tagwork(32, 32, h5, device=dev)
+    tw.load()
+    accuracy = float((tw.predict(xh) == yh).mean())
+    accuracy_grid = float((tw.predict(xg) == yg).mean())
+    check(min(accuracy, accuracy_grid) >= TAG_MIN_ACCURACY,
+          f"tags: the decoder's held-out accuracy {accuracy:.4f} at "
+          f"{TAG_JITTER} px offsets, {accuracy_grid:.4f} on the grid; "
+          f"< {TAG_MIN_ACCURACY}")
+
+    # 2. the scene, converted with detection on the card
+    values = tag_settings()
+    _, frames, pos = synth_scene(TAG_FRAMES, n_fish=TAG_FISH, size=SIZE,
+                                 codes=[tag_code(int(t), TAG_SCALE)
+                                        for t in tag_of_fish],
+                                 scale=TAG_SCALE)
+    pv = root / "t.pv"
+    _, convert_s = convert(dev, frames, pv, values, False)
+
+    # 3. the track task with the tag network on the card
+    flags = ["-tags_recognize", "true", "-tags_model_path", str(h5),
+             "-tags_path", "tags", "-tags_save_predictions", "true"]
+    run = track_cli(dev, pv, root / "track", values, "auto", flags)
+    tr = run["tracker"]
+    check(type(tr) is Tracker and "tags_recognize" in tr.engine_choice,
+          f"tags: the track task picked {type(tr).__name__} "
+          f"({getattr(tr, 'engine_choice', None)})")
+    dec = tr.tag_decoder
+    check(dec is not None and dec.tw.model.device.type == "cuda",
+          "tags: the tag network did not run on the card")
+    st = tr.tag_stats
+    n_assigned = sum(len(v) for v in tr.tag_assignments.values())
+    check(st.get("frames") == TAG_FRAMES and st["decoded"] > 0
+          and n_assigned > 0,
+          f"tags: the track task decoded no tags ({st}, {n_assigned})")
+
+    # 4. card against the port's CPU path on the held frames' crops
+    cpu = load_keras_sequential_h5(h5, device="cpu")
+    by_frame = {}
+    for fid, tags in tr.detected_tags.items():
+        for t in tags:
+            by_frame.setdefault(t.frame, []).append(t)
+    held = dict(crops=0, decided=0, max_abs=0.0)
+    for f in TAG_HELD_FRAMES:
+        tags = by_frame.get(f, [])
+        check(len(tags) > 0, f"tags: no tag matched at frame {f}")
+        inv = 255.0 - np.stack([t.image for t in tags]).astype(np.float64)
+        card = dec.tw.model.predict(inv)
+        plain = cpu.predict(inv)
+        err = np.abs(card - plain)
+        tol = TAG_ATOL + TAG_RTOL * np.abs(plain)
+        check((err <= tol).all(),
+              f"tags: frame {f}: card logits depart from the CPU path's by "
+              f"{err.max():.3g}")
+        top2 = np.sort(plain, axis=1)[:, -2:]
+        sure = (top2[:, 1] - top2[:, 0]) > 2 * tol.max(axis=1)
+        check((card.argmax(1)[sure] == plain.argmax(1)[sure]).all()
+              and (card.argmax(1) == [t.tag_id for t in tags]).all(),
+              f"tags: frame {f}: the card's ids depart from the CPU path's")
+        held["crops"] += len(tags)
+        held["decided"] += int(sure.sum())
+        held["max_abs"] = max(held["max_abs"], float(err.max()))
+
+    # 5. the exports: the tags npz, the PNGs, the .results' tag block
+    out = root / "track"
+    with np.load(out / "tags.npz") as z:
+        for fid, tags in tr.detected_tags.items():
+            check(np.array_equal(z[f"fish{fid}_images"],
+                                 np.stack([t.image for t in tags]))
+                  and np.array_equal(z[f"fish{fid}_ids"],
+                                     [t.tag_id for t in tags]),
+                  f"tags: the npz's fish{fid} differs from its tags")
+    n_png = 0
+    for fid, tags in tr.detected_tags.items():
+        for t in tags:
+            png = out / "tags_t" / f"tag {t.tag_id}" / \
+                f"f{t.frame}_id{fid}.png"
+            check(np.array_equal(read_png_gray(png), t.image),
+                  f"tags: {png} does not decode to its crop")
+            n_png += 1
+    res_tags = read_results(run["results"]).tags
+    n_res = sum(len(d) for d in res_tags.values())
+    check(n_res > 0 and all(
+        tid in tr.tag_assignments.get(f, {}).values()
+        for tid, d in res_tags.items() for f in d),
+        "tags: the .results carries no tags or others than the tracker's")
+
+    # 6. -load -auto_tags: identities from the stored tags, re-track
+    share_before, pairs_before = tag_identity_share(tr, pos, tag_of_fish)
+    shutil.copy(run["results"], pv.with_suffix(".results"))
+    with Spy((cli, "_auto_tags"), (auto_tags, "apply_tags")) as spy:
+        fix = track_cli(dev, pv, root / "auto_tags", values, "auto",
+                        ["-load", "-auto_tags", "true"])
+    _, corr = spy.returned["apply_tags"][0]
+    rt = fix["tracker"]
+    check(corr.reassigned > 0 and fix["runs"] == 1,
+          f"tags: -auto_tags reassigned {corr.reassigned} tracklets, "
+          f"{fix['runs']} re-tracks")
+    share_after, pairs_after = tag_identity_share(rt, pos, tag_of_fish)
+    check(share_after > share_before,
+          f"tags: -auto_tags left the share of identities equal to their "
+          f"tag ids at {share_after:.3f} (before {share_before:.3f})")
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    r = dict(
+        fish=TAG_FISH, frames=TAG_FRAMES, ids=n_ids,
+        train=dict(images=len(x), epochs=TAG_EPOCHS, steps=steps,
+                   s=train_s, ms_per_step=train_s / steps * 1e3,
+                   images_per_s=TAG_EPOCHS * len(x) / train_s,
+                   held_out_accuracy=accuracy,
+                   held_out_grid_accuracy=accuracy_grid,
+                   held_out=len(xh) + len(xg)),
+        per_frame=dict(
+            candidates=st["candidates"] / TAG_FRAMES,
+            past_variance=st["variance"] / TAG_FRAMES,
+            past_shape=st["shape"] / TAG_FRAMES,
+            decoded=st["decoded"] / TAG_FRAMES,
+            matched=n_assigned / TAG_FRAMES,
+            host_s=st["host_s"] / TAG_FRAMES,
+            decode_wall_s=st["decode_s"] / TAG_FRAMES,
+            decode_calls=dec.calls),
+        held=held, convert_s=convert_s, track_s=run["wall_s"],
+        tracking_s=run["track_s"], auto_tags_s=spy.seconds["_auto_tags"],
+        retrack_s=fix["track_s"], load_s=fix["wall_s"],
+        reassigned=corr.reassigned, identities=len(corr.ranges),
+        share_before=share_before, share_after=share_after,
+        pairs=(pairs_before, pairs_after), pngs=n_png, results_tags=n_res,
+        peak_mem_gb=peak / 1e9, kernel_launches=dict(kernels.launches),
+        s=time.perf_counter() - t_phase)
+    report["tags"] = r
+    pf = r["per_frame"]
+    print(f"phase 15 ok: tags at {TAG_FISH} fish, {SIZE}^2, {TAG_FRAMES} "
+          f"frames, {6 * TAG_SCALE} px codes: decoder trained on the card "
+          f"({len(x)} crops, {steps} steps, "
+          f"{r['train']['ms_per_step']:.3f} ms a step, "
+          f"{r['train']['images_per_s']:.0f} images/s), held-out accuracy "
+          f"{accuracy:.4f} at {TAG_JITTER} px offsets and "
+          f"{accuracy_grid:.4f} on the grid; a frame "
+          f"{pf['candidates']:.1f} candidates, "
+          f"{pf['past_variance']:.1f} past the variance gate, "
+          f"{pf['past_shape']:.1f} past the shape test, {pf['decoded']:.1f} "
+          f"decoded, {pf['matched']:.1f} matched; host clock "
+          f"{pf['host_s'] * 1e3:.2f} ms of crops and gates and "
+          f"{pf['decode_wall_s'] * 1e3:.3f} ms of decode calls (copies, "
+          f"forward, wait) a frame; card == CPU on "
+          f"{held['crops']} crops of frames {list(TAG_HELD_FRAMES)} (max "
+          f"{held['max_abs']:.3g}, {held['decided']} decided ids equal); "
+          f"track task {r['track_s']:.2f} s, -auto_tags {r['load_s']:.2f} s "
+          f"(re-track {r['retrack_s']:.2f} s, {corr.reassigned} "
+          f"reassigned); identity == tag id {share_before:.4f} -> "
+          f"{share_after:.4f}; {n_png} PNGs, {n_res} .results tags; peak "
+          f"{peak / 1e9:.2f} GB; phase {r['s']:.1f} s", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the report as JSON here")
@@ -3381,6 +3807,7 @@ def main():
     phase_vi(dev, report)
     phase_vi_train(dev, report)
     phase_vf(dev, report, *chunk[:2])
+    phase_tags(dev, report)
     report["total_s"] = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3398,7 +3825,7 @@ def main():
     print(json.dumps({k: report[k] for k in (
         "detect", "label", "track", "device_tracker", "auto_split",
         "posture", "decay", "archive", "product", "object", "vi",
-        "vi_train", "vf", "build_s", "total_s")}))
+        "vi_train", "vf", "tags", "build_s", "total_s")}))
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

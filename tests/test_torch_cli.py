@@ -11,13 +11,15 @@ output_statistics, output_heatmaps, track_annotations and the
 gui_show_memory_stats lines write the JAX CLI's bytes and lines too
 (the statistics' wall-clock columns compared for shape and finiteness
 only), and `pvinfo` prints the JAX inspector's lines. Also: argument
-parsing, task inference, the rst task, the options that raise naming
-their ROADMAP.md item, -output_visual_fields and closed_loop_enable, and
+parsing, task inference, the rst task, the options the port once
+refused (tags among them), -output_visual_fields and closed_loop_enable, and
 -auto_apply and the VI exports without a network, as the JAX CLI runs
 them (tests/test_torch_vi_apply.py runs
 them with one). -auto_train runs the accumulation as the JAX CLI does,
 with its saved training images, progress and debug images, and its
-auto_train_on_startup failure."""
+auto_train_on_startup failure. A tagged scene goes through
+-tags_recognize with tags_path and tags_save_predictions, then -load
+-auto_tags, as through the JAX CLI."""
 import shutil
 import struct
 from pathlib import Path
@@ -177,8 +179,11 @@ def test_rst_task_equals_jax(tmp_path):
     # ported: without categories_ordered both CLIs print the same note
     (["-auto_categorize", "true"], None,
      "[auto_categorize] categories_ordered is empty", True),
-    (["-auto_tags", "true"], NotImplementedError, "A item 3d", False),
-    (["-tags_path", "tags"], NotImplementedError, "A item 3d", False),
+    # ported: -auto_tags without -load prints the JAX CLI's note; the
+    # tags_path export without tag detection writes no tags file
+    (["-auto_tags", "true"], None, "Can currently only use auto_tags",
+     True),
+    (["-tags_path", "tags"], None, "vid_id0.npz", True),
     # ported: the visual fields of every posture frame, with and without
     # view-blocking shapes
     (["-output_visual_fields", "true"], None, "vid_visual_field_id0.npz",
@@ -190,8 +195,9 @@ def test_rst_task_equals_jax(tmp_path):
     (["-output_recognition_data", "true"], None, "vid_id0.npz", True),
     (["-output_tracklet_images", "true"], None, "vid_tracklet_images.npz",
      True),
-    (["-track_engine", "object", "-tags_enable", "true"], EngineUnsupported,
-     "A item 3d", False),
+    # ported: the object Tracker looks for tags among the noise blobs
+    (["-track_engine", "object", "-tags_enable", "true"], None,
+     "vid_id0.npz", True),
     # ported: the object Tracker runs the loop; without the user module
     # both CLIs print the same note and write the same files
     (["-track_engine", "object", "-closed_loop_enable", "true"], None,
@@ -199,14 +205,14 @@ def test_rst_task_equals_jax(tmp_path):
 ])
 def test_unported_options_raise_naming_their_item(video, capfd, flags, exc,
                                                   item, jax):
-    """The options the port does not have yet (tags) raise before any
-    frame, naming their ROADMAP.md item; the ones the port has since the
-    VI and visual-field slices behave as the JAX CLI does: -auto_apply
-    without weights prints its note (`item`) and writes the same files,
-    the fast engine refuses it with the same message, -auto_train (short,
-    not applied) and the exports write the JAX CLI's files (`item` names
-    one of them), -auto_categorize without categories and
-    closed_loop_enable without its module print the JAX CLI's note."""
+    """Every option the port once refused before any frame behaves as
+    the JAX CLI does: -auto_apply without weights prints its note
+    (`item`) and writes the same files, the fast engine refuses it with
+    the same message, -auto_train (short, not applied), the exports,
+    tags_path and tags_enable write the JAX CLI's files (`item` names one
+    of them), -auto_categorize without categories, closed_loop_enable
+    without its module and -auto_tags without -load print the JAX CLI's
+    note."""
     root, src = video
     out = root / "port_fast"
     if not (out / "vid.pv").exists():
@@ -227,9 +233,9 @@ def test_unported_options_raise_naming_their_item(video, capfd, flags, exc,
             capfd.readouterr()
             assert _run(cli, reset, a, **kw) == 0
             err = capfd.readouterr().err
-            assert (item in err) == item.startswith("[")
+            assert (item in err) == (not item.endswith(".npz"))
         want = _assert_trees_equal(dirs["j"], dirs["p"])
-        assert f"data/{item}" in want or item.startswith("[")
+        assert f"data/{item}" in want or not item.endswith(".npz")
         assert not any("_recognition_" in k for k in want)
         return
     with pytest.raises(exc, match=item) as got:
@@ -557,3 +563,154 @@ def test_auto_train_on_startup_failure_exits_as_jax(video, same_start):
         assert not (pv.parent / "vid_weights.npz").exists()
         assert not same_start[k].success
     assert msgs[1] == msgs[0] and "auto_train_on_startup" in msgs[0]
+
+
+# a tagged scene: chip_smoke's fish at 256^2, each carrying its 6x6 code
+TAG_IDS = [11, 48, 85, 122, 159, 196]
+TAG_SETTINGS = ["-cm_per_pixel", "0.1", "-track_size_filter",
+                "[[0.4,10.0]]", "-track_threshold", "20",
+                "-track_background_subtraction", "true",
+                "-detect_threshold", "20", "-track_max_individuals",
+                str(len(TAG_IDS))]
+# the decode confidence p: the two packages' float32 forwards part in
+# the last bits of the logits
+TAG_P_TOL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def tag_video(tmp_path_factory):
+    """The tagged scene (6 fish, 16 frames) converted by the JAX CLI, and
+    a seeded tag network (TagDecoderNet at 32x32, 256 classes) written by
+    the port's HDF5 writer."""
+    import chip_smoke
+    from trex_tpu_torch.ml.tagwork import TagDecoderNet, \
+        save_keras_sequential_h5
+
+    root = tmp_path_factory.mktemp("tags")
+    bg, frames, _ = chip_smoke.synth_scene(
+        16, n_fish=len(TAG_IDS), size=256, seed=2,
+        codes=[chip_smoke.tag_code(t) for t in TAG_IDS])
+    (root / "vid").mkdir()
+    for i, img in enumerate(frames):
+        cv2.imwrite(str(root / "vid" / f"f_{i:03d}.png"), img)
+    out = root / "conv"
+    assert _run(jax_cli, jax_reset, [
+        "-i", str(root / "vid" / "f_%03d.png"), "-o", "vid", "-d",
+        str(out), "-task", "convert", "-nowindow", "-average_samples", "5",
+        "-meta_encoding", "gray", "-averaging_method", "max",
+        *TAG_SETTINGS]) == 0
+    model = root / "tags.h5"
+    save_keras_sequential_h5(model, TagDecoderNet(
+        256, 32, seed=4, device="cpu").layer_specs())
+    return out / "vid.pv", model
+
+
+def _tag_blocks_equal(a: Path, b: Path):
+    """Two .results equal but for the tag block's p, which agrees within
+    TAG_P_TOL; returns the tag block."""
+    from trex_tpu_torch.export.results_binary import read_results, \
+        write_results
+
+    ra, rb = read_results(a), read_results(b)
+    assert ra.tags.keys() == rb.tags.keys()
+    for tid, dets in ra.tags.items():
+        assert dets.keys() == rb.tags[tid].keys()
+        for f, (bid, p) in dets.items():
+            assert rb.tags[tid][f][0] == bid
+            assert abs(rb.tags[tid][f][1] - p) <= TAG_P_TOL
+    rb.tags = ra.tags
+    write_results(a.with_suffix(".same"), ra, ra.version)
+    write_results(b.with_suffix(".same"), rb, rb.version)
+    assert a.with_suffix(".same").read_bytes() \
+        == b.with_suffix(".same").read_bytes()
+    return ra.tags
+
+
+def test_tags_recognize_then_auto_tags_equal_jax(tag_video, capfd):
+    """-tags_recognize with the model, -tags_path and
+    -tags_save_predictions, then -load -auto_tags, through both CLIs on
+    the CPU: the tracker's tag assignments, the .results tag blocks (p
+    within TAG_P_TOL), the tags npz, the crops' pixels (the PNG bytes
+    differ: cv2.imwrite against the port's writer), the corrections and
+    the re-tracked files."""
+    from trex_tpu.pipeline import TrackingState as JaxState
+    from trex_tpu_torch.pipeline import TrackingState as PortState
+
+    pv, model = tag_video
+    root = pv.parent.parent
+    flags = ["-tags_recognize", "true", "-tags_model_path", str(model),
+             "-tags_path", "tags", "-tags_save_predictions", "true",
+             "-output_fields", '[["X",["RAW"]],["frame",[]],["qr_id",[]],'
+             '["qr_p",[]]]', *TAG_SETTINGS]
+    trackers = {}
+    for k, cli, reset, state, kw in (
+            ("j", jax_cli, jax_reset, JaxState, {}),
+            ("p", port_cli, reset_global_settings, PortState,
+             {"device": "cpu"})):
+        p = _copy_pv(pv, root / f"tags_{k}")
+        run = state.run
+
+        def spy(self, _run=run, _k=k):
+            trackers[_k] = _run(self)
+            return trackers[_k]
+        state.run = spy
+        try:
+            assert _run(cli, reset, _track_task(p, *flags), **kw) == 0
+        finally:
+            state.run = run
+    jt, pt = trackers["j"], trackers["p"]
+    assert type(pt).__name__ == "Tracker"
+    assert pt.tag_assignments == jt.tag_assignments
+    assert sum(len(v) for v in pt.tag_assignments.values()) >= 60
+    jd, pd = root / "tags_j", root / "tags_p"
+    tags = _tag_blocks_equal(jd / "vid.results", pd / "vid.results")
+    assert tags
+    want, got = _tree(jd), _tree(pd)
+    assert sorted(got) == sorted(want)
+    n_png = n_qr = 0
+    for name in want:
+        if name.startswith("t/data/") and name.endswith(".npz"):
+            # the qr_* fields fill from the tag assignments; qr_p is the
+            # decode confidence (TAG_P_TOL)
+            with np.load(jd / name) as a, np.load(pd / name) as b:
+                assert sorted(a.files) == sorted(b.files)
+                for key in a.files:
+                    if key == "qr_p":
+                        np.testing.assert_allclose(b[key], a[key], rtol=0,
+                                                   atol=TAG_P_TOL)
+                    else:
+                        np.testing.assert_array_equal(b[key], a[key])
+                if "qr_id" in a.files:
+                    n_qr += int(np.isfinite(a["qr_id"]).sum())
+        elif name.endswith(".png"):
+            a = cv2.imread(str(jd / name), cv2.IMREAD_UNCHANGED)
+            b = cv2.imread(str(pd / name), cv2.IMREAD_UNCHANGED)
+            assert a.dtype == b.dtype and np.array_equal(a, b), name
+            n_png += 1
+        elif not name.endswith((".results", ".same")):
+            assert want[name] == got[name], name
+    assert n_png > 0 and n_qr > 0 and "t/tags.npz" in want
+    with np.load(jd / "t" / "tags.npz") as a, \
+            np.load(pd / "t" / "tags.npz") as b:
+        assert sorted(a.files) == sorted(b.files) and a.files
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k])
+    # -load -auto_tags: votes from the stored tags, corrections, re-track
+    lines = {}
+    for k, cli, reset, kw in (("j", jax_cli, jax_reset, {}),
+                              ("p", port_cli, reset_global_settings,
+                               {"device": "cpu"})):
+        capfd.readouterr()
+        assert _run(cli, reset, _track_task(
+            root / f"tags_{k}" / "vid.pv", "-load", "-auto_tags", "true",
+            *TAG_SETTINGS), **kw) == 0
+        lines[k] = [ln for ln in capfd.readouterr().out.splitlines()
+                    if ln.startswith("[auto_tags]")]
+    assert lines["p"] == lines["j"]
+    assert any("re-tracking" in ln for ln in lines["p"])
+    assert not any("reassigned=0 " in ln for ln in lines["p"])
+    _tag_blocks_equal(jd / "vid.results", pd / "vid.results")
+    want, got = _tree(jd / "t" / "data"), _tree(pd / "t" / "data")
+    assert want and sorted(got) == sorted(want)
+    for name in want:
+        assert want[name] == got[name], name

@@ -1,5 +1,5 @@
-"""The port stands alone: it imports neither JAX nor trex_tpu (nor, at
-import time, OpenCV, which the machine with the card lacks), and its
+"""The port stands alone: it imports neither JAX nor trex_tpu (nor h5py,
+nor, at import time, OpenCV, which the machine with the card lacks), and its
 entry points do not fall back to the CPU without being asked."""
 import os
 import pkgutil
@@ -17,6 +17,7 @@ _PROBE = """
 import sys
 sys.modules["jax"] = None
 sys.modules["cv2"] = None
+sys.modules["h5py"] = None
 import importlib, pkgutil
 import trex_tpu_torch
 names = ["trex_tpu_torch"] + [
@@ -38,7 +39,7 @@ def test_port_imports_without_jax_or_trex_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.split(" ", 1)
-    assert int(n) >= 74 and bad.strip() == "[]"
+    assert int(n) >= 82 and bad.strip() == "[]"
 
 
 def test_no_jax_import_lines():
@@ -56,6 +57,27 @@ def test_no_jax_import_lines():
                             or s.startswith(f"from {mod}.")), (f, s)
 
 
+def test_no_h5py_anywhere_and_no_cv2_in_the_tag_modules():
+    """The card's machine has neither h5py nor OpenCV: no module of the
+    port imports h5py, and the tag slice's modules import no cv2 (the
+    older lazy cv2 imports for video decode and optional image operations
+    stay)."""
+    tag_modules = {"io/hdf5.py", "track/tag_image.py", "track/tags.py",
+                   "ml/tagwork.py", "ml/auto_tags.py"}
+    root = REPO / "trex_tpu_torch"
+    seen = set()
+    for f in root.rglob("*.py"):
+        rel = f.relative_to(root).as_posix()
+        mods = ("h5py", "cv2") if rel in tag_modules else ("h5py",)
+        seen.add(rel)
+        for line in f.read_text().splitlines():
+            s = line.strip()
+            for mod in mods:
+                assert not (s.startswith(f"import {mod}")
+                            or s.startswith(f"from {mod}")), (rel, s)
+    assert tag_modules <= seen
+
+
 def test_entry_points_need_cuda_unless_cpu_asked():
     from trex_tpu_torch import resolve_device
     from trex_tpu_torch.ops.device_pipeline import detect_batch
@@ -63,6 +85,8 @@ def test_entry_points_need_cuda_unless_cpu_asked():
         _carry_to_vec, _detect_kwargs, _init_carry, default_split_spec,
         fused_scan_packed, make_aux, params_from_settings, scan_packed,
         track_video_device)
+    from trex_tpu_torch.ml.tagwork import (KerasSequential, TagDecoderNet,
+                                           train_tag_decoder)
     from trex_tpu_torch.track.device_engine import DeviceTracker
 
     if torch.cuda.is_available():
@@ -88,6 +112,10 @@ def test_entry_points_need_cuda_unless_cpu_asked():
               lambda: fused_scan_packed(frames, frames[0], aux, P,
                                         split_spec=default_split_spec(auto),
                                         **kw)]
+    # the tag network (B13) and its training step
+    crops = np.zeros((2, 16, 16), np.uint8)
+    calls += [lambda: KerasSequential([]), lambda: TagDecoderNet(4, 16),
+              lambda: train_tag_decoder(crops, np.zeros(2), 4, epochs=1)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -97,6 +125,7 @@ def test_entry_points_need_cuda_unless_cpu_asked():
                       split_spec=default_split_spec(auto), device="cpu",
                       **kw)
     DeviceTracker(auto, frames[0], device="cpu").track_frames(frames)
+    train_tag_decoder(crops, np.zeros(2), 4, epochs=1, device="cpu")
 
 
 def test_stencil_on_other_devices_raises():
@@ -118,14 +147,17 @@ def test_host_labeler_built_from_the_port():
     """The replay's labeler is compiled from trex_tpu_torch/native, never
     loaded from the JAX package's library; beside the copies of native/
     it holds the port's own warp.cpp (the identity crops' warp, which the
-    JAX package takes from OpenCV) and hostmath.cpp (the C library's
-    atan2f for the visual fields' CPU path, which XLA calls)."""
+    JAX package takes from OpenCV), hostmath.cpp (the C library's
+    atan2f for the visual fields' CPU path, which XLA calls) and
+    contours.cpp (tag detection's contour routines, OpenCV's in the JAX
+    package)."""
     from trex_tpu_torch.ops import labeling
 
     assert labeling.NATIVE == REPO / "trex_tpu_torch" / "native"
     assert labeling.SOURCES == ("labeling.cpp", "tracker_core.cpp",
                                 "posture_chain.cpp", "lzo1x.cpp",
-                                "imageops.cpp", "warp.cpp", "hostmath.cpp")
+                                "imageops.cpp", "warp.cpp", "hostmath.cpp",
+                                "contours.cpp")
     assert sorted(p.name for p in labeling.NATIVE.iterdir()) \
         == sorted(labeling.SOURCES + labeling.HEADERS)
     lib = labeling._lib()
@@ -160,7 +192,9 @@ def test_package_lists_every_module():
                  "models.training", "ml.vi_facade", "ml.uniqueness",
                  "ml.auto_correct", "ml.accumulation", "ml.learn_static",
                  "track.dataset_quality", "track.foi", "utils.drawing",
-                 "ops.raycast", "track.visual_field", "closed_loop"):
+                 "ops.raycast", "track.visual_field", "closed_loop",
+                 "io.hdf5", "track.tag_image", "track.tags",
+                 "ml.tagwork", "ml.auto_tags"):
         assert f"trex_tpu_torch.{name}" in mods
 
 

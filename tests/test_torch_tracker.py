@@ -31,7 +31,6 @@ from trex_tpu_torch.ml.categorize import DataStore
 from trex_tpu_torch.track import matching
 from trex_tpu_torch.track.blob import TrackBlob
 from trex_tpu_torch.track.cache_batch import compute_caches
-from trex_tpu_torch.track.engine import EngineUnsupported
 from trex_tpu_torch.track.individual import Individual
 from trex_tpu_torch.track.tracker import FrameStatistics, Tracker
 
@@ -123,7 +122,8 @@ def drive(values, frames, bg, times=None, setup=None):
     """Both trackers over `frames` (lists of (lines, pixels, flags));
     returns them after holding every frame's integers equal."""
     js, ps = both_settings(values)
-    ref, got = JaxTracker(js, background=bg), Tracker(ps, background=bg)
+    ref = JaxTracker(js, background=bg)
+    got = Tracker(ps, background=bg, device="cpu")
     if setup is not None:
         setup(ref, got)
 
@@ -390,7 +390,51 @@ def test_frame_statistics_has_every_field():
         "posture_seconds", "match_improvements"]
 
 
-def test_tags_raise_naming_their_item():
-    s = apply(reset_global_settings(), dict(tags_enable=True))
-    with pytest.raises(EngineUnsupported, match="A item 3d"):
-        Tracker(s)
+def _tag_scene(n_fish=8, n_frames=8):
+    """chip_smoke's tagged fish at 256^2: each fish carries its 6x6 code,
+    noise beside the fish under the size filter."""
+    ids = [(37 * k + 11) % 256 for k in range(n_fish)]
+    bg, frames, _ = chip_smoke.synth_scene(
+        n_frames, n_fish=n_fish, size=256, seed=1,
+        codes=[chip_smoke.tag_code(t) for t in ids])
+    values = dict(TRACKING, cm_per_pixel=0.1,
+                  track_size_filter=[[0.4, 10.0]], track_threshold=20,
+                  detect_threshold=20, track_max_individuals=n_fish)
+    return bg, frames, values
+
+
+@pytest.mark.parametrize("mode", ["tags_enable", "tags_recognize"])
+def test_tags_detect_and_match_like_jax(tmp_path, mode):
+    """Tracker(..., device="cpu") with tags_enable (detection) and
+    tags_recognize (detection and the keras decoder, a seeded
+    TagDecoderNet written by the JAX package): the tags matched to each
+    identity a frame, their ids, crops, variances and centres equal the
+    JAX Tracker's; the decode confidence p within 1e-6."""
+    from trex_tpu.ml.tagwork import TagDecoderNet as JaxTagNet
+    from trex_tpu.ml.tagwork import save_keras_sequential_h5
+
+    bg, frames, values = _tag_scene()
+    values = dict(values, **{mode: True})
+    if mode == "tags_recognize":
+        path = tmp_path / "tags.h5"
+        save_keras_sequential_h5(path, JaxTagNet(256, 32, seed=5)
+                                 .layer_specs())
+        values.update(tags_model_path=str(path), tags_image_size=[32, 32])
+    ref, got = drive(values, detected(frames, bg, values), bg)
+    assert (ref.tag_decoder is None) == (got.tag_decoder is None) \
+        == (mode == "tags_enable")
+    assert got.tag_assignments == ref.tag_assignments
+    assert sum(len(v) for v in got.tag_assignments.values()) >= 40
+    assert got.tag_assignment_p.keys() == ref.tag_assignment_p.keys()
+    for f, per in ref.tag_assignment_p.items():
+        assert per.keys() == got.tag_assignment_p[f].keys()
+        for fid, p in per.items():
+            assert abs(got.tag_assignment_p[f][fid] - p) <= 1e-6
+    assert got.detected_tags.keys() == ref.detected_tags.keys()
+    for fid, tags in ref.detected_tags.items():
+        for a, b in zip(tags, got.detected_tags[fid]):
+            assert (a.frame, a.tag_id, a.blob_id, a.center, a.variance) \
+                == (b.frame, b.tag_id, b.blob_id, b.center, b.variance)
+            assert a.image.tobytes() == b.image.tobytes()
+            assert a.mask.tobytes() == b.mask.tobytes()
+    assert got.tag_stats["frames"] == len(frames)

@@ -22,9 +22,15 @@ bfloat16 on 128-batches, as ``chip_smoke.py`` phase 13 trains it), and
 one frame's visual-field projection (``raycast_251``:
 ``ops/raycast.py::_visual_field`` on ``chip_smoke.vf_scene`` with 251
 fish of 256 points and shapes of 20000 and 10000 points in a 1024^2
-arena, the size of ``chip_smoke.py`` phase 14's frames).
+arena, the size of ``chip_smoke.py`` phase 14's frames), and one
+frame's tag decode (``tag_decode_256``: the default tag network,
+``TagDecoderNet(256, 32)`` as a keras ``KerasSequential``, on 256 rendered
+tag crops through ``TagDecoder.batch``, one forward with the copies in
+and out and the ids and confidences, as ``chip_smoke.py`` phase 15's
+tracker decodes a frame).
 ``--only`` profiles the named targets alone. For each it
-prints the host wall time, the summed device time of the kernels and the
+prints the host wall time (under the profiler, and of one more warm call
+without it), the summed device time of the kernels and the
 device's idle share over the call, the kernels with the most device time,
 the PyTorch operators that launched most of it, and the port's own CUDA
 kernels (each pass of the labeler ``ccl_*`` and the stencil
@@ -51,6 +57,12 @@ def profile_call(fn, top=12) -> dict:
 
     fn()
     torch.cuda.synchronize()
+    # one more warm call without the profiler: for calls of a few
+    # milliseconds the profiler's own start dominates its wall
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain_wall_us = (time.perf_counter() - t0) * 1e6
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -93,6 +105,7 @@ def profile_call(fn, top=12) -> dict:
     return {
         "ranges": ranges,
         "wall_ms": wall_us / 1e3,
+        "wall_unprofiled_ms": plain_wall_us / 1e3,
         "device_ms": device_us / 1e3,
         "idle_share": (1.0 - device_us / wall_us) if device_us else None,
         "launches": sum(e.count for e in kern),
@@ -173,6 +186,19 @@ def main():
             pts, ids, valid.astype(np.int32), eye_pos, eye_angle)]
         return lambda: _visual_field(*t, float(max_d))
 
+    def tag_decode(n=256):
+        from trex_tpu_torch.ml.tagwork import (KerasSequential, TagDecoder,
+                                               TagDecoderNet, Tagwork,
+                                               _Layer)
+
+        specs = TagDecoderNet(256, 32, seed=0, device=dev).layer_specs()
+        tw = Tagwork(32, 32, None, device=dev)
+        tw.model = KerasSequential([_Layer(k, c, w) for k, c, w in specs],
+                                   device=dev)
+        crops, _ = smoke.tag_crops(range(n), 1)
+        dec = TagDecoder(tw)
+        return lambda: dec.batch(list(crops))
+
     targets = {
         "detect_batch_pallas_32": lambda: detect_batch(
             fr[:32], bgt, use_pallas=True, device=dev, **kw),
@@ -198,6 +224,7 @@ def main():
             caps=smoke.TRACK_CAPS, device=dev).track_frames(frames[:32]),
         "vi_train_step_128": vi_train_steps(),
         "raycast_251": raycast(),
+        "tag_decode_256": tag_decode(),
     }
     report = {name: profile_call(fn) for name, fn in targets.items()
               if not args.only or name in args.only}
@@ -209,7 +236,8 @@ def main():
         if name == "card":
             continue
         share = r["idle_share"]
-        print(f"{name}: wall {r['wall_ms']:.2f} ms, device "
+        print(f"{name}: wall {r['wall_ms']:.2f} ms "
+              f"({r['wall_unprofiled_ms']:.2f} ms without the profiler), device "
               f"{r['device_ms']:.2f} ms, idle share "
               f"{'not measured' if share is None else f'{share:.3f}'}, "
               f"{r['launches']} kernel launches")

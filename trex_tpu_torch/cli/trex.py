@@ -26,8 +26,11 @@ with the corrections; ``output_recognition_data`` and
 crops. ``-auto_categorize`` trains the category MLP on the card from
 the labeled ranges and labels every long tracklet.
 ``output_visual_fields`` exports every posture frame's visual fields,
-projected on the card. What the port does not have yet raises, naming
-its ROADMAP.md item: tags (``auto_tags``, ``tags_path``: 3d).
+projected on the card. ``tags_recognize`` decodes the tags among the
+noise blobs with the keras network of ``tags_model_path`` on the card
+(``tags_path`` exports them, ``tags_save_predictions`` their crops);
+``-load -auto_tags`` reassigns identities from the stored tag
+detections and re-tracks.
 
     python -m trex_tpu_torch.cli.trex -i <video|.pv> -d <dir> -auto_quit \
         -detect_engine device -track_engine device
@@ -294,28 +297,8 @@ def _generate_rst(s) -> str:
     return "\n".join(lines)
 
 
-_TAGS = "comes with the tags slice (ROADMAP.md A item 3d)"
-
-# options whose modules the port does not have yet, with their items
-_UNPORTED_TRACK = (
-    ("auto_tags", "auto_tags needs -load and the tag model; it " + _TAGS),
-    ("auto_tags_on_startup", "auto_tags_on_startup " + _TAGS),
-    ("tags_path", "tags_path (tag detections) " + _TAGS))
-
-
-def _refuse_unported(s):
-    """Raise for the options whose modules the port does not have yet,
-    before any frame is tracked."""
-    for key, what in _UNPORTED_TRACK:
-        value = s[key]
-        if value and (not isinstance(value, str) or value.strip()):
-            raise NotImplementedError(what)
-
-
 def _run_task(task, source, name, out_base, data_dir, s, sig, args,
               auto_quit, load, matching_log, progress, device=None):
-    if task == "track":
-        _refuse_unported(s)
     if task == "convert":
         if not source:
             print("no input (-i) given", file=sys.stderr)
@@ -423,6 +406,7 @@ def _run_task(task, source, name, out_base, data_dir, s, sig, args,
             from ..utils.memstats import tracker_memory_stats
 
             tracker_memory_stats(tracker).print()
+        _export_tags(tracker, s, out_base, name)
         _dump_timing(s)
         if matching_log:
             _write_matching_log(tracker, out_base / str(matching_log))
@@ -432,6 +416,10 @@ def _run_task(task, source, name, out_base, data_dir, s, sig, args,
                               device)
         if s["auto_categorize"]:
             _auto_categorize(tracker, s, state, device)
+        if s["auto_tags"] or s["auto_tags_on_startup"]:
+            # auto_tags_on_startup: the startup trigger for the same
+            # physical-tag correction flow
+            _auto_tags(tracker, state, s, load)
         if auto_quit and not s["auto_no_outputs"]:
             # every engine serves the full export surface in archive
             # mode (need_individuals default True)
@@ -451,6 +439,31 @@ def _run_task(task, source, name, out_base, data_dir, s, sig, args,
         return 1
     print(f"unsupported task {task!r}", file=sys.stderr)
     return 1
+
+
+def _export_tags(tracker, s, out_base, name):
+    """tags_path: the matched tags as NPZ; tags_save_predictions: their
+    crops as PNGs sorted into 'tag <id>' folders (grabber doc)."""
+    tags_path = str(s["tags_path"] or "").strip()
+    if not (tags_path and getattr(tracker, "detected_tags", None)):
+        return
+    from ..track.tags import save_tags
+
+    p = Path(tags_path)
+    if not p.is_absolute():
+        p = out_base / p
+    save_tags(p.with_suffix(".npz"), tracker.detected_tags)
+    print(f"[tags] wrote {p.with_suffix('.npz')}")
+    if s["tags_save_predictions"]:
+        root = out_base / f"tags_{name}"
+        n_img = 0
+        for fid, tag_list in tracker.detected_tags.items():
+            for t in tag_list:
+                d = root / f"tag {t.tag_id}"
+                d.mkdir(parents=True, exist_ok=True)
+                write_png(d / f"f{t.frame}_id{fid}.png", t.image)
+                n_img += 1
+        print(f"[tags] wrote {n_img} prediction crops to {root}")
 
 
 def _dump_timing(s):
@@ -554,6 +567,44 @@ def _uniqueness_image(per: dict) -> np.ndarray:
         for k in range(1, len(fs)):
             line(img, (xs[k - 1], ys[k - 1]), (xs[k], ys[k]), 0)
     return img
+
+
+def _auto_tags(tracker, state, s, load: bool):
+    """auto_tags (TrackingState.cpp:898-899): apply the tag detections
+    stored in the results file as identity ground truth and re-track.
+    Only usable with '-load' — the tag information lives in the results
+    file written during conversion (TrackingState.cpp:112-120)."""
+    tags = getattr(tracker, "loaded_tags", None)
+    if not load or tags is None:
+        print("Can currently only use auto_tags in combination with "
+              "'-load', when loading from a results file (where the "
+              "tag information is stored).", file=sys.stderr)
+        s.set("auto_tags", False, source="auto_tags")
+        return
+    if not tags:
+        print("[auto_tags] no tag detections in the results file")
+        return
+    from ..ml.auto_tags import apply_tags
+
+    matches, corrections = apply_tags(tracker, s, tags)
+    print(f"[auto_tags] reassigned={corrections.reassigned} "
+          f"skipped={corrections.skipped} "
+          f"identities={len(corrections.ranges)}")
+    if corrections.reassigned:
+        existing = s["manual_matches"] or {}
+        merged = dict(existing)
+        for f, m in matches.items():
+            merged.setdefault(f, {}).update(
+                {str(k): v for k, v in m.items()})
+        s.set("manual_matches", merged, source="auto_tags")
+        print("[auto_tags] re-tracking with tag corrections...")
+        tracker.individuals.clear()
+        tracker.active.clear()
+        tracker._next_id = 0
+        tracker.start_frame = -1
+        tracker.manual_matches = merged
+        state.tracker = tracker
+        state.run()
 
 
 def _auto_train_apply(tracker, state, s, pv_path, train: bool,

@@ -18,7 +18,10 @@ mode, ``io/video.py``) are built into the same library, and so is the
 port's own ``warp.cpp`` (the identity crops' affine warp,
 ``ops/crops.py``), which the JAX package takes from OpenCV, and
 ``hostmath.cpp`` (the C library's ``atan2f`` over an array, the
-visual-field projection's CPU angles, ``ops/raycast.py``).
+visual-field projection's CPU angles, ``ops/raycast.py``), and
+``contours.cpp`` (tag detection's border following, contour area, arc
+length and polygon approximation, ``track/tag_image.py``), which the
+JAX package also takes from OpenCV.
 
 The library is compiled with ``g++`` at first use into
 ``build/trex_tpu_torch/`` (a directory git ignores), under a name that
@@ -45,7 +48,8 @@ from ..kernels import BUILD_DIR
 
 NATIVE = Path(__file__).resolve().parents[1] / "native"
 SOURCES = ("labeling.cpp", "tracker_core.cpp", "posture_chain.cpp",
-           "lzo1x.cpp", "imageops.cpp", "warp.cpp", "hostmath.cpp")
+           "lzo1x.cpp", "imageops.cpp", "warp.cpp", "hostmath.cpp",
+           "contours.cpp")
 HEADERS = ("simd_clones.h",)
 GXX_FLAGS = ["-O3", "-ffp-contract=off", "-std=c++20", "-shared", "-fPIC"]
 
@@ -192,6 +196,13 @@ _SIGNATURES = {
     # hostmath.cpp: the visual-field projection's CPU angles
     # (ops/raycast.py)
     "trex_atan2f": (None, [_f32p, _f32p, _f32p, _i64]),
+    # contours.cpp: tag detection's contour routines
+    # (track/tag_image.py)
+    "trex_find_contours_external": (_i64, [_c, _i32, _i32, _i32p, _i64,
+                                           _i64p]),
+    "trex_contour_area": (_f64, [_i32p, _i64]),
+    "trex_arc_length": (_f64, [_i32p, _i64, _i32]),
+    "trex_approx_poly_dp": (_i64, [_i32p, _i64, _f64, _i32, _i32p]),
 }
 
 _lib_obj = None

@@ -77,7 +77,8 @@ def select_tracker(settings: Settings, background,
     the object Tracker, as the JAX package does; both fast engines
     refuse the same settings. The choice is made from the settings,
     before any frame, and the returned tracker's ``engine_choice`` says
-    which engine was chosen and which refusal it answers.
+    which engine was chosen and which refusal it answers. The object
+    Tracker runs the tag network (``tags_recognize``) on `device`.
     """
     from .device import resolve_device
     from .track.device_engine import DeviceTracker, check_device_supported
@@ -86,7 +87,8 @@ def select_tracker(settings: Settings, background,
 
     mode = settings.get("track_engine", "auto") or "auto"
     if mode == "object":
-        return _chosen(Tracker(settings, background=background),
+        return _chosen(Tracker(settings, background=background,
+                               device=device),
                        "track_engine=object: object Tracker (host)")
     if mode in ("fast", "device"):
         if not gray_pixels:
@@ -119,7 +121,8 @@ def select_tracker(settings: Settings, background,
         if on_card:
             check_device_supported(settings)
     except EngineUnsupported as e:
-        return _chosen(Tracker(settings, background=background),
+        return _chosen(Tracker(settings, background=background,
+                               device=dev),
                        f"track_engine=auto: object Tracker (host), "
                        f"{engine} refuses {e}")
     if on_card:

@@ -1,0 +1,349 @@
+"""The nine OpenCV routines of tag detection, rebuilt bit for bit.
+
+``track/tags.py`` decides which blobs are tags through OpenCV; the port
+takes none of it. Each routine here equals what ``cv2`` 5.0.0 computes
+on 8-bit single-channel images, bit for bit
+(``tests/test_torch_tag_image.py`` holds them to cv2 under hypothesis):
+
+- :func:`resize_area` (``cv2.resize(..., INTER_AREA)``) in its three
+  regimes: upscaling through linear interpolation with the area
+  coefficients in fixed point, integer factors through the block mean
+  (``(sum + 2) >> 2`` for a factor of 2, as OpenCV's vector path rounds
+  it), other downscales through float32 area weights;
+- :func:`resize_nearest` (``INTER_NEAREST``);
+- :func:`laplacian` (``cv2.Laplacian(img, CV_64F)``, the 4-neighbour
+  kernel, ``BORDER_REFLECT_101``) and :func:`erode3` (a 3x3 box, the
+  border never erodes);
+- :func:`equalize_hist` and :func:`adaptive_threshold_mean`
+  (``ADAPTIVE_THRESH_MEAN_C``, a replicated border);
+- :func:`find_contours_external` (``RETR_EXTERNAL``,
+  ``CHAIN_APPROX_SIMPLE``), :func:`contour_area`, :func:`arc_length`
+  and :func:`approx_poly_dp`: Suzuki's border following, the shoelace
+  sum, OpenCV's batched float32 square roots and its Douglas-Peucker,
+  in C++ (``native/contours.cpp``, built into the host library of
+  ``ops/labeling.py``).
+
+The array routines are numpy; the arithmetic follows OpenCV's types
+(float32 weights and products, round half to even).
+"""
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+
+_COEF_BITS = 11
+_COEF_SCALE = 1 << _COEF_BITS
+
+
+def _u8(img) -> np.ndarray:
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim != 2:
+        raise ValueError(f"expected a 2-D uint8 image, got {img.dtype} "
+                         f"{img.shape}")
+    return img
+
+
+def _rint_u8(x: np.ndarray) -> np.ndarray:
+    """``saturate_cast<uchar>`` of a float: round half to even, clamp."""
+    return np.clip(np.rint(x), 0, 255).astype(np.uint8)
+
+
+# --------------------------------------------------------------------------
+# resize
+# --------------------------------------------------------------------------
+
+def resize_nearest(img, size) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=INTER_NEAREST)``: source
+    index ``min(floor(d * scale), src - 1)`` in double, where OpenCV's
+    scale is ``1 / (dst / src)``."""
+    img = _u8(img)
+    w, h = int(size[0]), int(size[1])
+    sh, sw = img.shape
+    xs = np.minimum(np.floor(np.arange(w) * _scale(sw, w)).astype(
+        np.int64), sw - 1)
+    ys = np.minimum(np.floor(np.arange(h) * _scale(sh, h)).astype(
+        np.int64), sh - 1)
+    return img[ys[:, None], xs[None, :]]
+
+
+def _scale(ssize: int, dsize: int) -> float:
+    """OpenCV's source step a destination pixel, ``1 / (dst / src)``
+    (which can differ from ``src / dst`` in the last bit)."""
+    return 1.0 / (dsize / ssize)
+
+
+def _frozen(a: np.ndarray) -> np.ndarray:
+    """A cached table, read-only: every caller gets the same array."""
+    a.flags.writeable = False
+    return a
+
+
+@lru_cache(maxsize=512)
+def _area_tab(ssize: int, dsize: int) -> tuple:
+    """OpenCV's computeResizeAreaTab: (dst index, src index, float32
+    weight) in its order."""
+    scale = _scale(ssize, dsize)
+    tab = []
+    for dx in range(dsize):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, ssize - fsx1)
+        sx1 = int(np.ceil(fsx1))
+        sx2 = int(np.floor(fsx2))
+        sx2 = min(sx2, ssize - 1)
+        sx1 = min(sx1, sx2)
+        if sx1 - fsx1 > 1e-3:
+            tab.append((dx, sx1 - 1, np.float32((sx1 - fsx1) / cell)))
+        for sx in range(sx1, sx2):
+            tab.append((dx, sx, np.float32(1.0 / cell)))
+        if fsx2 - sx2 > 1e-3:
+            tab.append((dx, sx2, np.float32(
+                min(min(fsx2 - sx2, 1.0), cell) / cell)))
+    return tuple(tab)
+
+
+@lru_cache(maxsize=512)
+def _area_taps(ssize: int, dsize: int) -> tuple:
+    """The area table as k-th tap arrays: (index, weight, present), each
+    (max taps, dsize)."""
+    taps: list[list] = [[] for _ in range(dsize)]
+    for d, s, a in _area_tab(ssize, dsize):
+        taps[d].append((s, a))
+    n = max(len(t) for t in taps)
+    idx = np.array([[t[k][0] if k < len(t) else 0 for t in taps]
+                    for k in range(n)])
+    alpha = np.array([[t[k][1] if k < len(t) else 0 for t in taps]
+                      for k in range(n)], np.float32)
+    has = np.array([[k < len(t) for t in taps] for k in range(n)])
+    return _frozen(idx), _frozen(alpha), _frozen(has)
+
+
+def _area_rows(src: np.ndarray, dsize: int) -> np.ndarray:
+    """Apply the area table along the last axis: each output element adds
+    its taps in table order, in float32."""
+    idx, alpha, has = _area_taps(src.shape[-1], dsize)
+    out = np.zeros(src.shape[:-1] + (dsize,), np.float32)
+    for k in range(len(idx)):
+        term = src[..., idx[k]].astype(np.float32) * alpha[k]
+        out = np.where(has[k], out + term, out)
+    return out
+
+
+def _area_cols(rows: np.ndarray, dsize: int) -> np.ndarray:
+    """The vertical pass: each output row is beta0 * row0, then
+    ``+= beta_j * row_j`` in table order, in float32."""
+    out = np.zeros((dsize,) + rows.shape[1:], np.float32)
+    seen = set()
+    for d, s, b in _area_tab(rows.shape[0], dsize):
+        term = np.float32(b) * rows[s]
+        if d in seen:
+            out[d] = out[d] + term
+        else:
+            out[d] = term
+            seen.add(d)
+    return out
+
+
+@lru_cache(maxsize=512)
+def _linear_coefs(ssize: int, dsize: int):
+    """Source index and fixed-point weights of the linear resize with
+    OpenCV's area coefficients (``INTER_AREA`` when upscaling), and the
+    index bounds [xmin, xmax) of the two-tap outputs."""
+    inv = dsize / ssize
+    scale = 1.0 / inv
+    xmin, xmax = 0, dsize
+    ofs = np.zeros(dsize, np.int64)
+    coef = np.zeros((dsize, 2), np.int64)
+    for dx in range(dsize):
+        sx = int(np.floor(dx * scale))
+        fx = np.float32((dx + 1) - (sx + 1) * inv)
+        fx = np.float32(0.0) if fx <= 0 else \
+            np.float32(fx - np.float32(np.floor(fx)))
+        if sx < 0:
+            xmin = dx + 1
+            fx, sx = np.float32(0.0), 0
+        if sx + 1 >= ssize:
+            xmax = min(xmax, dx)
+            if sx >= ssize - 1:
+                fx, sx = np.float32(0.0), ssize - 1
+        ofs[dx] = sx
+        c = (np.float32(1.0) - fx, fx)
+        coef[dx] = [int(np.rint(np.float32(v) * np.float32(_COEF_SCALE)))
+                    for v in c]
+    return _frozen(ofs), _frozen(coef), xmin, xmax
+
+
+def _resize_linear_area(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    sh, sw = img.shape
+    xofs, alpha, _xmin, xmax = _linear_coefs(sw, w)
+    yofs, beta, _, _ = _linear_coefs(sh, h)
+    src = img.astype(np.int64)
+    # horizontal pass: two taps before xmax, the single tap times ONE after
+    x1 = np.minimum(xofs + 1, sw - 1)
+    rows = src[:, xofs] * alpha[:, 0] + src[:, x1] * alpha[:, 1]
+    one = np.arange(w) >= xmax
+    rows[:, one] = src[:, xofs[one]] * _COEF_SCALE
+    # vertical pass: FixedPtCast with OpenCV's 8-bit arithmetic
+    r0 = rows[np.clip(yofs, 0, sh - 1)]
+    r1 = rows[np.clip(yofs + 1, 0, sh - 1)]
+    b0 = beta[:, :1]
+    b1 = beta[:, 1:]
+    v = ((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16) + 2
+    return np.clip(v >> 2, 0, 255).astype(np.uint8)
+
+
+def resize_area(img, size) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=INTER_AREA)``."""
+    img = _u8(img)
+    w, h = int(size[0]), int(size[1])
+    sh, sw = img.shape
+    scale_x, scale_y = _scale(sw, w), _scale(sh, h)
+    if scale_x < 1 or scale_y < 1:
+        return _resize_linear_area(img, w, h)
+    ix, iy = int(round(scale_x)), int(round(scale_y))
+    eps = np.finfo(np.float64).eps
+    if abs(scale_x - ix) < eps and abs(scale_y - iy) < eps:
+        blocks = img[:h * iy, :w * ix].astype(np.int64).reshape(
+            h, iy, w, ix).sum(axis=(1, 3))
+        if ix == 2 and iy == 2:
+            return ((blocks + 2) >> 2).astype(np.uint8)
+        scale = np.float32(1.0) / np.float32(ix * iy)
+        return _rint_u8(blocks.astype(np.float32) * scale)
+    return _rint_u8(_area_cols(_area_rows(img, w), h))
+
+
+# --------------------------------------------------------------------------
+# filters
+# --------------------------------------------------------------------------
+
+def laplacian(img) -> np.ndarray:
+    """``cv2.Laplacian(img, cv2.CV_64F)``: ksize 1, the 4-neighbour
+    kernel over a ``BORDER_REFLECT_101`` border; exact integers."""
+    img = _u8(img).astype(np.float64)
+    p = np.pad(img, 1, mode="reflect") if min(img.shape) > 1 else \
+        np.pad(img, 1, mode="edge")
+    return (p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:]
+            - 4.0 * img)
+
+
+def erode3(mask) -> np.ndarray:
+    """``cv2.erode(mask, np.ones((3, 3), np.uint8))``: the 3x3 minimum,
+    the border at the type's maximum so that it never erodes."""
+    m = _u8(mask)
+    p = np.pad(m, 1, constant_values=255)
+    h, w = m.shape
+    out = p[1:h + 1, 1:w + 1].copy()
+    for dy in range(3):
+        for dx in range(3):
+            np.minimum(out, p[dy:dy + h, dx:dx + w], out=out)
+    return out
+
+
+def equalize_hist(img) -> np.ndarray:
+    """``cv2.equalizeHist``: the LUT ``rint(float32(cdf - hist[first]) *
+    float32(255 / (total - hist[first])))``, zero up to the first
+    non-empty bin; a one-valued image maps to itself."""
+    img = _u8(img)
+    hist = np.bincount(img.ravel(), minlength=256)
+    first = int(np.flatnonzero(hist)[0]) if img.size else 0
+    total = img.size
+    if img.size == 0 or hist[first] == total:
+        return img.copy()
+    scale = np.float32(255.0) / np.float32(total - hist[first])
+    cdf = np.cumsum(hist) - hist[first]
+    lut = _rint_u8(cdf.astype(np.float32) * scale)
+    lut[:first + 1] = 0
+    return lut[img]
+
+
+def adaptive_threshold_mean(img, max_value: int, inverse: bool,
+                            block: int, c: float) -> np.ndarray:
+    """``cv2.adaptiveThreshold(img, max_value, ADAPTIVE_THRESH_MEAN_C,
+    THRESH_BINARY(_INV), block, c)``: the mean is the rounded box mean
+    over a replicated border; a pixel is set where ``src - mean > -c``
+    (``<=`` for the inverse)."""
+    img = _u8(img)
+    r = block // 2
+    p = np.pad(img.astype(np.int64), r, mode="edge")
+    cs = np.zeros((p.shape[0] + 1, p.shape[1] + 1), np.int64)
+    cs[1:, 1:] = p.cumsum(0).cumsum(1)
+    h, w = img.shape
+    box = (cs[block:block + h, block:block + w] - cs[:h, block:block + w]
+           - cs[block:block + h, :w] + cs[:h, :w])
+    mean = _rint_u8(box.astype(np.float32)
+                    * np.float32(1.0 / (block * block)))
+    idelta = int(np.floor(c)) if inverse else int(np.ceil(c))
+    diff = img.astype(np.int64) - mean.astype(np.int64)
+    hit = diff <= -idelta if inverse else diff > -idelta
+    return np.where(hit, np.uint8(max(0, min(255, round(max_value)))),
+                    np.uint8(0)).astype(np.uint8)
+
+
+# --------------------------------------------------------------------------
+# contours (native/contours.cpp)
+# --------------------------------------------------------------------------
+
+def _native():
+    from ..ops.labeling import _lib
+
+    return _lib()
+
+
+def find_contours_external(mask) -> list:
+    """``cv2.findContours(mask, RETR_EXTERNAL, CHAIN_APPROX_SIMPLE)[0]``:
+    the outer borders, each an (N, 1, 2) int32 array, in OpenCV's order
+    and from its start point."""
+    m = _u8(mask)
+    h, w = m.shape
+    if h == 0 or w == 0:
+        return []
+    lib = _native()
+    cap = 4 * (h + 2) * (w + 2) + 16
+    pts = np.empty((cap, 2), np.int32)
+    starts = np.empty(h * w + 2, np.int64)
+    n = lib.trex_find_contours_external(
+        m.ctypes.data_as(ctypes.c_char_p), h, w,
+        pts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), cap,
+        starts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    if n < 0:
+        raise RuntimeError("find_contours_external: point buffer too small")
+    return [pts[starts[i]:starts[i + 1]].reshape(-1, 1, 2).copy()
+            for i in range(n)]
+
+
+def _points(contour) -> np.ndarray:
+    c = np.ascontiguousarray(np.asarray(contour, np.int32).reshape(-1, 2))
+    return c
+
+
+def contour_area(contour) -> float:
+    """``cv2.contourArea(contour)`` (not oriented) of integer points."""
+    c = _points(contour)
+    return float(_native().trex_contour_area(
+        c.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(c)))
+
+
+def arc_length(contour, closed: bool = True) -> float:
+    """``cv2.arcLength``: float32 square roots of float32 squared edge
+    lengths, taken in batches of 16 and added into a double in reverse
+    order within each batch."""
+    c = _points(contour)
+    return float(_native().trex_arc_length(
+        c.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(c),
+        1 if closed else 0))
+
+
+def approx_poly_dp(contour, epsilon: float, closed: bool = True
+                   ) -> np.ndarray:
+    """``cv2.approxPolyDP`` of integer points: the start point search,
+    Douglas-Peucker on OpenCV's stack and its last pass; (M, 1, 2)
+    int32."""
+    c = _points(contour)
+    out = np.empty_like(c)
+    n = _native().trex_approx_poly_dp(
+        c.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(c),
+        float(epsilon), 1 if closed else 0,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return out[:n].reshape(-1, 1, 2).copy()

@@ -20,9 +20,10 @@ It is host code in float64 numpy, the JAX package's own arithmetic. It
 takes every tracking setting, the ones both fast engines refuse
 included (the registry's defaults ``track_threshold 0`` and
 ``track_background_subtraction false``, manual matches and splits, the
-shape filters, categories, ``match_topk``, ``match_mode=benchmark``).
-Tag detection and recognition (``tags_enable``, ``tags_recognize``) run
-on OpenCV and the tag network and raise (ROADMAP.md A item 3d).
+shape filters, categories, ``match_topk``, ``match_mode=benchmark``), tag detection (``tags_enable``) and
+recognition (``tags_recognize``): the tag crops and gates on the host
+(``track/tags.py``), the tag network on the tracker's device
+(``ml/tagwork.py``).
 """
 from __future__ import annotations
 
@@ -40,10 +41,6 @@ from .individual import Individual, IndividualCache
 from .matching import MatchResult, PairedProbabilities, match
 from .prefilter import PrefilterResult, SizeFilters, prefilter
 from .splitting import HistorySplit, split_blob
-
-TAGS_MISSING = ("the tag detector and decoder (track/tags.py, "
-                "ml/tagwork.py) come with ROADMAP.md A item 3d")
-
 
 @dataclass
 class PPFrame:
@@ -70,13 +67,12 @@ class FrameStatistics:
 
 
 class Tracker:
-    def __init__(self, settings, background: Optional[np.ndarray] = None):
+    def __init__(self, settings, background: Optional[np.ndarray] = None,
+                 device=None):
+        """`device` is where the tag network runs (``tags_recognize``
+        with a readable ``tags_model_path``); everything else is host
+        code."""
         settings = self.settings = SettingsView(settings)
-        if settings["tags_recognize"] or settings["tags_enable"]:
-            from .engine import EngineUnsupported
-
-            raise EngineUnsupported(
-                f"tags_enable / tags_recognize: {TAGS_MISSING}")
         self.background = background
         self.individuals: dict[int, Individual] = {}
         self.active: set[int] = set()
@@ -95,6 +91,19 @@ class Tracker:
         self.tag_assignments: dict[int, dict[int, int]] = {}
         # decode confidence parallel to tag_assignments (qr_p field)
         self.tag_assignment_p: dict[int, dict[int, float]] = {}
+        # per-fish matched Tag records for the tags_path NPZ export
+        self.detected_tags: dict[int, list] = {}
+        # detect_tags' counters over the frames (track/tags.py STAT_KEYS)
+        self.tag_stats: dict = {}
+        # tag payload decoder (ml/tagwork.py = pretrained_tagwork):
+        # loaded from tags_model_path when configured, else tags keep
+        # their detection-order ids and stay matchable but undecoded
+        self.tag_decoder = None
+        if settings["tags_recognize"]:
+            from ..ml.tagwork import tag_decoder_from_settings
+
+            self.tag_decoder = tag_decoder_from_settings(settings,
+                                                         device=device)
 
     # ------------------------------------------------------------------
     def preprocess_frame(self, frame_index: int, blobs: list[TrackBlob],
@@ -397,6 +406,24 @@ class Tracker:
                 assigned_blobs.add(bi)
 
         self.end_frame = frame
+        # tags_enable turns the (beta) tag DETECTION on; tags_recognize
+        # additionally decodes payloads (grabber default_config)
+        if (s["tags_recognize"] or s["tags_enable"]) and pp.noise:
+            from .tags import detect_tags, match_tags_to_fish
+
+            tags = detect_tags(pp.noise, self.background, frame,
+                               decode_fn=self.tag_decoder,
+                               settings=s, stats=self.tag_stats)
+            if tags:
+                matched = match_tags_to_fish(tags, self, frame)
+                if matched:
+                    self.tag_assignments[frame] = {
+                        fid: t.tag_id for fid, t in matched.items()}
+                    self.tag_assignment_p[frame] = {
+                        fid: t.p for fid, t in matched.items()}
+                    for fid, t in matched.items():
+                        self.detected_tags.setdefault(fid, []).append(t)
+
         st = FrameStatistics(
             number_fish=len(assigned_fish),
             adding_seconds=_time.perf_counter() - t0,
