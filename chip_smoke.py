@@ -238,7 +238,38 @@ Phases, each raising on failure:
     decode is ``torch_profile.py``'s ``tag_decode_256``); training ms a
     step and images/s; seconds of the track task, of ``-auto_tags`` and
     of its re-track; peak device memory.
-16. Report: frames per second of phases 2-11, the replay's assist frames
+16. YOLO detection and posture from predictions (``yolo``): a random
+    YOLOv8x pose model with 5 keypoints and one class
+    (:func:`write_yolo_pt`: ultralytics' checkpoint layout, seeded
+    weights, BatchNorm statistics of the scene, the class prior set so
+    that about as many anchors pass as the scene shows fish) loaded by
+    the port's ``load_ultralytics_checkpoint`` through
+    ``create_detection``, whose ``apply`` runs over 64 frames of
+    :func:`synth_scene` (1024^2, 256 fish) letterboxed whole to 640 and
+    as SAHI tiles (``detect_tile_image`` 2, overlap 0.1, the four tiles
+    in one batch; 16 frames when the script is past
+    :data:`YOLO_LATE_S`). Frames/s, ms a 640 batch on the host clock
+    and between CUDA events, rows above the threshold before NMS and
+    detections after it a frame, host seconds a frame of
+    ``_postprocess`` and ``merge_tile_detections``, peak memory. Held:
+    two frames through the card and the port's CPU detector with the
+    same weights (:func:`yolo_held`), in float32 within
+    :data:`YOLO_F32_TOL`, in bfloat16 each layer within
+    :data:`YOLO_ROW_TOL` on the same input and the rows within
+    :data:`YOLO_BF16_TOL`, in both the detections agree wherever the
+    scores lie beyond that bound of the threshold; no port kernel
+    launched.
+    Then :func:`prediction_pv` writes 64-frame ``.pv`` files of the
+    scene whose blobs carry 5 pose keypoints along their stamp's long
+    axis from the ground truth, or their own outline as
+    ``original_outline``, and the CLI's ``-task track -auto_quit
+    -track_engine object`` (:func:`pose_settings`: posture on,
+    ``pose_midline_indexes`` 0-4) runs on each with the card and with
+    ``device="cpu"``: npz and .results bytes equal, midlines on more
+    than half of every frame's fish. Posture and adding seconds a
+    frame, the share of a frame's fish with a midline, midline length
+    over the blob's width.
+17. Report: frames per second of phases 2-11, the replay's assist frames
    and seconds, the card's name and power limit, and one JSON line with
     every kernel's launches on its path, error against its plain
     version, time, bound, the plain version's time and the nearest
@@ -265,6 +296,7 @@ import time
 from pathlib import Path
 
 import numpy as np
+import torch.nn as nn
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
@@ -3773,6 +3805,772 @@ def phase_tags(dev, report):
           f"{peak / 1e9:.2f} GB; phase {r['s']:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: YOLO detection and posture from pose and outline predictions
+# ---------------------------------------------------------------------------
+
+YOLO_SCALE = "x"           # the widest scale the repo supports
+YOLO_KEYPOINTS = 5
+YOLO_FRAMES = 64
+YOLO_CUT_FRAMES = 16       # part (a)'s frames when the script runs late
+YOLO_LATE_S = 900.0
+YOLO_HELD_FRAMES = 2
+YOLO_ROW_TOL = 0.02        # tests/test_torch_yolo.py ROW_TOL
+YOLO_F32_TOL = 1e-3        # float32 card against CPU: scores, and boxes
+                           # and keypoints that times 640 px
+# bfloat16, card against CPU. Each layer on the same input holds
+# YOLO_ROW_TOL (0.0042 read); the whole forward does not: the few
+# outputs of a layer that round to another bfloat16 on the two sides
+# grow through this random x model's 112 layers, so that each side's
+# bfloat16 rows lie about as far from the float32 rows as from each
+# other (phase 16 prints both distances). The row bounds below are the
+# readings on an NVIDIA H100 80GB HBM3 at 700 W (scores 0.156-0.162,
+# boxes 2.9-5.7 px, keypoints 0.51-0.91 px) with a margin; the layer
+# check and the mean distance from float32 are what a wrong forward
+# fails.
+YOLO_BF16_TOL = 0.2        # scores
+YOLO_BF16_PX = 6.0         # boxes, px at 640
+YOLO_BF16_KPT_PX = 1.0     # keypoints, px at 640
+YOLO_BF16_RATIO = 1.25     # the card's bfloat16 rows' mean distance from
+                           # the float32 rows over the CPU's (1.01 read)
+YOLO_CLS_GAIN = 4.0        # the class head's last weights, times LeCun's
+YOLO_KPT_GAIN = 0.1        # the keypoint head's, which keeps them near
+                           # their anchors
+YOLO_CONF = 0.1            # the registry's detect_conf_threshold
+POSE_MIDLINE = [0, 1, 2, 3, 4]
+
+
+# ---------------------------------------------------------------------------
+# ultralytics' module layout, to write phase 16's checkpoint in
+# ---------------------------------------------------------------------------
+
+class ULConv(nn.Module):
+    """ultralytics ``Conv``: conv (no bias) + BatchNorm2d (+ SiLU)."""
+
+    def __init__(self, c1, c2, k=1, s=1):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, k // 2, bias=False)
+        self.bn = nn.BatchNorm2d(c2, eps=1e-3)
+
+
+class ULBottleneck(nn.Module):
+    def __init__(self, c):
+        super().__init__()
+        self.cv1 = ULConv(c, c, 3)
+        self.cv2 = ULConv(c, c, 3)
+
+
+class ULC2f(nn.Module):
+    def __init__(self, c1, c2, n):
+        super().__init__()
+        c = c2 // 2
+        self.cv1 = ULConv(c1, 2 * c, 1)
+        self.cv2 = ULConv((2 + n) * c, c2, 1)
+        self.m = nn.ModuleList(ULBottleneck(c) for _ in range(n))
+
+
+class ULSPPF(nn.Module):
+    def __init__(self, c1, c2):
+        super().__init__()
+        self.cv1 = ULConv(c1, c1 // 2, 1)
+        self.cv2 = ULConv(c1 // 2 * 4, c2, 1)
+
+
+def _ul_branch(chs, c_mid, n_out):
+    return nn.ModuleList(nn.Sequential(
+        ULConv(c, c_mid, 3), ULConv(c_mid, c_mid, 3),
+        nn.Conv2d(c_mid, n_out, 1)) for c in chs)
+
+
+class ULProto(nn.Module):
+    def __init__(self, c1, c_, c2):
+        super().__init__()
+        self.cv1 = ULConv(c1, c_, 3)
+        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.cv2 = ULConv(c_, c_, 3)
+        self.cv3 = ULConv(c_, c2, 1)
+
+
+class ULHead(nn.Module):
+    """ultralytics' Detect / Segment / Pose / OBB head parameters."""
+
+    def __init__(self, nc, chs, task="detect", num_keypoints=17,
+                 kpt_dims=3, num_masks=32, width=0.25, reg_max=16):
+        super().__init__()
+        self.nc = nc
+        self.stride = (8, 16, 32)
+        self.cv2 = _ul_branch(chs, max(16, chs[0] // 4, reg_max * 4),
+                              4 * reg_max)
+        self.cv3 = _ul_branch(chs, max(chs[0], min(nc, 100)), nc)
+        n_out = {"segment": num_masks, "pose": num_keypoints * kpt_dims,
+                 "obb": 1}.get(task)
+        if n_out is not None:
+            self.cv4 = _ul_branch(chs, max(chs[0] // 4, n_out), n_out)
+        if task == "segment":
+            self.proto = ULProto(chs[0], max(8, int(round(256 * width / 8))
+                                             * 8), num_masks)
+
+
+def ultralytics_layout(num_classes: int, scale: str = "n",
+                       task: str = "detect", num_keypoints: int = 17,
+                       kpt_dims: int = 3) -> nn.Module:
+    """A module holding a YOLOv8's parameters under ultralytics' names
+    (``model.0`` .. ``model.22``, the head's cv2/cv3/cv4/proto), as a
+    ``.pt`` checkpoint's ``model`` pickles them; it has no forward.
+    ``torch.save({"model": m}, path)`` writes a file that
+    the port's ``load_ultralytics_checkpoint`` reads."""
+    from trex_tpu_torch.models.yolo import SCALES
+
+    depth, width, maxc = SCALES[scale]
+
+    def ch(c):
+        return max(8, int(round(min(c, maxc) * width / 8) * 8))
+
+    def nd(n):
+        return max(1, round(n * depth))
+
+    c = [ch(64), ch(128), ch(256), ch(512), ch(1024)]
+    layers = [ULConv(3, c[0], 3, 2), ULConv(c[0], c[1], 3, 2),
+              ULC2f(c[1], c[1], nd(3)), ULConv(c[1], c[2], 3, 2),
+              ULC2f(c[2], c[2], nd(6)), ULConv(c[2], c[3], 3, 2),
+              ULC2f(c[3], c[3], nd(6)), ULConv(c[3], c[4], 3, 2),
+              ULC2f(c[4], c[4], nd(3)), ULSPPF(c[4], c[4]),
+              nn.Identity(), nn.Identity(),
+              ULC2f(c[4] + c[3], c[3], nd(3)), nn.Identity(),
+              nn.Identity(), ULC2f(c[3] + c[2], c[2], nd(3)),
+              ULConv(c[2], c[2], 3, 2), nn.Identity(),
+              ULC2f(c[2] + c[3], c[3], nd(3)), ULConv(c[3], c[3], 3, 2),
+              nn.Identity(), ULC2f(c[3] + c[4], c[4], nd(3)),
+              ULHead(num_classes, [c[2], c[3], c[4]], task, num_keypoints,
+                     kpt_dims, width=width)]
+    root = nn.Module()
+    root.model = nn.ModuleList(layers)
+    return root
+
+
+def write_yolo_pt(root, frames, device, scale=YOLO_SCALE,
+                  num_keypoints=YOLO_KEYPOINTS, seed=16):
+    """Two random single-class pose YOLOv8 checkpoints in ultralytics'
+    layout (:func:`ultralytics_layout`, the module layout of
+    ``tests/test_yolo_checkpoint.py``) under `root`, one for each way
+    phase 16 detects (``{"letterbox": path, "tiles": path}``). They hold
+    one network: convolutions LeCun-normal from a seeded generator, the
+    class head's last layer :data:`YOLO_CLS_GAIN` and the keypoint
+    head's :data:`YOLO_KPT_GAIN` times that (keypoints near their
+    anchors, as a trained model's lie near its boxes), the box head's
+    last biases 1.0 as ultralytics' ``Detect.bias_init`` sets them, and
+    BatchNorm statistics from `frames` letterboxed and cut into their
+    640 SAHI tiles (each layer's batch mean and variance, layer by
+    layer, on `device`), as a trained model's come from its data: with
+    statistics at the identity, a random network's features hardly vary
+    over a scene of small animals, and its class scores either pass no
+    anchor or pass them all. The class head's last biases are
+    ``bias_init``'s prior (``log(5 / nc / (640 / stride)^2)``) moved by
+    one amount per file, so that the class scores pass the threshold
+    :data:`YOLO_CONF` on as many anchors as the scene shows fish: on
+    :data:`N_FISH` an image letterboxed, and on the fish a tile's area
+    holds at the scene's density in a tile (the mean over `frames` of
+    each image's k-th largest logit lands on the threshold's logit).
+    A trained model passes about one anchor a fish; ``bias_init``'s
+    prior alone passes a handful an image here."""
+    import torch
+
+    from trex_tpu_torch.detect.tiling import compute_tile_bounds
+    from trex_tpu_torch.detect.yolo import letterbox
+    from trex_tpu_torch.models import yolo
+    from trex_tpu_torch.models.layers import BatchNorm
+    from trex_tpu_torch.models.yolo_convert import convert_state_dict
+
+    m = ultralytics_layout(1, scale, "pose", num_keypoints)
+    g = torch.Generator().manual_seed(seed)
+    head = m.model[22]
+    gain = {id(seq[2]): YOLO_CLS_GAIN for seq in head.cv3}
+    gain.update({id(seq[2]): YOLO_KPT_GAIN for seq in head.cv4})
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                w = mod.weight
+                std = gain.get(id(mod), 1.0) / math.sqrt(w[0].numel())
+                w.copy_(torch.randn(w.shape, generator=g) * std)
+                if mod.bias is not None:
+                    mod.bias.copy_(torch.randn(mod.bias.shape,
+                                               generator=g) * 0.01)
+            elif isinstance(mod, torch.nn.BatchNorm2d):
+                mod.weight.copy_(1 + 0.1 * torch.randn(mod.weight.shape,
+                                                       generator=g))
+                mod.bias.copy_(0.1 * torch.randn(mod.bias.shape,
+                                                 generator=g))
+        for box, cls, st in zip(head.cv2, head.cv3, head.stride):
+            box[2].bias.fill_(1.0)
+            cls[2].bias.fill_(math.log(5 / head.nc / (640 / st) ** 2))
+    # the statistics: the port's model on the checkpoint's tensors, each
+    # BatchNorm set to its input's batch statistics as the forward
+    # reaches it; the ultralytics name of each port name from the
+    # converter's own map
+    sd = m.state_dict()
+    names = list(sd)
+    index = convert_state_dict(
+        {k: np.full(1, i, np.float32) for i, k in enumerate(names)},
+        scale, "pose")
+    ul_name = {k: names[int(v[0])] for k, v in index.items()}
+    state = {k: sd[ul_name[k]] for k in index}
+    model = yolo.build(1, scale, "pose", num_keypoints=num_keypoints,
+                       dtype=torch.float32, state=state, device=device)
+
+    def calibrate(mod, inputs, _out):
+        x = inputs[0].float()
+        mod.mean.copy_(x.mean((0, 2, 3)))
+        mod.var.copy_(x.var((0, 2, 3), unbiased=False))
+        mul = torch.rsqrt(mod.var + mod.epsilon) * mod.scale
+        return (x - mod.mean[:, None, None]) * mul[:, None, None] \
+            + mod.bias[:, None, None]
+
+    hooks = [b.register_forward_hook(calibrate) for b in model.modules()
+             if isinstance(b, BatchNorm)]
+    # the frames letterboxed whole and their SAHI tiles, as the phase
+    # detects them
+    h, w = frames[0].shape[:2]
+    tiles = compute_tile_bounds((w, h), (640, 640), 0, 2, 0.1)
+    views = list(frames) + [f[y:y + th, x:x + tw] for f in frames
+                            for x, y, tw, th in tiles]
+    canvas = np.stack([letterbox(v, 640) for v in views])
+    with torch.no_grad():
+        out = model(torch.from_numpy(canvas).to(device).permute(0, 3, 1, 2))
+        for hk in hooks:
+            hk.remove()
+        for k, t in model.state_dict().items():
+            if k.endswith(".bn.mean") or k.endswith(".bn.var"):
+                sd[ul_name[k]].copy_(t.cpu())
+        logits = torch.cat([c.flatten(1) for c in out["classes"]], 1)
+    logit_thr = math.log(YOLO_CONF / (1 - YOLO_CONF))
+    n_lb = len(frames)
+    per_tile = round(N_FISH * tiles[0][2] * tiles[0][3] / (h * w))
+    paths = {}
+    for view, rows, k in (("letterbox", logits[:n_lb], N_FISH),
+                          ("tiles", logits[n_lb:], per_tile)):
+        shift = logit_thr - float(rows.topk(k, 1).values[:, -1].mean())
+        with torch.no_grad():
+            for cls, st in zip(head.cv3, head.stride):
+                cls[2].bias.fill_(math.log(5 / head.nc / (640 / st) ** 2)
+                                  + shift)
+        paths[view] = root / f"yolov8{scale}-pose-{view}.pt"
+        torch.save({"model": m.eval()}, paths[view])
+    return paths
+
+
+def yolo_settings(model, **over):
+    return dict(detect_type="yolo", detect_model=str(model),
+                detect_resolution=640, detect_conf_threshold=YOLO_CONF,
+                detect_batch_size=8, **over)
+
+
+def stamp_keypoints(track_xy, k, n=YOLO_KEYPOINTS):
+    """Fish `k`'s keypoints at its top-left position `track_xy`: `n`
+    points along its stamp's long (x) axis through its middle row, as
+    :func:`synth_scene` draws the stamp (``13 + k % 5`` by ``8 + k %
+    3``)."""
+    w, h = 13 + k % 5, 8 + k % 3
+    xi, yi = int(track_xy[0]), int(track_xy[1])
+    xs = xi + np.round(np.linspace(0, w - 1, n))
+    return np.stack([xs, np.full(n, yi + h // 2)], 1)
+
+
+def prediction_pv(path, bg, frames, track, kind, values, threshold=20):
+    """A .pv of `frames` whose blobs (components darker than `bg` by
+    `threshold`) carry a prediction each: ``pose``, the
+    keypoints (:func:`stamp_keypoints`) of the fish whose stamp centre
+    lies in the blob, from the scene's ground truth; ``outline``, the
+    blob's own outline (its boundary pixels' centres, the ``original_
+    outline`` of a segmentation model)."""
+    from trex_tpu_torch.io.pv import PVFile, PVFrame, PVHeader
+    from trex_tpu_torch.io.predictions import Prediction
+    from trex_tpu_torch.ops.labeling import label_blobs
+    from trex_tpu_torch.track.posture import trace_boundary
+
+    n_fish = track.shape[1]
+    sizes = np.array([(13 + k % 5, 8 + k % 3) for k in range(n_fish)])
+    h, w = bg.shape
+    header = PVHeader(encoding="gray", width=w, height=h, average=bg,
+                      name=Path(path).stem, timestamp=1_700_000_000_000_000,
+                      conversion_start=0, conversion_end=len(frames),
+                      source="synth_scene")
+    n_pred = 0
+    with PVFile.create(path, header) as pv:
+        pv.set_metadata({k: values[k] for k in ("frame_rate",
+                                                "cm_per_pixel")})
+        for i, img in enumerate(frames):
+            fr = PVFrame(timestamp=40_000 * i, source_index=i, index=i)
+            centres = np.floor(track[i]) + sizes / 2
+            for b in label_blobs(img, bg, threshold, False):
+                lines = np.asarray(b.lines, np.int32)
+                fr.add_object(lines, b.pixels)
+                pred = Prediction(clid=0, p=0.9)
+                if kind == "pose":
+                    x0, y0 = lines[:, 1].min(), lines[:, 0].min()
+                    x1, y1 = lines[:, 2].max(), lines[:, 0].max()
+                    inside = np.flatnonzero(
+                        (centres[:, 0] >= x0) & (centres[:, 0] <= x1 + 1)
+                        & (centres[:, 1] >= y0) & (centres[:, 1] <= y1 + 1))
+                    if len(inside):
+                        pred.pose = stamp_keypoints(track[i, inside[0]],
+                                                    int(inside[0]))
+                        n_pred += 1
+                else:
+                    x0, y0 = lines[:, 1].min(), lines[:, 0].min()
+                    dense = np.zeros((lines[:, 0].max() - y0 + 1,
+                                      lines[:, 2].max() - x0 + 1), np.uint8)
+                    for y, a, e in lines:
+                        dense[y - y0, a - x0:e - x0 + 1] = 1
+                    pts = trace_boundary(dense) + np.array([x0, y0])
+                    if len(pts) >= 3:
+                        pred.original_outline = np.round(pts).astype(
+                            np.int32).ravel()
+                        n_pred += 1
+                fr.predictions.append(pred)
+            pv.add_frame(fr)
+    return n_pred
+
+
+def pose_settings(n_fish=N_FISH, track_threshold=0):
+    """Tracking with posture from predictions: the base configuration's
+    tracking, the posture variant, the keypoints' midline order, and
+    `track_threshold` (the registry's 0 by default: the object Tracker
+    keeps a blob's prediction only where it does not threshold the
+    blob, as the JAX package's prefilter does; both fast engines need a
+    threshold above 0)."""
+    return dict(posture_settings(track_settings(n_fish)),
+                pose_midline_indexes=POSE_MIDLINE, meta_encoding="gray",
+                track_threshold=track_threshold)
+
+
+class _Timed:
+    """Wraps a YOLODetector's ``infer_device`` and ``_infer`` and the
+    module's ``merge_tile_detections`` and ``_postprocess``: the host
+    clock of each 640 batch (copies and the forward included), its
+    device time between CUDA events, rows above the threshold before
+    NMS, and the host seconds of the post-processing."""
+
+    def __init__(self, det, yolo_mod):
+        import torch
+
+        self.det, self.mod, self.torch = det, yolo_mod, torch
+        self.batch_host, self.events, self.before = [], [], []
+        self.images = []
+        self.post_s = self.merge_s = 0.0
+
+    def __enter__(self):
+        det, torch = self.det, self.torch
+        infer_device, infer = det.infer_device, det._infer
+        post, merge = det._postprocess, self.mod.merge_tile_detections
+
+        def infer_device_t(canvas):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = infer_device(canvas)
+            e1.record()
+            self.events.append((e0, e1))
+            return out
+
+        def infer_t(canvas):
+            self.images.append(len(canvas))
+            t0 = time.perf_counter()
+            out = infer(canvas)
+            self.batch_host.append(time.perf_counter() - t0)
+            return out
+
+        def post_t(out, k, hw):
+            t0 = time.perf_counter()
+            self.before.append(int((out["conf"][k]
+                                    >= det._conf_threshold).sum()))
+            r = post(out, k, hw)
+            self.post_s += time.perf_counter() - t0
+            return r
+
+        def merge_t(d, s):
+            t0 = time.perf_counter()
+            r = merge(d, s)
+            self.merge_s += time.perf_counter() - t0
+            return r
+
+        det.infer_device, det._infer, det._postprocess = \
+            infer_device_t, infer_t, post_t
+        self.merge_tile_original = merge
+        self.mod.merge_tile_detections = merge_t
+        return self
+
+    def __exit__(self, *exc):
+        for name in ("infer_device", "_infer", "_postprocess"):
+            del self.det.__dict__[name]
+        self.mod.merge_tile_detections = self.merge_tile_original
+        return False
+
+    def device_ms(self):
+        self.torch.cuda.synchronize()
+        return [e0.elapsed_time(e1) for e0, e1 in self.events]
+
+
+def yolo_run(dev, backend, frames, yolo_mod):
+    """`backend.apply` over `frames`: blobs a frame and the timings."""
+    import torch
+
+    t = _Timed(backend.detector, yolo_mod)
+    dets = []
+    apply_detect = backend.detector.detect
+
+    def detect(img):
+        d = apply_detect(img)
+        dets.append(len(d))
+        return d
+
+    backend.detector.detect = detect
+    try:
+        backend.apply(0, frames[0])  # cuDNN's first calls
+        dets.clear()
+        with t:
+            t.before.clear()
+            sync()
+            t0 = time.perf_counter()
+            blobs = [len(backend.apply(i, img))
+                     for i, img in enumerate(frames)]
+            sync()
+            wall = time.perf_counter() - t0
+    finally:
+        del backend.detector.__dict__["detect"]
+    ms = t.device_ms()
+    n = len(frames)
+    return dict(frames=n, fps=n / wall, wall_s=wall,
+                batches=len(ms), batch_size=max(t.images),
+                batch_host_ms=1e3 * statistics.median(t.batch_host),
+                batch_device_ms=statistics.median(ms),
+                before_nms=sum(t.before) / n, after_nms=sum(dets) / n,
+                blobs=sum(blobs) / n, postprocess_s=t.post_s / n,
+                merge_s=t.merge_s / n,
+                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def _nms_kept(rows, k, thr, iou):
+    """The anchors of image `k` that ``YOLODetector._postprocess`` keeps
+    (score at or above `thr`, then NMS at `iou`), as indices."""
+    from trex_tpu_torch.detect.tiling import compute_tile_nms_indices
+
+    idx = np.flatnonzero(rows["conf"][k] >= thr)
+    sel = compute_tile_nms_indices(rows["boxes"][k][idx], rows["conf"][k][idx],
+                                   rows["clid"][k][idx], iou)
+    return idx[np.asarray(sel, int)]
+
+
+def _iou_rows(a, b):
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = np.prod(np.clip(rb - lt, 0, None), 2)
+    area = np.prod(a[:, 2:] - a[:, :2], 1)[:, None] \
+        + np.prod(b[:, 2:] - b[:, :2], 1)[None]
+    return np.where(area > inter, inter / np.maximum(area - inter, 1e-12),
+                    0.0)
+
+
+def yolo_detections_agree(det, g, c, frames, tol):
+    """The card's detections (rows `g`) against the CPU's (`c`) on each
+    frame: an anchor whose score lies further than `tol` from the
+    threshold passes on both sides or on neither, and every detection
+    with a score above the threshold by more than `tol` on one side is
+    on the other side too, kept or suppressed there by a kept detection
+    of the same class that overlaps it at NMS's IoU. The count of
+    ``_postprocess``'s detections is that of the kept anchors on each
+    side. Returns the anchors and detections compared."""
+    thr = det._conf_threshold
+    iou = float(det.settings["detect_iou_threshold"] or 0.7)
+    near = np.abs(c["conf"] - thr) <= tol
+    check(((g["conf"] >= thr) == (c["conf"] >= thr))[~near].all(),
+          f"yolo: card and CPU pass different anchors beyond {tol} of the "
+          f"threshold")
+    clear = compared = 0
+    for k, f in enumerate(frames):
+        kept = {}
+        for side, rows in (("card", g), ("cpu", c)):
+            kept[side] = _nms_kept(rows, k, thr, iou)
+            n = len(det._postprocess(rows, k, f.shape[:2]))
+            check(n == len(kept[side]), f"yolo: frame {k}: {side} "
+                  f"_postprocess gave {n} detections of "
+                  f"{len(kept[side])} kept anchors")
+        for side, other, rows in (("card", "cpu", g), ("cpu", "card", c)):
+            mine = kept[side][rows["conf"][k][kept[side]] > thr + tol]
+            theirs = kept[other]
+            # on the other side: kept, or its box suppressed by a kept one
+            orows = g if other == "card" else c
+            ov = _iou_rows(orows["boxes"][k][mine],
+                           orows["boxes"][k][theirs])
+            same = orows["clid"][k][mine][:, None] \
+                == orows["clid"][k][theirs][None]
+            found = np.isin(mine, theirs) | ((ov >= iou) & same).any(1)
+            check(found.all(), f"yolo: frame {k}: {int((~found).sum())} of "
+                  f"the {side}'s detections clear of the threshold are "
+                  f"not the {other}'s")
+            clear += len(mine)
+        compared += int((~near[k]).sum())
+    return dict(anchors_compared=compared, detections_compared=clear,
+                near_threshold=int(near.sum()),
+                passed=int((g["conf"] >= thr).sum()))
+
+
+def yolo_layers_held(card_model, cpu_model, canvas, dev):
+    """Each ConvBNSiLU and each head's output convolution of the card's
+    bfloat16 model, fed the input that layer had in the CPU's bfloat16
+    forward of `canvas`, against the CPU layer's output: the largest
+    difference over the largest magnitude, each at most
+    :data:`YOLO_ROW_TOL`. A layer computed wrong on the card shows here
+    without the whole network's amplification of rounding."""
+    import torch
+
+    from trex_tpu_torch.models.yolo import ConvBNSiLU
+
+    names = [n for n, m in cpu_model.named_modules()
+             if isinstance(m, ConvBNSiLU) or n.endswith("_2")]
+    seen = {}
+    cpu_mods = dict(cpu_model.named_modules())
+    hooks = [cpu_mods[n].register_forward_hook(
+        lambda m, i, o, n=n: seen.__setitem__(n, (i[0], o)))
+        for n in names]
+    with torch.no_grad():
+        cpu_model(torch.from_numpy(canvas).permute(0, 3, 1, 2))
+        for h in hooks:
+            h.remove()
+        card_mods = dict(card_model.named_modules())
+        worst, rel = "", 0.0
+        for n in names:
+            x, want = seen.pop(n)
+            got = card_mods[n](x.to(dev)).float().cpu()
+            want = want.float()
+            r = float((got - want).abs().max()) \
+                / max(float(want.abs().max()), 1e-30)
+            if r > rel:
+                worst, rel = n, r
+    check(rel <= YOLO_ROW_TOL, f"yolo: bfloat16 layer {worst}: card != "
+          f"CPU on the same input, {rel:.4g} > {YOLO_ROW_TOL}")
+    return dict(layers=len(names), max_rel=rel, worst=worst)
+
+
+def yolo_held(pt, dev, frames):
+    """The card's detector against the port's CPU one, same weights, on
+    `frames` letterboxed. float32 on both: decoded rows within
+    :data:`YOLO_F32_TOL` (boxes and keypoints that times 640 px), and
+    the detections agree (:func:`yolo_detections_agree`). bfloat16, the
+    detector's default: each layer on the same input within
+    :data:`YOLO_ROW_TOL` (:func:`yolo_layers_held`); the decoded rows
+    within :data:`YOLO_BF16_TOL` of the CPU's (scores; boxes
+    :data:`YOLO_BF16_PX`, keypoints :data:`YOLO_BF16_KPT_PX`) and, on
+    average over the rows, no
+    further from the float32 rows than :data:`YOLO_BF16_RATIO` times the
+    CPU's bfloat16 rows are; the detections agree beyond
+    :data:`YOLO_BF16_TOL` of the threshold."""
+    import torch
+
+    from trex_tpu_torch.detect.yolo import YOLODetector
+    from trex_tpu_torch.models.yolo_convert import \
+        load_ultralytics_checkpoint
+
+    s = registry(yolo_settings(pt))
+    out, rows = {}, {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        det = {}
+        for side, d in (("card", dev), ("cpu", "cpu")):
+            ck = load_ultralytics_checkpoint(pt, device=d)
+            det[side] = YOLODetector(
+                s, state=ck["state"], scale=ck["scale"], task=ck["task"],
+                num_classes=ck["num_classes"],
+                num_keypoints=ck["num_keypoints"], device=d, dtype=dtype)
+        card, cpu = det["card"], det["cpu"]
+        size = card.input_size
+        canvas = np.stack([card._prepare(f, size) for f in frames])
+        t0 = time.perf_counter()
+        c = {k: v.float().cpu().numpy()
+             for k, v in cpu.infer_device(canvas).items()}
+        cpu_s = time.perf_counter() - t0
+        g = {k: v.float().cpu().numpy()
+             for k, v in card.infer_device(canvas).items()}
+        rows[name] = (g, c)
+        f32 = name == "float32"
+        tol = YOLO_F32_TOL if f32 else YOLO_BF16_TOL
+        px = YOLO_F32_TOL * size if f32 else YOLO_BF16_PX
+        kpt_px = YOLO_F32_TOL * size if f32 else YOLO_BF16_KPT_PX
+        err = dict(boxes=float(np.abs(g["boxes"] - c["boxes"]).max()),
+                   scores=float(np.abs(g["scores"] - c["scores"]).max()),
+                   kpt_xy=float(np.abs(g["keypoints"][..., :2]
+                                       - c["keypoints"][..., :2]).max()),
+                   kpt_conf=float(np.abs(g["keypoints"][..., 2]
+                                         - c["keypoints"][..., 2]).max()))
+        r = dict(err=err, cpu_s=cpu_s)
+        if not f32:
+            r["layers"] = yolo_layers_held(card.model, cpu.model, canvas,
+                                           dev)
+            ref = rows["float32"][1]
+            r["from_f32"] = {}
+            for key, part in (("boxes", np.s_[...]), ("scores", np.s_[...]),
+                              ("keypoints", np.s_[..., :2])):
+                gap = [np.abs(x[key][part] - ref[key][part]) for x in (g, c)]
+                dist = [float(d.mean()) for d in gap]
+                r["from_f32"][key] = dist + [float(d.max()) for d in gap]
+                check(dist[0] <= YOLO_BF16_RATIO * dist[1],
+                      f"yolo: bfloat16 {key}: the card's rows lie "
+                      f"{dist[0]:.4g} from float32 on average, the CPU's "
+                      f"{dist[1]:.4g}")
+        check(err["boxes"] <= px and err["kpt_xy"] <= kpt_px
+              and max(err["scores"], err["kpt_conf"]) <= tol,
+              f"yolo: {name}: card != CPU beyond the bound: {err}")
+        r.update(yolo_detections_agree(card, g, c, frames, tol))
+        out[name] = r
+        del det, card, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_yolo(dev, report, t_script=0.0):
+    """YOLO detection and posture from predictions (phase 16 of the
+    module docstring)."""
+    import shutil
+
+    import torch
+
+    import trex_tpu_torch.detect.yolo as yolo_mod
+    from trex_tpu_torch import kernels
+    from trex_tpu_torch.detect.base import create_detection
+
+    root = REPO / "build" / "smoke_yolo"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev)
+    kernels.reset_launches()
+    late = t_script > YOLO_LATE_S
+    n_frames = YOLO_CUT_FRAMES if late else YOLO_FRAMES
+    bg, frames, track = synth_scene(YOLO_FRAMES)
+
+    # (a) detection at full width through the facade
+    pts = write_yolo_pt(root, frames[:4], dev)
+    t0 = time.perf_counter()
+    whole = create_detection(registry(yolo_settings(pts["letterbox"])),
+                             device=dev)
+    load_s = time.perf_counter() - t0
+    det = whole.detector
+    check(det.task == "pose" and det.scale == YOLO_SCALE
+          and det.model.num_keypoints == YOLO_KEYPOINTS
+          and next(det.model.parameters()).device.type == "cuda",
+          "yolo: the checkpoint did not load as an x pose model on the "
+          "card")
+    torch.cuda.reset_peak_memory_stats(dev)
+    lb = yolo_run(dev, whole, frames[:n_frames], yolo_mod)
+    tiled_backend = create_detection(registry(yolo_settings(
+        pts["tiles"], detect_tile_image=2, detect_tile_overlap=0.1)),
+        device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tiled = yolo_run(dev, tiled_backend, frames[:n_frames], yolo_mod)
+    check(lb["after_nms"] > 0 and tiled["after_nms"] > 0,
+          f"yolo: no detections ({lb['after_nms']}, {tiled['after_nms']})")
+    held = yolo_held(pts["letterbox"], dev, frames[:YOLO_HELD_FRAMES])
+    check(not any(kernels.launches.values()),
+          f"yolo: a port kernel launched: {dict(kernels.launches)}")
+
+    # (b) posture from pose and outline predictions through the CLI
+    values = pose_settings()
+    post = {}
+    for kind in ("pose", "outline"):
+        pv = root / kind / f"{kind}.pv"
+        pv.parent.mkdir()
+        n_pred = prediction_pv(pv, bg, frames, track, kind, values)
+        run = track_cli(dev, pv, root / kind / "card", values, "object",
+                        ["-output_posture_data", "true"])
+        ref = track_cli("cpu", pv, root / kind / "cpu", values, "object",
+                        ["-output_posture_data", "true"])
+        got = output_files(root / kind / "card")
+        want = output_files(root / kind / "cpu")
+        check(got.keys() == want.keys() and got == want,
+              f"yolo: {kind}: the card run's exports differ from the CPU "
+              f"run's: {npz_departures(got, want)[0][:5]}")
+        tr = run["tracker"]
+        stats = [tr.statistics[f] for f in sorted(tr.statistics)]
+        share, ratio = [], []
+        for f in range(YOLO_FRAMES):
+            n_here = n_mid = 0
+            for ind in tr.individuals.values():
+                basic = ind.basic_stuff(f)
+                if basic is None:
+                    continue
+                n_here += 1
+                ps = ind.posture_stuff(f)
+                if ps is not None and ps.midline is not None:
+                    n_mid += 1
+                    ratio.append(ps.midline_length / basic.blob.bounds[2])
+            share.append(n_mid / max(1, n_here))
+        check(min(share) > 0.5, f"yolo: {kind}: midlines on only "
+              f"{min(share):.3f} of a frame's fish")
+        post[kind] = dict(
+            predictions=n_pred, wall_s=run["wall_s"],
+            track_s=run["track_s"],
+            posture_s=sum(s.posture_seconds for s in stats) / YOLO_FRAMES,
+            adding_s=sum(s.adding_seconds for s in stats) / YOLO_FRAMES,
+            midline_share=(float(np.mean(share)), float(min(share))),
+            length_ratio=(float(np.median(ratio)), float(np.min(ratio)),
+                          float(np.max(ratio))),
+            files=len(got))
+    r = dict(scale=YOLO_SCALE, keypoints=YOLO_KEYPOINTS, cut=late,
+             load_s=load_s, letterbox=lb, tiled=tiled, held=held,
+             posture=post, kernel_launches=dict(kernels.launches),
+             s=time.perf_counter() - t_phase)
+    report["yolo"] = r
+
+    def part(name, x):
+        return (f"{name} {x['fps']:.2f} frames/s, {x['batches']} batches "
+                f"of {x['batch_size']} at {x['batch_host_ms']:.1f} ms host "
+                f"/ {x['batch_device_ms']:.1f} ms device, "
+                f"{x['before_nms']:.1f} rows before NMS and "
+                f"{x['after_nms']:.1f} detections a frame, post-process "
+                f"{x['postprocess_s'] * 1e3:.1f} ms and merge "
+                f"{x['merge_s'] * 1e3:.1f} ms a frame, peak "
+                f"{x['peak_mem_gb']:.2f} GB")
+
+    print(f"phase 16 ok: YOLOv8{YOLO_SCALE}-pose ({YOLO_KEYPOINTS} "
+          f"keypoints) through create_detection over {n_frames} frames of "
+          f"{SIZE}^2 with {N_FISH} fish"
+          + (f" (cut from {YOLO_FRAMES}: the script was past "
+             f"{YOLO_LATE_S:.0f} s)" if late else "")
+          + f"; {part('letterboxed to 640:', lb)}; "
+          f"{part('SAHI 2x2 tiles:', tiled)}; card == CPU on "
+          f"{YOLO_HELD_FRAMES} frames: "
+          + "; ".join(
+              f"{k} boxes {v['err']['boxes']:.4g} px, scores "
+              f"{v['err']['scores']:.4g}, keypoints {v['err']['kpt_xy']:.4g}"
+              f" px, keypoint scores {v['err']['kpt_conf']:.4g} (CPU "
+              f"forward {v['cpu_s']:.1f} s), {v['passed']} anchors passed, "
+              f"{v['near_threshold']} near the threshold, "
+              f"{v['anchors_compared']} anchors' and "
+              f"{v['detections_compared']} detections' decisions equal"
+              for k, v in held.items())
+          + f"; bfloat16 layers on the same input: max "
+          f"{held['bfloat16']['layers']['max_rel']:.4g} of "
+          f"{held['bfloat16']['layers']['layers']} (at "
+          f"{held['bfloat16']['layers']['worst']}); distance from "
+          f"float32, card / CPU, mean and max: "
+          + ", ".join(f"{k} {a:.4g} / {b:.4g} and {x:.4g} / {y:.4g}"
+                      for k, (a, b, x, y) in
+                      held['bfloat16']['from_f32'].items())
+          + "; "
+          f"posture through the CLI (object Tracker): "
+          + "; ".join(
+              f"{k} {v['predictions']} predictions, posture "
+              f"{v['posture_s'] * 1e3:.2f} ms and adding "
+              f"{v['adding_s'] * 1e3:.2f} ms a frame, midlines on "
+              f"{v['midline_share'][0]:.3f} (min "
+              f"{v['midline_share'][1]:.3f}) of a frame's fish, midline / "
+              f"stamp length {v['length_ratio'][0]:.3f} "
+              f"({v['length_ratio'][1]:.3f}-{v['length_ratio'][2]:.3f}), "
+              f"{v['files']} files equal to the CPU run's"
+              for k, v in post.items())
+          + f"; no port kernel launched; phase {r['s']:.1f} s", flush=True)
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the report as JSON here")
@@ -3808,6 +4606,7 @@ def main():
     phase_vi_train(dev, report)
     phase_vf(dev, report, *chunk[:2])
     phase_tags(dev, report)
+    phase_yolo(dev, report, time.perf_counter() - t0)
     report["total_s"] = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3825,7 +4624,7 @@ def main():
     print(json.dumps({k: report[k] for k in (
         "detect", "label", "track", "device_tracker", "auto_split",
         "posture", "decay", "archive", "product", "object", "vi",
-        "vi_train", "vf", "tags", "build_s", "total_s")}))
+        "vi_train", "vf", "tags", "yolo", "build_s", "total_s")}))
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

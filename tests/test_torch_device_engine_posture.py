@@ -294,11 +294,11 @@ def test_port_defaults_with_posture_run(asym):
     every engine needs (a track threshold over the background, a bounded
     population, a maximum speed), the host FastTracker and the DeviceTracker on both paths
     (fused_scan_packed, scan_packed) run with posture; posture records of
-    archive mode come back for every row with a posture, and predictions
-    raise, naming their slice."""
+    archive mode come back for every row with a posture, and a row with
+    a pose prediction takes its posture from the keypoints."""
     from trex_tpu_torch.config import DEFAULTS
     from trex_tpu_torch.track.archive import compute_posture_rows
-    from trex_tpu_torch.track.engine import EngineUnsupported
+    from trex_tpu_torch.track.posture import calculate_posture_from_pose
 
     bg, frames = asym
     frames = frames[:6]
@@ -322,7 +322,12 @@ def test_port_defaults_with_posture_run(asym):
         np.zeros((len(b), 2)), want_recs=True)
     assert ok.any() and all((r is not None) == o for r, o in zip(recs, ok))
     assert all(r.len_px == ln for r, ln in zip(recs, lens) if r is not None)
-    with pytest.raises(EngineUnsupported, match="YOLO"):
-        compute_posture_rows(d, bg, [np.zeros((1, 3), np.int32)],
-                             [np.zeros(1, np.uint8)],
-                             [{"keypoints": [[1.0, 2.0]]}], np.zeros((1, 2)))
+    # a row with a pose prediction takes its posture from the keypoints
+    x, y, w, h = TrackBlob(b[0].lines, b[0].pixels).bounds
+    kp = np.stack([np.linspace(x, x + w - 1, 5), np.full(5, y + h / 2)], 1)
+    ok1, lens1, _, _, _, _ = compute_posture_rows(
+        d, bg, [b[0].lines], [b[0].pixels], [{"keypoints": kp}],
+        np.zeros((1, 2)))
+    want = calculate_posture_from_pose(TrackBlob(b[0].lines, b[0].pixels),
+                                       kp, d)
+    assert ok1[0] and lens1[0] == want.midline.len

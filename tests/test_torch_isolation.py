@@ -28,6 +28,24 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m == "trex_tpu" or m.startswith("trex_tpu.")
              or m == "jax" and sys.modules[m] is not None)
+# a small YOLO detection and a pose posture on the CPU, cv2 blocked
+import numpy as np
+from trex_tpu_torch.config import Settings
+from trex_tpu_torch.detect.base import create_detection
+from trex_tpu_torch.track.blob import TrackBlob
+from trex_tpu_torch.track.posture import calculate_posture_from_pose
+s = Settings()
+for k, v in dict(detect_type="yolo", detect_resolution=64,
+                 detect_conf_threshold=0.0, detect_tile_image=2).items():
+    s.set(k, v)
+img = np.full((96, 128, 3), 200, np.uint8)
+img[40:48, 30:46] = 60
+blobs = create_detection(s, device="cpu").apply(0, img)
+assert blobs and all(b.prediction["keypoints"] is None for b in blobs)
+blob = TrackBlob(np.array([[y, 30, 45] for y in range(40, 48)], np.int32),
+                 np.full(8 * 16, 60, np.uint8))
+kp = np.array([[31, 44], [35, 44], [39, 44], [43, 44]], np.float64)
+assert calculate_posture_from_pose(blob, kp, s).midline is not None
 print(len(names), bad)
 assert not bad, bad
 """
@@ -39,7 +57,7 @@ def test_port_imports_without_jax_or_trex_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.split(" ", 1)
-    assert int(n) >= 82 and bad.strip() == "[]"
+    assert int(n) >= 91 and bad.strip() == "[]"
 
 
 def test_no_jax_import_lines():
@@ -59,11 +77,16 @@ def test_no_jax_import_lines():
 
 def test_no_h5py_anywhere_and_no_cv2_in_the_tag_modules():
     """The card's machine has neither h5py nor OpenCV: no module of the
-    port imports h5py, and the tag slice's modules import no cv2 (the
-    older lazy cv2 imports for video decode and optional image operations
-    stay)."""
+    port imports h5py, and the tag and detection slices' modules import
+    no cv2 (the older lazy cv2 imports for video decode and optional
+    image operations stay)."""
     tag_modules = {"io/hdf5.py", "track/tag_image.py", "track/tags.py",
-                   "ml/tagwork.py", "ml/auto_tags.py"}
+                   "ml/tagwork.py", "ml/auto_tags.py", "track/posture.py",
+                   "io/encoding.py", "models/yolo.py",
+                   "models/yolo_convert.py", "detect/__init__.py",
+                   "detect/base.py", "detect/yolo.py", "detect/tiling.py",
+                   "detect/rotated.py", "detect/region.py",
+                   "detect/prediction_filter.py"}
     root = REPO / "trex_tpu_torch"
     seen = set()
     for f in root.rglob("*.py"):
@@ -87,6 +110,11 @@ def test_entry_points_need_cuda_unless_cpu_asked():
         track_video_device)
     from trex_tpu_torch.ml.tagwork import (KerasSequential, TagDecoderNet,
                                            train_tag_decoder)
+    from trex_tpu_torch.config import Settings
+    from trex_tpu_torch.detect.base import create_detection
+    from trex_tpu_torch.detect.yolo import YOLODetector
+    from trex_tpu_torch.models.yolo_convert import \
+        load_ultralytics_checkpoint
     from trex_tpu_torch.track.device_engine import DeviceTracker
 
     if torch.cuda.is_available():
@@ -116,6 +144,11 @@ def test_entry_points_need_cuda_unless_cpu_asked():
     crops = np.zeros((2, 16, 16), np.uint8)
     calls += [lambda: KerasSequential([]), lambda: TagDecoderNet(4, 16),
               lambda: train_tag_decoder(crops, np.zeros(2), 4, epochs=1)]
+    # the detection facade, the YOLO detector and its checkpoint loader
+    yolo = Settings()
+    yolo.set("detect_type", "yolo")
+    calls += [lambda: create_detection(yolo), lambda: YOLODetector(yolo),
+              lambda: load_ultralytics_checkpoint(REPO / "missing.pt")]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -194,7 +227,10 @@ def test_package_lists_every_module():
                  "track.dataset_quality", "track.foi", "utils.drawing",
                  "ops.raycast", "track.visual_field", "closed_loop",
                  "io.hdf5", "track.tag_image", "track.tags",
-                 "ml.tagwork", "ml.auto_tags"):
+                 "ml.tagwork", "ml.auto_tags", "models.yolo",
+                 "models.yolo_convert", "detect.base", "detect.yolo",
+                 "detect.tiling", "detect.rotated", "detect.region",
+                 "detect.prediction_filter"):
         assert f"trex_tpu_torch.{name}" in mods
 
 

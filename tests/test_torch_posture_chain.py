@@ -179,14 +179,23 @@ def test_compute_posture_rows_records_equal_jax(name, chain_route):
 
 
 def test_pose_and_outline_predictions_raise_naming_the_yolo_slice():
-    from trex_tpu_torch.track.engine import EngineUnsupported
-
+    """Pose and outline predictions, which raised until the YOLO slice,
+    give the JAX package's posture through the per-row python path."""
     bg, frames, s, d = _scene("asym")
-    _, tb = _blob_pairs(bg, frames, 1)[0]
-    for pred in ({"keypoints": [[1.0, 2.0]]},
-                 {"original_outline": np.zeros((4, 2))}):
-        with pytest.raises(EngineUnsupported, match="YOLO"):
-            TA.posture_python_row(d, bg, tb.lines, tb.pixels, pred, None)
+    jb, tb = _blob_pairs(bg, frames, 1)[0]
+    x, y, w, h = tb.bounds
+    kp = np.stack([np.linspace(x, x + w - 1, 5), np.full(5, y + h / 2)], 1)
+    dense = np.zeros((h, w), np.uint8)
+    for yy, a, b in tb.lines:
+        dense[yy - y, a - x:b - x + 1] = 1
+    outline = (TP.trace_boundary(dense) + np.array([x, y])).astype(np.int32)
+    for pred in ({"keypoints": kp}, {"original_outline": outline.ravel()}):
+        got = TA.posture_python_row(d, bg, tb.lines, tb.pixels, pred, None)
+        want = JA.posture_python_row(s, bg, jb.lines, jb.pixels, pred, None)
+        assert got is not None and got.midline is not None
+        assert np.array_equal(got.outline, want.outline)
+        assert np.array_equal(got.midline.segments, want.midline.segments)
+        assert got.midline.len == want.midline.len
     # closing steps run now (tests/test_torch_posture_closing.py holds
     # them to OpenCV and the JAX package)
     dense, _ = TP.biggest_component(tb, 15, bg, d, closing_steps=1)

@@ -27,7 +27,12 @@ frame's tag decode (``tag_decode_256``: the default tag network,
 ``TagDecoderNet(256, 32)`` as a keras ``KerasSequential``, on 256 rendered
 tag crops through ``TagDecoder.batch``, one forward with the copies in
 and out and the ids and confidences, as ``chip_smoke.py`` phase 15's
-tracker decodes a frame).
+tracker decodes a frame), and one warm 8-image forward plus decode of
+the YOLOv8x pose model at 640 (``yolo_x_pose_640_b8``:
+``chip_smoke.write_yolo_pt``'s seeded weights through
+``create_detection``, ``YOLODetector.infer_device`` on 8 letterboxed
+frames of the tracking chunk, one batch of phase 16's
+``detect_batch_size``).
 ``--only`` profiles the named targets alone. For each it
 prints the host wall time (under the profiler, and of one more warm call
 without it), the summed device time of the kernels and the
@@ -199,6 +204,31 @@ def main():
         dec = TagDecoder(tw)
         return lambda: dec.batch(list(crops))
 
+    def yolo_forward(batch=8):
+        """One 640 batch through the YOLOv8x pose model and its decode,
+        as ``chip_smoke.py`` phase 16's detector runs it; the model is
+        written and loaded at the first (warm-up) call."""
+        made = {}
+
+        def run():
+            if not made:
+                from trex_tpu_torch.config import Settings
+                from trex_tpu_torch.detect.base import create_detection
+
+                root = smoke.REPO / "build" / "profile_yolo"
+                root.mkdir(parents=True, exist_ok=True)
+                path = smoke.write_yolo_pt(root, frames[:4], dev)["letterbox"]
+                s = Settings()
+                for k, v in smoke.yolo_settings(path).items():
+                    s.set(k, v)
+                det = create_detection(s, device=dev).detector
+                made["det"] = det
+                made["canvas"] = np.stack(
+                    [det._prepare(f, det.input_size) for f in frames[:batch]])
+            return made["det"].infer_device(made["canvas"])
+
+        return run
+
     targets = {
         "detect_batch_pallas_32": lambda: detect_batch(
             fr[:32], bgt, use_pallas=True, device=dev, **kw),
@@ -225,6 +255,7 @@ def main():
         "vi_train_step_128": vi_train_steps(),
         "raycast_251": raycast(),
         "tag_decode_256": tag_decode(),
+        "yolo_x_pose_640_b8": yolo_forward(),
     }
     report = {name: profile_call(fn) for name, fn in targets.items()
               if not args.only or name in args.only}

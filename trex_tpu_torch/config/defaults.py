@@ -79,6 +79,8 @@ DEFAULTS: dict = {
     "peak_mode": "pointy",
     "posture_closing_size": 2,
     "posture_head_percentage": 0.1,
+    "pose_midline_indexes": [],
+    "outline_compression": 0.0,
     "huge_timestamp_seconds": 0.2,
 }
 

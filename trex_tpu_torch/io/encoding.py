@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..track.tag_image import bgr_to_gray
+
 
 def bgr_to_r3g3b2(bgr: np.ndarray) -> np.ndarray:
     """(H, W, 3) BGR uint8 -> (H, W) r3g3b2 uint8."""
@@ -56,9 +58,7 @@ def convert_to_storage(image: np.ndarray, encoding: str,
         if image.ndim == 3:
             if color_channel is not None and 0 <= int(color_channel) < 3:
                 return image[..., int(color_channel)].copy()
-            import cv2
-
-            return cv2.cvtColor(image, cv2.COLOR_BGR2GRAY)
+            return bgr_to_gray(image)
         return image
     if encoding == "r3g3b2":
         if image.ndim == 2:

@@ -41,6 +41,7 @@ from .track.motion import MotionRecord
 from .track.posture import (calculate_posture,
                             calculate_posture_from_outline,
                             calculate_posture_from_pose)
+from .track.tag_image import bgr_to_gray
 from .track.tracker import Tracker
 from .utils.timing import global_collector as _global_collector
 
@@ -163,9 +164,7 @@ def generate_average(source: VideoSource, settings: Settings,
     for i in np.round(np.linspace(0, len(source) - 1, max(1, n))).astype(int):
         img = source.get(int(i))
         if img.ndim == 3 and not color:
-            import cv2
-
-            img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+            img = bgr_to_gray(img)
         acc.add(preprocess_video_frame(img, settings, undistort_maps))
     return acc.finalize()
 
@@ -960,11 +959,11 @@ def filter_blobs_by_prediction(blobs: list, settings: Settings) -> list:
 def run_postures(tracker: Tracker, frame: int, settings: Settings,
                  pool: Optional[cf.ThreadPoolExecutor] = None):
     """Posture per new assignment (TrackingHelper::process_postures):
-    the per-blob chain of `calculate_posture` on the pixels of every
-    individual assigned in `frame`; pose and outline predictions raise
-    until ROADMAP.md A item 3e. The frame's wall seconds go into its
-    FrameStatistics' `posture_seconds`, which the JAX package leaves
-    0."""
+    the posture of every individual assigned in `frame`, from its blob's
+    pose keypoints, else its detection outline, else its pixels (the
+    per-blob chain of `calculate_posture`). The frame's wall seconds go
+    into its FrameStatistics' `posture_seconds`, which the JAX package
+    leaves 0."""
     t0 = _time.perf_counter()
     jobs = []
     smoothing = int(settings["posture_direction_smoothing"] or 0)

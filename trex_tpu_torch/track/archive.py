@@ -149,8 +149,7 @@ def posture_python_row(settings, background, lines, pixels, pred,
                        direction):
     """Per-blob python posture with the reference's source precedence
     (pipeline.run_postures: pose keypoints > detection outline >
-    pixels); the pose and outline sources raise until the YOLO slice of
-    the port."""
+    pixels)."""
     blob = TrackBlob(np.asarray(lines, np.int32), pixels)
     kp = pred.get("keypoints") if pred else None
     orig = pred.get("original_outline") if pred else None

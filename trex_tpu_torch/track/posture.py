@@ -30,8 +30,10 @@ its steps run natively (``trex_trace_boundary``,
 ``peak_mode`` broad) steps 4-8 run in numpy, the ``_py`` functions being
 the numpy twins of the native steps.
 
-Posture from pose or outline predictions comes with the YOLO slice of
-the port (ROADMAP.md A item 3e) and raises. ``posture_closing_steps``
+Posture from pose keypoints (``calculate_posture_from_pose``: circles
+along the skeleton, filled as OpenCV fills them, traced) and from a
+detection's outline (``calculate_posture_from_outline``) feed the same
+midline chain. ``posture_closing_steps``
 (the mask closed before the biggest component is kept) runs in the
 per-blob chain, which the object Tracker takes; the batch chains refuse
 it, as the JAX package's do.
@@ -743,20 +745,147 @@ def calculate_posture(blob: TrackBlob, settings,
     return None
 
 
-def calculate_posture_from_pose(blob, pose_points, settings,
-                                movement_direction=None):
-    """Posture from a pose skeleton: comes with the YOLO slice."""
-    from .engine import EngineUnsupported
+# ---------------------------------------------------------------------------
+# pose-skeleton and segmentation-outline posture paths
+# ---------------------------------------------------------------------------
 
-    raise EngineUnsupported(
-        "posture from pose or outline predictions (ported with the YOLO "
-        "slice, ROADMAP.md A item 3e)")
+def _ensure_circle_overlap(centers: list, radii: list):
+    """Insert midpoint circles until consecutive circles overlap
+    (Posture.cpp ensureCircleOverlap: intersect when the center
+    distance < max(0, r1 + r2 - 2))."""
+    if not centers:
+        return
+    merged = True
+    guard = 0
+    while merged and guard < 10000:
+        merged = False
+        guard += 1
+        for i in range(len(centers) - 1):
+            c0, c1 = centers[i], centers[i + 1]
+            d = math.hypot(c1[0] - c0[0], c1[1] - c0[1])
+            if d >= max(0.0, radii[i] + radii[i + 1] - 2):
+                centers.insert(i + 1, ((c0[0] + c1[0]) * 0.5,
+                                       (c0[1] + c1[1]) * 0.5))
+                radii.insert(i + 1, (radii[i] + radii[i + 1]) / 2.0 + 1.0)
+                merged = True
+                break
 
 
-def calculate_posture_from_outline(blob, outline_points, settings,
-                                   movement_direction=None):
-    """Posture from a detection outline: comes with the YOLO slice."""
-    return calculate_posture_from_pose(blob, None, settings)
+def generate_outline_from_pose(points: np.ndarray, midline_indexes,
+                               radius_map) -> np.ndarray:
+    """Pose keypoints -> outer outline (Posture.cpp generateOutline):
+    circles along the skeleton midline (pose_midline_indexes, or every
+    valid point), gap-filled, filled as OpenCV's ``circle`` fills them
+    (``tag_image.fill_circle``) and boundary-traced. Points with (0, 0)
+    coordinates count as invalid like blob::Pose::valid(). Returns
+    (N, 2) image-coordinate outline points (empty on failure)."""
+    from .tag_image import fill_circle
+
+    pts = np.asarray(points, np.float64).reshape(-1, 2)
+    valid = ~((pts[:, 0] == 0) & (pts[:, 1] == 0))
+    if midline_indexes:
+        sel = [i for i in midline_indexes
+               if 0 <= int(i) < len(pts) and valid[int(i)]]
+        centers = [tuple(pts[int(i)]) for i in sel]
+    else:
+        centers = [tuple(p) for p, v in zip(pts, valid) if v]
+    if not centers:
+        return np.zeros((0, 2), np.float32)
+    n = len(centers)
+    if n == 1:
+        radii = [(radius_map(0.0) + 1.0) if radius_map else 10.0]
+    else:
+        radii = [(radius_map(i / float(n - 1)) + 1.0) if radius_map
+                 else 10.0 for i in range(n)]
+    _ensure_circle_overlap(centers, radii)
+
+    ca = np.asarray(centers)
+    ra = np.asarray(radii)
+    x0 = math.floor((ca[:, 0] - ra).min()) - 2
+    y0 = math.floor((ca[:, 1] - ra).min()) - 2
+    x1 = math.ceil((ca[:, 0] + ra).max()) + 2
+    y1 = math.ceil((ca[:, 1] + ra).max()) + 2
+    w, h = int(x1 - x0), int(y1 - y0)
+    if w * h > 6000 * 6000 or w <= 0 or h <= 0:
+        return np.zeros((0, 2), np.float32)
+    canvas = np.zeros((h, w), np.uint8)
+    for (cx, cy), r in zip(centers, radii):
+        fill_circle(canvas, (int(round(cx - x0)), int(round(cy - y0))),
+                    int(round(r)), 255)
+    comps = label_blobs(canvas)
+    if not comps:
+        return np.zeros((0, 2), np.float32)
+    big = max(comps, key=lambda c: c.num_pixels)
+    dense = np.zeros_like(canvas)
+    for y, a, b in big.lines:
+        dense[y, a:b + 1] = 1
+    # 4x-supersampled crack outline like the pixel path
+    pts_out = trace_boundary(np.kron(dense, np.ones((4, 4),
+                                                    np.uint8))) / 4.0
+    if not len(pts_out):
+        return np.zeros((0, 2), np.float32)
+    return pts_out + np.array([x0, y0], np.float32)
+
+
+def reduce_vertex_line(points: np.ndarray, epsilon: float) -> np.ndarray:
+    """outline_compression: drop vertices closer than epsilon to the
+    last kept vertex (gui::reduce_vertex_line role)."""
+    if epsilon <= 0 or len(points) < 3:
+        return points
+    kept = [points[0]]
+    for p in points[1:]:
+        if math.hypot(p[0] - kept[-1][0], p[1] - kept[-1][1]) >= epsilon:
+            kept.append(p)
+    return np.asarray(kept, np.float32)
+
+
+def calculate_posture_from_pose(blob: TrackBlob, pose_points, settings,
+                                movement_direction=None
+                                ) -> Optional[PostureResult]:
+    """calculate_posture(pose) (Posture.cpp:246-275): outline from the
+    pose skeleton, then the standard midline chain. Outline/midline are
+    blob-local like the pixel path."""
+    s = SettingsView(settings)
+    x, y, w, h = blob.bounds
+    m = max(5.0, (w + h) / 2.0 * 0.08)
+    pts = generate_outline_from_pose(
+        pose_points, [int(i) for i in (s["pose_midline_indexes"] or [])],
+        lambda t: m * (1.0 - t) + 1.0)
+    if len(pts) < 3:
+        return None
+    pts = (pts - np.array([x, y], np.float32)).astype(np.float32)
+    pts = resample(pts, float(s["outline_resample"]))
+    mid = calculate_midline_from_outline(pts, s, movement_direction)
+    if mid is None:
+        return None
+    return PostureResult(outline=pts, midline=mid, offset=(0, 0))
+
+
+def calculate_posture_from_outline(blob: TrackBlob, outline_points,
+                                   settings, movement_direction=None
+                                   ) -> Optional[PostureResult]:
+    """calculate_posture(SegmentedOutlines) (Posture.cpp:277-304): the
+    detection's original outline, blob-local, resampled and optionally
+    compressed, then the midline chain."""
+    s = SettingsView(settings)
+    x, y, _, _ = blob.bounds
+    pts = np.asarray(outline_points)
+    if pts.ndim == 1:
+        # flat int32 stream: interleaved x,y pairs
+        pts = pts.reshape(-1, 2)
+    pts = pts.astype(np.float32) - np.array([x, y], np.float32)
+    if len(pts) < 3:
+        return None
+    pts = resample(pts, float(s["outline_resample"]))
+    compression = float(s["outline_compression"] or 0.0)
+    if compression > 0:
+        pts = reduce_vertex_line(pts, compression)
+    if len(pts) < 3:
+        return None
+    mid = calculate_midline_from_outline(pts, s, movement_direction)
+    if mid is None:
+        return None
+    return PostureResult(outline=pts, midline=mid, offset=(0, 0))
 
 
 def posture_batch(line_arrays: list, pixel_arrays: list,

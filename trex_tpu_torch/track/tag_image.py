@@ -23,6 +23,13 @@ on 8-bit single-channel images, bit for bit
   in C++ (``native/contours.cpp``, built into the host library of
   ``ops/labeling.py``).
 
+The detection path's routines live here too (``detect/yolo.py``,
+``detect/base.py``, ``track/posture.py``; held in
+``tests/test_torch_detect_cv.py``): :func:`resize_linear`
+(``INTER_LINEAR``, 1 and 3 channels), :func:`bgr_to_gray` and
+:func:`gray_to_bgr` (``cvtColor``) and :func:`fill_circle`
+(``cv2.circle`` filled).
+
 The array routines are numpy; the arithmetic follows OpenCV's types
 (float32 weights and products, round half to even).
 """
@@ -175,23 +182,82 @@ def _linear_coefs(ssize: int, dsize: int):
     return _frozen(ofs), _frozen(coef), xmin, xmax
 
 
+def _resize_taps(img: np.ndarray, xofs, alpha, xmax, yofs, beta
+                 ) -> np.ndarray:
+    """The two fixed-point passes of OpenCV's 8-bit linear resize over an
+    (H, W) or (H, W, C) image: horizontal taps (a single tap times ONE
+    from ``xmax`` on), then the vertical ``VResizeLinear`` cast of its
+    vector path, over source rows clamped to the image."""
+    sh, sw = img.shape[:2]
+    src = img.astype(np.int32).reshape(sh, sw, -1)
+    w, h = len(xofs), len(yofs)
+    x1 = np.minimum(xofs + 1, sw - 1)
+    a = alpha.astype(np.int32)
+    rows = src[:, xofs] * a[None, :, :1] + src[:, x1] * a[None, :, 1:]
+    one = np.arange(w) >= xmax
+    rows[:, one] = src[:, xofs[one]] * _COEF_SCALE
+    r0 = rows[np.clip(yofs, 0, sh - 1)] >> 4
+    r1 = rows[np.clip(yofs + 1, 0, sh - 1)] >> 4
+    b = beta.astype(np.int32)
+    v = ((b[:, :1, None] * r0) >> 16) + ((b[:, 1:, None] * r1) >> 16) + 2
+    out = np.clip(v >> 2, 0, 255).astype(np.uint8)
+    return out.reshape((h, w) + img.shape[2:])
+
+
 def _resize_linear_area(img: np.ndarray, w: int, h: int) -> np.ndarray:
     sh, sw = img.shape
     xofs, alpha, _xmin, xmax = _linear_coefs(sw, w)
     yofs, beta, _, _ = _linear_coefs(sh, h)
-    src = img.astype(np.int64)
-    # horizontal pass: two taps before xmax, the single tap times ONE after
-    x1 = np.minimum(xofs + 1, sw - 1)
-    rows = src[:, xofs] * alpha[:, 0] + src[:, x1] * alpha[:, 1]
-    one = np.arange(w) >= xmax
-    rows[:, one] = src[:, xofs[one]] * _COEF_SCALE
-    # vertical pass: FixedPtCast with OpenCV's 8-bit arithmetic
-    r0 = rows[np.clip(yofs, 0, sh - 1)]
-    r1 = rows[np.clip(yofs + 1, 0, sh - 1)]
-    b0 = beta[:, :1]
-    b1 = beta[:, 1:]
-    v = ((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16) + 2
-    return np.clip(v >> 2, 0, 255).astype(np.uint8)
+    return _resize_taps(img, xofs, alpha, xmax, yofs, beta)
+
+
+@lru_cache(maxsize=512)
+def _bilinear_coefs(ssize: int, dsize: int, clamp: bool):
+    """Source index and fixed-point weights of ``INTER_LINEAR``: the
+    source coordinate ``float((d + 0.5) * scale - 0.5)``. Horizontally
+    (`clamp`) a coordinate before the first pixel takes it whole and one
+    past the last takes the last, with the bound ``xmax`` of the two-tap
+    outputs; vertically the index and weight stay and the rows are
+    clamped when read."""
+    scale = _scale(ssize, dsize)
+    xmax = dsize
+    ofs = np.zeros(dsize, np.int64)
+    coef = np.zeros((dsize, 2), np.int64)
+    for d in range(dsize):
+        fx = np.float32((d + 0.5) * scale - 0.5)
+        sx = int(np.floor(fx))
+        fx = np.float32(fx - np.float32(sx))
+        if clamp:
+            if sx < 0:
+                fx, sx = np.float32(0.0), 0
+            if sx + 1 >= ssize:
+                xmax = min(xmax, d)
+                if sx >= ssize - 1:
+                    fx, sx = np.float32(0.0), ssize - 1
+        ofs[d] = sx
+        coef[d] = [int(np.rint(np.float32(v) * np.float32(_COEF_SCALE)))
+                   for v in (np.float32(1.0) - fx, fx)]
+    return _frozen(ofs), _frozen(coef), xmax
+
+
+def resize_linear(img, size) -> np.ndarray:
+    """``cv2.resize(img, (w, h))`` (``INTER_LINEAR``) of an 8-bit image
+    with 1 or 3 channels: 11-bit weights, the vector path's vertical
+    cast; an exact halving is the 2x2 block mean, as OpenCV takes
+    ``INTER_AREA`` there."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"expected an 8-bit image, got {img.dtype} "
+                         f"{img.shape}")
+    w, h = int(size[0]), int(size[1])
+    sh, sw = img.shape[:2]
+    if sw == 2 * w and sh == 2 * h:
+        blocks = img[:2 * h, :2 * w].astype(np.int32).reshape(
+            (h, 2, w, 2) + img.shape[2:]).sum(axis=(1, 3))
+        return ((blocks + 2) >> 2).astype(np.uint8)
+    xofs, alpha, xmax = _bilinear_coefs(sw, w, True)
+    yofs, beta, _ = _bilinear_coefs(sh, h, False)
+    return _resize_taps(img, xofs, alpha, xmax, yofs, beta)
 
 
 def resize_area(img, size) -> np.ndarray:
@@ -279,6 +345,59 @@ def adaptive_threshold_mean(img, max_value: int, inverse: bool,
     hit = diff <= -idelta if inverse else diff > -idelta
     return np.where(hit, np.uint8(max(0, min(255, round(max_value)))),
                     np.uint8(0)).astype(np.uint8)
+
+
+# --------------------------------------------------------------------------
+# colour and drawing
+# --------------------------------------------------------------------------
+
+# OpenCV 5's 15-bit luma weights of B, G and R (0.114, 0.587, 0.299)
+_GRAY_BGR = (3735, 19235, 9798)
+
+
+def bgr_to_gray(img) -> np.ndarray:
+    """``cv2.cvtColor(img, COLOR_BGR2GRAY)`` of an 8-bit BGR image:
+    ``(3735 b + 19235 g + 9798 r + 2^14) >> 15``."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected an 8-bit BGR image, got {img.dtype} "
+                         f"{img.shape}")
+    i = img.astype(np.int32)
+    cb, cg, cr = _GRAY_BGR
+    return ((i[..., 0] * cb + i[..., 1] * cg + i[..., 2] * cr + (1 << 14))
+            >> 15).astype(np.uint8)
+
+
+def gray_to_bgr(img) -> np.ndarray:
+    """``cv2.cvtColor(img, COLOR_GRAY2BGR)``: the value in each channel."""
+    img = _u8(img)
+    return np.repeat(img[..., None], 3, axis=-1)
+
+
+def fill_circle(img, center, radius: int, value: int) -> np.ndarray:
+    """``cv2.circle(img, center, radius, value, -1)`` on a 2-D 8-bit
+    image, in place; returns it. OpenCV's integer midpoint walk: each
+    step fills four rows' spans (inclusive), clipped to the image."""
+    cx, cy = int(center[0]), int(center[1])
+    r = int(radius)
+    if r < 0:
+        raise ValueError("radius must be >= 0")
+    h, w = img.shape[:2]
+    err, dx, dy, plus, minus = 0, r, 0, 1, (r << 1) - 1
+    while dx >= dy:
+        for y, half in ((cy - dy, dx), (cy + dy, dx), (cy - dx, dy),
+                        (cy + dx, dy)):
+            x0, x1 = max(cx - half, 0), min(cx + half, w - 1)
+            if 0 <= y < h and x0 <= x1:
+                img[y, x0:x1 + 1] = value
+        dy += 1
+        err += plus
+        plus += 2
+        mask = (err <= 0) - 1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+    return img
 
 
 # --------------------------------------------------------------------------
