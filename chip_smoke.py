@@ -269,7 +269,28 @@ Phases, each raising on failure:
     than half of every frame's fish. Posture and adding seconds a
     frame, the share of a frame's fish with a midline, midline length
     over the blob's width.
-17. Report: frames per second of phases 2-11, the replay's assist frames
+17. Promptable segmentation (``sam``, cell sam-vitb-16x1024-32): a
+    seeded random ViT-B SAM (:func:`write_sam_pth`: segment-anything's
+    checkpoint layout, about 94 M parameters) through
+    ``create_detection(detect_type="sam3")`` in bfloat16 on the card,
+    one box prompt for each of 32 fish at frame 0 from the ground truth
+    in ``detect_sam3_prompt``'s string format (:func:`sam_prompt`), the
+    prompts kept over 16 frames of :func:`synth_scene` (1024^2, 256
+    fish; 8 when the script reaches the phase past :data:`SAM_LATE_S`).
+    Frames/s through ``apply``, encoder and decoder ms a frame between
+    CUDA events, host ms a frame of the resizes and ``blobs_from_masks``,
+    peak memory. Held (:func:`sam_held`): one frame in float32, card
+    against the port's CPU path (embedding, mask logits and IoU within
+    :data:`SAM_F32_TOL`, the masks' decisions equal but within
+    :data:`SAM_MASK_MARGIN` of the threshold, blob and pixel counts);
+    in bfloat16 each ViT block and the mask decoder on the CPU's input
+    within :data:`SAM_ROW_TOL`, the whole forward by C8's rule
+    (:data:`SAM_BF16_RATIO`); ``decode_text`` at full width on a random
+    text tower (:func:`sam_text_held`); a ``Sam3ReplaySession`` over the
+    frames (:func:`sam_session`). No port kernel launched. Alone:
+    ``python3 -c 'import torch, chip_smoke;
+    chip_smoke.phase_sam(torch.device("cuda", 0), {})'``.
+18. Report: frames per second of phases 2-11, the replay's assist frames
    and seconds, the card's name and power limit, and one JSON line with
     every kernel's launches on its path, error against its plain
     version, time, bound, the plain version's time and the nearest
@@ -2058,10 +2079,10 @@ def registry(values):
 
 class Spy:
     """Wraps attributes of modules for one run: each call's seconds and
-    return value are kept under the attribute's name."""
+    (with `keep`) return value are kept under the attribute's name."""
 
-    def __init__(self, *targets):
-        self.targets = targets
+    def __init__(self, *targets, keep=True):
+        self.targets, self.keep = targets, keep
         self.seconds = {name: 0.0 for _, name in targets}
         self.returned = {name: [] for _, name in targets}
 
@@ -2073,7 +2094,8 @@ class Spy:
                 t0 = time.perf_counter()
                 out = _fn(*a, **k)
                 self.seconds[_name] += time.perf_counter() - t0
-                self.returned[_name].append(out)
+                if self.keep:
+                    self.returned[_name].append(out)
                 return out
             setattr(obj, name, wrapped)
         return self
@@ -4570,6 +4592,450 @@ def phase_yolo(dev, report, t_script=0.0):
           + f"; no port kernel launched; phase {r['s']:.1f} s", flush=True)
 
 
+SAM_FISH = 32              # box prompts, one per fish, at frame 0
+SAM_FRAMES = 16
+SAM_CUT_FRAMES = 8         # when the script reaches the phase late
+SAM_LATE_S = 950.0
+SAM_SEED = 17
+SAM_ROW_TOL = 0.02         # tests/test_torch_sam.py ROW_TOL
+SAM_BF16_RATIO = 1.25      # C8's rule: the card's bfloat16 distance from
+                           # float32, mean over the values, against the CPU's
+SAM_F32_TOL = 1e-3         # float32 card against CPU: the largest
+                           # difference over the largest magnitude
+SAM_MASK_MARGIN = 1e-3     # logits this close to mask_threshold may flip
+SAM_SESSION = ((0, 1, 2, 3, 6), 5, 7)   # commits, invalidate_from, last
+
+
+def sam_prompt(track, n=SAM_FISH, pad=2):
+    """One box a fish, for every 8th of the scene's fish at frame 0,
+    from the ground truth (:func:`synth_scene`'s stamps), in
+    ``detect_sam3_prompt``'s string format."""
+    boxes = []
+    for k in range(0, 8 * n, 8):
+        x, y = (int(v) for v in track[0, k])
+        w, h = 13 + (k % 5), 8 + (k % 3)
+        boxes.append([x - pad, y - pad, x + w + pad, y + h + pad])
+    return "{0:[" + ",".join("[" + ",".join(str(v) for v in b) + "]"
+                             for b in boxes) + "]}"
+
+
+def write_sam_pth(root, seed=SAM_SEED):
+    """A seeded random ViT-B in segment-anything's checkpoint layout (the
+    port's ``official_state_dict``); returns its path and the port's
+    state of the same weights."""
+    import torch
+
+    from trex_tpu_torch.models import sam as P
+
+    model = P.build(dtype=torch.float32, device="cpu",
+                    generator=torch.Generator().manual_seed(seed))
+    state = {k: v.numpy() for k, v in model.state_dict().items()}
+    path = root / "sam_vit_b.pth"
+    torch.save(P.official_state_dict(state), path)
+    return path, state
+
+
+def sam_text_tower(seed=SAM_SEED + 1):
+    """A seeded random text tower (its sizes do not depend on the
+    encoder's), as the port's state entries ``text_encoder.*``."""
+    import torch
+
+    from trex_tpu_torch.models import sam as P
+
+    m = P.build(img_size=64, encoder_dim=32, encoder_depth=1,
+                encoder_heads=1, global_idx=(), dtype=torch.float32,
+                with_text=True, device="cpu",
+                generator=torch.Generator().manual_seed(seed))
+    return {k: v.numpy() for k, v in m.state_dict().items()
+            if k.startswith("text_encoder.")}
+
+
+class SamCapture:
+    """Keeps the inputs and outputs of a segmenter's ``encode`` and
+    ``decode`` for one ``segment`` call and times them between CUDA
+    events (on the card)."""
+
+    def __init__(self, seg, keep=True):
+        self.model, self.keep = seg.model, keep
+        self.card = seg.device.type == "cuda"
+        self.calls = {"encode": [], "decode": []}
+        self.events = {"encode": [], "decode": []}
+
+    def __enter__(self):
+        import torch
+
+        for name in self.calls:
+            fn = getattr(self.model, name)
+
+            def wrapped(*a, _fn=fn, _name=name):
+                if self.card:
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                out = _fn(*a)
+                if self.card:
+                    e1.record()
+                    self.events[_name].append((e0, e1))
+                if self.keep:
+                    self.calls[_name].append((a, out))
+                return out
+
+            setattr(self.model, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.calls:
+            delattr(self.model, name)
+
+    def device_ms(self, name):
+        import torch
+
+        torch.cuda.synchronize()
+        return [e0.elapsed_time(e1) for e0, e1 in self.events[name]]
+
+
+def sam_full_logits(seg, img, masks, iou):
+    """The logits ``segment`` thresholds, at the frame's size: the picked
+    decoded mask of each prompt (``1 + argmax`` of the IoU past the
+    first), resized as ``segment`` resizes them."""
+    from trex_tpu_torch.track.tag_image import _resize_linear_f32
+
+    masks, iou = masks.float().cpu().numpy(), iou.float().cpu().numpy()
+    best = 1 + iou[:, 1:].argmax(1)
+    low = masks[np.arange(len(masks)), best]
+    H, W = img.shape[:2]
+    size = seg.model.img_size
+    scale = size / max(H, W)
+    nh, nw = int(round(H * scale)), int(round(W * scale))
+    up = _resize_linear_f32(low, (size, size))[:, :nh, :nw]
+    return _resize_linear_f32(up, (W, H))
+
+
+def sam_rel(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def sam_held(path, card16, objs, img, dev):
+    """The card against the port's CPU path on one frame.
+
+    float32 on both (TF32 off): image embedding, mask logits and IoU
+    within :data:`SAM_F32_TOL`; the masks' decisions equal but for
+    pixels whose CPU logit lies within :data:`SAM_MASK_MARGIN` of the
+    threshold, the blob counts equal and the pixel counts apart by no
+    more than those pixels. bfloat16 (the backend's own segmenter on
+    the card against a CPU one): each ViT block and the mask decoder,
+    fed the CPU's input, within :data:`SAM_ROW_TOL`; the whole forward
+    no further from the CPU's float32 values, on average, than
+    :data:`SAM_BF16_RATIO` times the CPU's bfloat16 values are."""
+    import torch
+
+    from trex_tpu_torch.detect import sam3
+
+    out = {}
+    seg32 = {side: sam3.SamSegmenter.from_checkpoint(
+        path, dtype=torch.float32, device=d)
+        for side, d in (("card", dev), ("cpu", "cpu"))}
+    got32 = {}
+    for side, seg in seg32.items():
+        t0 = time.perf_counter()
+        with SamCapture(seg) as cap:
+            masks = seg.segment(img, objs)
+        got32[side] = (cap.calls, masks, time.perf_counter() - t0)
+    (gc, gm, _), (cc, cm, cpu_s) = got32["card"], got32["cpu"]
+    emb = sam_rel(gc["encode"][0][1], cc["encode"][0][1])
+    mk = sam_rel(gc["decode"][0][1][0], cc["decode"][0][1][0])
+    iou = sam_rel(gc["decode"][0][1][1], cc["decode"][0][1][1])
+    check(max(emb, mk, iou) <= SAM_F32_TOL, f"sam: float32 card != CPU: "
+          f"embedding {emb:.3g}, masks {mk:.3g}, iou {iou:.3g}")
+    logits = sam_full_logits(seg32["cpu"], img, *cc["decode"][0][1])
+    thr = seg32["cpu"].mask_threshold
+    flips = near = 0
+    blobs = {}
+    for side, m in (("card", gm), ("cpu", cm)):
+        blobs[side] = sam3.blobs_from_masks(m, img)
+    for k, oid in enumerate(cm):
+        check(np.array_equal(cm[oid], logits[k] > thr),
+              "sam: the CPU logits do not give the CPU masks")
+        clear = np.abs(logits[k] - thr) > SAM_MASK_MARGIN
+        diff = gm[oid] != cm[oid]
+        check(not diff[clear].any(), f"sam: object {oid}: "
+              f"{int(diff[clear].sum())} pixels decided otherwise on the "
+              f"card, beyond {SAM_MASK_MARGIN} of the threshold")
+        flips += int(diff.sum())
+        near += int((~clear).sum())
+    npx = {s: sum(b.num_pixels for b in bl) for s, bl in blobs.items()}
+    check(abs(len(blobs["card"]) - len(blobs["cpu"])) <= flips
+          and abs(npx["card"] - npx["cpu"]) <= flips,
+          f"sam: blobs card {len(blobs['card'])} / {npx['card']} px, CPU "
+          f"{len(blobs['cpu'])} / {npx['cpu']} px, {flips} flips")
+    out["float32"] = dict(embedding=emb, masks=mk, iou=iou, flips=flips,
+                          near_threshold=near, blobs=len(blobs["cpu"]),
+                          pixels=npx["cpu"], cpu_s=cpu_s)
+    ref_emb, ref_masks = cc["encode"][0][1], cc["decode"][0][1][0]
+    del seg32, got32, gc
+    torch.cuda.empty_cache()
+
+    # bfloat16: the CPU's forward with its blocks' inputs and outputs
+    cpu16 = sam3.SamSegmenter.from_checkpoint(path, device="cpu")
+    from trex_tpu_torch.models.sam import ViTBlock
+
+    mods = dict(cpu16.model.named_modules())
+    names = [n for n, m in mods.items() if isinstance(m, ViTBlock)] \
+        + ["mask_decoder"]
+    seen = {}
+    hooks = [mods[n].register_forward_hook(
+        lambda m, i, o, n=n: seen.__setitem__(n, (i, o))) for n in names]
+    t0 = time.perf_counter()
+    try:
+        with SamCapture(cpu16) as c16:
+            cpu16.segment(img, objs)
+    finally:
+        for h in hooks:
+            h.remove()
+    cpu16_s = time.perf_counter() - t0
+    with SamCapture(card16) as g16:
+        card16.segment(img, objs)
+    card_mods = dict(card16.model.named_modules())
+    worst, rel = "", 0.0
+    with torch.no_grad():
+        for n in names:
+            args, want = seen.pop(n)
+            got = card_mods[n](*(a.to(dev) for a in args))
+            pairs = zip(got, want) if isinstance(want, tuple) \
+                else [(got, want)]
+            for g, w in pairs:
+                r = sam_rel(g, w)
+                if r > rel:
+                    worst, rel = n, r
+    check(rel <= SAM_ROW_TOL, f"sam: bfloat16 {worst}: card != CPU on the "
+          f"same input, {rel:.4g} > {SAM_ROW_TOL}")
+    from_f32 = {}
+    for key, ref, g, c in (
+            ("embedding", ref_emb, g16.calls["encode"][0][1],
+             c16.calls["encode"][0][1]),
+            ("masks", ref_masks, g16.calls["decode"][0][1][0],
+             c16.calls["decode"][0][1][0])):
+        ref = ref.float()
+        dist = [float((x.float().cpu() - ref).abs().mean()) for x in (g, c)]
+        from_f32[key] = dist
+        check(dist[0] <= SAM_BF16_RATIO * dist[1], f"sam: bfloat16 {key}: "
+              f"the card lies {dist[0]:.4g} from float32 on average, the "
+              f"CPU {dist[1]:.4g}")
+    out["bfloat16"] = dict(layers=len(names), max_rel=rel, worst=worst,
+                           from_f32=from_f32, cpu_s=cpu16_s)
+    return out
+
+
+def sam_text_held(state, emb, dev):
+    """``decode_text`` at full width: the checkpoint's decoder with a
+    seeded random text tower, float32, the same embedding on the card
+    and on the CPU, within :data:`SAM_F32_TOL`."""
+    import torch
+
+    from trex_tpu_torch.models import sam as P
+
+    ids = torch.from_numpy(np.stack([P.tokenize_text(t) for t in (
+        "fish", "a guppy", "zebrafish larva")]))
+    got = {}
+    for side, d in (("card", dev), ("cpu", "cpu")):
+        m = P.build(dtype=torch.float32, with_text=True, state=state,
+                    device=d)
+        with torch.no_grad():
+            got[side] = m.decode_text(emb.to(d), ids.to(d))
+    masks = sam_rel(got["card"][0], got["cpu"][0])
+    iou = sam_rel(got["card"][1], got["cpu"][1])
+    check(max(masks, iou) <= SAM_F32_TOL and got["card"][0].shape
+          == (3, 4, 256, 256), f"sam: decode_text card != CPU: masks "
+          f"{masks:.3g}, iou {iou:.3g}")
+    return dict(masks=masks, iou=iou)
+
+
+class SamReplayBackend:
+    """A ``Sam3ReplaySession`` backend: every call is logged; with a
+    segmenter, ``predict`` segments the frame with the prompts active
+    there and returns each object's pixel count."""
+
+    def __init__(self, seg=None, frames=None, prompts=None):
+        self.seg, self.frames, self.prompts = seg, frames, prompts
+        self.calls = []
+
+    def reset(self, frame):
+        self.calls.append(("reset", frame))
+
+    def predict(self, frame, n_new):
+        self.calls.append(("predict", frame, n_new))
+        if self.seg is None:
+            return None
+        masks = self.seg.segment(self.frames[frame],
+                                 self.prompts.materialize(frame))
+        return {oid: int(m.sum()) for oid, m in masks.items() if m.any()}
+
+    def replay_begin(self, start, end, count):
+        self.calls.append(("replay_begin", start, end, count))
+
+    def replay_step(self, n):
+        self.calls.append(("replay_step", n))
+
+    def replay_finish(self):
+        self.calls.append(("replay_finish",))
+
+
+def sam_session(seg, frames, prompt, direct):
+    """A ``Sam3ReplaySession`` over the frames with the card's
+    segmenter: commits of :data:`SAM_SESSION`, a forward jump, an
+    invalidation and a replay from the best anchor left. Its calls
+    equal the same schedule's on the CPU (a backend that computes
+    nothing: the scheduler is host code), and every result it commits
+    or replays equals the card's direct ``apply`` of that frame."""
+    from trex_tpu_torch.detect import sam3
+
+    pmap = sam3.parse_prompt_map(prompt)
+    runs = {}
+    for side, backend in (
+            ("card", SamReplayBackend(seg, frames,
+                                      sam3.Sam3Prompts.from_setting(prompt))),
+            ("cpu", SamReplayBackend())):
+        session = sam3.Sam3ReplaySession(backend, lambda f: None)
+        session.set_prompts(pmap)
+        results = {}
+        commits, invalidate, last = SAM_SESSION
+        for f in commits:
+            p = session.process_frame(f)
+            check(session.commit_frame(p), f"sam: frame {f} did not commit")
+            results[f] = p.result
+        stale = session.process_frame(last)
+        session.invalidate_from(invalidate)
+        check(not session.commit_frame(stale),
+              "sam: an invalidated frame committed")
+        p = session.process_frame(last)
+        check(session.commit_frame(p), f"sam: frame {last} did not commit")
+        results[last] = p.result
+        runs[side] = (backend.calls, results)
+    check(runs["card"][0] == runs["cpu"][0],
+          "sam: the replay session's calls differ between card and CPU")
+    for f, r in runs["card"][1].items():
+        check(r == direct[f], f"sam: the session's frame {f} != the "
+              f"direct segmentation")
+    return dict(calls=len(runs["card"][0]),
+                predicts=sum(c[0] == "predict" for c in runs["card"][0]),
+                frames=sorted(runs["card"][1]))
+
+
+def phase_sam(dev, report, t_script=0.0):
+    """Promptable segmentation (phase 17 of the module docstring)."""
+    import shutil
+
+    import torch
+
+    import trex_tpu_torch.detect.sam3 as sam3
+    import trex_tpu_torch.track.tag_image as tag_image
+    from trex_tpu_torch import kernels
+    from trex_tpu_torch.detect.base import Sam3Backend, create_detection
+
+    root = REPO / "build" / "smoke_sam"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev)
+    kernels.reset_launches()
+    late = t_script > SAM_LATE_S
+    n_frames = SAM_CUT_FRAMES if late else SAM_FRAMES
+    bg, frames, track = synth_scene(n_frames)
+    prompt = sam_prompt(track)
+    path, state = write_sam_pth(root)
+    n_params = sum(int(np.prod(v.shape)) for v in state.values())
+
+    t0 = time.perf_counter()
+    backend = create_detection(registry(dict(
+        detect_type="sam3", detect_model=str(path),
+        detect_sam3_prompt=prompt)), device=dev)
+    load_s = time.perf_counter() - t0
+    seg = backend.segmenter
+    check(isinstance(backend, Sam3Backend) and seg.model.dtype
+          == torch.bfloat16 and next(seg.model.parameters()).device.type
+          == "cuda" and len(backend.prompts.materialize(0)) == SAM_FISH,
+          "sam: the backend did not build ViT-B in bfloat16 on the card "
+          "with one object a prompt box")
+
+    # (a) throughput through apply; host time of the resizes and blobs
+    backend.apply(0, frames[0])  # cuDNN's and cuBLAS' first calls
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Spy((tag_image, "resize_linear"), (tag_image, "_resize_linear_f32"),
+             (sam3, "blobs_from_masks"), keep=False) as host, \
+            SamCapture(seg, keep=False) as cap:
+        sync()
+        t0 = time.perf_counter()
+        blobs = [backend.apply(i, img) for i, img in enumerate(frames)]
+        sync()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    enc_ms, dec_ms = cap.device_ms("encode"), cap.device_ms("decode")
+    ids = {o.id for o in backend.prompts.materialize(0)}
+    for i, b in enumerate(blobs):
+        check(b and all(x.prediction in ids for x in b) and all(
+            x.num_pixels > 0 for x in b), f"sam: frame {i}: no blobs, or "
+              f"blobs of no prompt")
+    direct = {i: {} for i in range(n_frames)}
+    for i, bl in enumerate(blobs):
+        for x in bl:
+            direct[i][x.prediction] = direct[i].get(x.prediction, 0) \
+                + x.num_pixels
+    run = dict(frames=n_frames, fps=n_frames / wall, wall_s=wall,
+               encoder_ms=statistics.median(enc_ms),
+               decoder_ms=statistics.median(dec_ms),
+               host_ms={k: 1e3 * v / n_frames
+                        for k, v in host.seconds.items()},
+               blobs=sum(len(b) for b in blobs) / n_frames,
+               peak_mem_gb=peak)
+    check(len(enc_ms) == len(dec_ms) == n_frames,
+          "sam: one encode and one decode a frame expected")
+
+    # (b) card against the CPU, (c) decode_text, (d) replay session
+    objs = backend.prompts.materialize(0)
+    held = sam_held(path, seg, objs, frames[0], dev)
+    with SamCapture(seg) as c:
+        seg.segment(frames[0], objs)
+    emb = c.calls["encode"][0][1][0].float()
+    text = sam_text_held(dict(state, **sam_text_tower()), emb, dev)
+    session = sam_session(seg, frames, prompt, {
+        i: {oid: n for oid, n in direct[i].items()}
+        for i in range(n_frames)})
+    check(not any(kernels.launches.values()),
+          "sam: a port kernel launched on a path that has none")
+    r = dict(cell="sam-vitb-16x1024-32", params=n_params, cut=late,
+             load_s=load_s, run=run, held=held, text=text, session=session,
+             s=time.perf_counter() - t_phase)
+    report["sam"] = r
+    f32, b16 = held["float32"], held["bfloat16"]
+    print(f"phase 17 ok: SAM ViT-B ({n_params / 1e6:.1f} M parameters, "
+          f"random, bfloat16) through create_detection over {n_frames} "
+          f"frames of {SIZE}^2 with {SAM_FISH} box prompts"
+          + (f" (cut from {SAM_FRAMES}: the script was past "
+             f"{SAM_LATE_S:.0f} s)" if late else "")
+          + f": {run['fps']:.2f} frames/s, encoder {run['encoder_ms']:.2f} "
+          f"ms and decoder {run['decoder_ms']:.2f} ms a frame on the card, "
+          f"host {sum(run['host_ms'].values()):.1f} ms a frame ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in run["host_ms"].items())
+          + f"), {run['blobs']:.1f} blobs a frame, peak "
+          f"{peak:.2f} GB; card == CPU in float32: embedding {f32['embedding']:.3g}, "
+          f"masks {f32['masks']:.3g}, iou {f32['iou']:.3g} (CPU "
+          f"{f32['cpu_s']:.1f} s), {f32['flips']} pixels flipped of "
+          f"{f32['near_threshold']} within {SAM_MASK_MARGIN} of the "
+          f"threshold, {f32['blobs']} blobs, {f32['pixels']} px; bfloat16 "
+          f"layers on the same input: max {b16['max_rel']:.4g} of "
+          f"{b16['layers']} (at {b16['worst']}), distance from float32 card "
+          f"/ CPU: " + ", ".join(f"{k} {a:.4g} / {b:.4g}" for k, (a, b) in
+                                 b16["from_f32"].items())
+          + f" (CPU {b16['cpu_s']:.1f} s); decode_text card == CPU "
+          f"{text['masks']:.3g} / {text['iou']:.3g}; replay session "
+          f"{session['calls']} calls, {session['predicts']} predictions "
+          f"equal to the CPU schedule and the direct frames; no port "
+          f"kernel launched; phase {r['s']:.1f} s", flush=True)
+    del backend, seg
+    torch.cuda.empty_cache()
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4607,6 +5073,7 @@ def main():
     phase_vf(dev, report, *chunk[:2])
     phase_tags(dev, report)
     phase_yolo(dev, report, time.perf_counter() - t0)
+    phase_sam(dev, report, time.perf_counter() - t0)
     report["total_s"] = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4624,7 +5091,7 @@ def main():
     print(json.dumps({k: report[k] for k in (
         "detect", "label", "track", "device_tracker", "auto_split",
         "posture", "decay", "archive", "product", "object", "vi",
-        "vi_train", "vf", "tags", "yolo", "build_s", "total_s")}))
+        "vi_train", "vf", "tags", "yolo", "sam", "build_s", "total_s")}))
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,8 @@ scene decides them: the labeled individuals, and every tracklet whose
 mean probabilities the JAX network sets apart by more than ``MARGIN``
 (the categorizer stops after its 10 minimum steps, once validation is
 perfect, so its rows stay near a tie: 0.02-0.14 apart on this scene)."""
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,17 @@ from trex_tpu_torch.track.blob import TrackBlob
 from trex_tpu_torch.track.tracker import Tracker
 
 MARGIN = 0.1
+
+# a line in glog's format: XLA's and absl's C++ log, never either CLI's
+# (XLA writes one when its persistent compilation cache holds an entry
+# that another machine compiled)
+GLOG_LINE = re.compile(r"^[IWEF]\d{4} \d\d:\d\d:\d\d\.\d+ +\d+ \S+:\d+\] ")
+
+
+def _cli_messages(text: str) -> str:
+    """What a CLI printed: `text` without glog-format lines."""
+    return "".join(line for line in text.splitlines(keepends=True)
+                   if not GLOG_LINE.match(line))
 
 
 def _scenes():
@@ -118,7 +131,7 @@ def test_auto_categorize_equals_jax(capfd):
             run(tracker, s, None, **kw)
             cap = capfd.readouterr()
             out = tracker.category_store
-            outs.append((cap.out + cap.err, out))
+            outs.append((_cli_messages(cap.out + cap.err), out))
             assert out.categories == ["light", "dark"]
             assert out.ranged_label(5, 0) == 1 and out.ranged_label(5, 2) == 0
             b = tracker.individuals[0].basic_stuff(3)

@@ -10,7 +10,8 @@ letterbox and tiling, with the decoded rows of the port's model fed to
 both (the model itself is held to flax in tests/test_torch_yolo.py): the
 letterboxed canvases and every Detections array are equal.
 `create_detection` builds every registry key and its blobs equal the JAX
-backend's; `sam3` raises, naming its ROADMAP item."""
+backend's; `sam3` builds from a checkpoint and segments as the JAX
+backend does."""
 import numpy as np
 import pytest
 import torch
@@ -25,7 +26,6 @@ from trex_tpu.detect import yolo as jax_yolo
 from trex_tpu_torch.config import Settings
 from trex_tpu_torch.detect import base, prediction_filter, region, tiling
 from trex_tpu_torch.detect import yolo as port_yolo
-from trex_tpu_torch.track.engine import EngineUnsupported
 
 
 def pair(**values):
@@ -353,7 +353,7 @@ def pose_pt(tmp_path_factory):
     return path
 
 
-def test_create_detection_every_registry_key(tmp_path, pose_pt):
+def test_create_detection_every_registry_key(tmp_path, pose_pt, monkeypatch):
     img = scene(96, 128, 3, color=True)
     bg = np.full((96, 128), 200, np.uint8)
     csv = tmp_path / "dets.csv"
@@ -390,11 +390,68 @@ def test_create_detection_every_registry_key(tmp_path, pose_pt):
             assert_blobs_equal(got.apply(frame, gray_in),
                                want.apply(frame, gray_in))
     assert set(base.REGISTRY) == set(jax_base.REGISTRY)
-    _, p = pair(detect_type="sam3")
-    with pytest.raises(EngineUnsupported, match="A item 3f"):
-        base.create_detection(p, device="cpu")
+    sam3_backends_equal(tmp_path, monkeypatch, img)
     _, p = pair(detect_type="bogus")
     with pytest.raises(ValueError, match="unknown detect_type"):
+        base.create_detection(p, device="cpu")
+
+
+def sam3_backends_equal(tmp_path, monkeypatch, img):
+    """sam3: both facades build their backend from one official-format
+    checkpoint (a tiny SAM of tests/sam_torch_ref.py; ``from_checkpoint``
+    builds ViT-B, so both packages' SAM classes take the tiny sizes and
+    float32 here) and segment the same frames alike
+    (tests/test_torch_sam3.py's rule)."""
+    import test_torch_sam3 as T
+    from sam_torch_ref import Sam as RefSam
+    from sam_torch_ref import randomize
+    from trex_tpu.models import sam as jax_sam
+    from trex_tpu_torch.models import sam as port_sam
+
+    ref = RefSam(img_size=128, dim=32, depth=2, heads=2, global_idx=(1,))
+    randomize(ref, 5)
+    path = tmp_path / "sam_tiny.pth"
+    torch.save(ref.state_dict(), path)
+
+    class JaxTiny(jax_sam.SAM):
+        img_size: int = 128
+        encoder_dim: int = 32
+        encoder_depth: int = 2
+        encoder_heads: int = 2
+        global_idx: tuple = (1,)
+
+    class PortTiny(port_sam.SAM):
+        def __init__(self, dtype=None):
+            super().__init__(**T.TINY, dtype=dtype)
+
+    monkeypatch.setattr(jax_sam, "SAM", JaxTiny)
+    monkeypatch.setattr(port_sam, "SAM", PortTiny)
+    T._wrap_float32(monkeypatch, T.jax_sam3.SamSegmenter,
+                    T.jnp.float32, True)
+    T._wrap_float32(monkeypatch, T.sam3.SamSegmenter, torch.float32)
+    prompt = "{0:[[10,12,60,50],[70,20,120,90]],1:[[0,0,127,95]]}"
+    j, p = pair(detect_type="sam3", detect_model=str(path),
+                detect_sam3_prompt=prompt)
+    want = jax_base.create_detection(j)
+    got = base.create_detection(p, device="cpu")
+    assert type(got).__name__ == type(want).__name__ == "Sam3Backend"
+    assert isinstance(got.segmenter.model, PortTiny)
+    for frame in (0, 1):
+        objs, jobjs = (b.prompts.materialize(frame) for b in (got, want))
+        assert [(o.id, o.seed_box) for o in objs] \
+            == [(o.id, o.seed_box) for o in jobjs]
+        seen = {}
+        segment = got.segmenter.segment
+        got.segmenter.segment = lambda im, o: seen.setdefault(
+            "masks", segment(im, o))
+        blobs = got.apply(frame, img)
+        del got.segmenter.segment
+        masks, logits = T.jax_logits(want.segmenter, img, jobjs)
+        T.assert_masks_agree(seen["masks"], masks, logits)
+        T.assert_sam_blobs_equal(
+            blobs, T.jax_sam3.blobs_from_masks(seen["masks"], img))
+    _, p = pair(detect_type="sam3")
+    with pytest.raises(ValueError, match="segment-anything checkpoint"):
         base.create_detection(p, device="cpu")
 
 

@@ -86,7 +86,8 @@ def test_no_h5py_anywhere_and_no_cv2_in_the_tag_modules():
                    "models/yolo_convert.py", "detect/__init__.py",
                    "detect/base.py", "detect/yolo.py", "detect/tiling.py",
                    "detect/rotated.py", "detect/region.py",
-                   "detect/prediction_filter.py"}
+                   "detect/prediction_filter.py", "models/sam.py",
+                   "detect/sam3.py"}
     root = REPO / "trex_tpu_torch"
     seen = set()
     for f in root.rglob("*.py"):
@@ -181,16 +182,17 @@ def test_host_labeler_built_from_the_port():
     loaded from the JAX package's library; beside the copies of native/
     it holds the port's own warp.cpp (the identity crops' warp, which the
     JAX package takes from OpenCV), hostmath.cpp (the C library's
-    atan2f for the visual fields' CPU path, which XLA calls) and
+    atan2f for the visual fields' CPU path, which XLA calls),
     contours.cpp (tag detection's contour routines, OpenCV's in the JAX
-    package)."""
+    package) and resize.cpp (the float32 linear resize, OpenCV's in the
+    JAX package)."""
     from trex_tpu_torch.ops import labeling
 
     assert labeling.NATIVE == REPO / "trex_tpu_torch" / "native"
     assert labeling.SOURCES == ("labeling.cpp", "tracker_core.cpp",
                                 "posture_chain.cpp", "lzo1x.cpp",
                                 "imageops.cpp", "warp.cpp", "hostmath.cpp",
-                                "contours.cpp")
+                                "contours.cpp", "resize.cpp")
     assert sorted(p.name for p in labeling.NATIVE.iterdir()) \
         == sorted(labeling.SOURCES + labeling.HEADERS)
     lib = labeling._lib()
@@ -230,7 +232,7 @@ def test_package_lists_every_module():
                  "ml.tagwork", "ml.auto_tags", "models.yolo",
                  "models.yolo_convert", "detect.base", "detect.yolo",
                  "detect.tiling", "detect.rotated", "detect.region",
-                 "detect.prediction_filter"):
+                 "detect.prediction_filter", "models.sam", "detect.sam3"):
         assert f"trex_tpu_torch.{name}" in mods
 
 

@@ -273,3 +273,21 @@ def test_select_detector_rules():
     s.set("detect_engine", "gpu")
     with pytest.raises(ValueError, match="detect_engine"):
         pipeline.select_detector(s, bg, device="cpu")
+
+
+@pytest.mark.parametrize("shape,cells", [((96, 128), 32), ((50, 70, 3), 8),
+                                         ((1080, 1920), 32), ((7, 5), 32)])
+def test_luminance_map_equals_jax(shape, cells):
+    """correct_luminance's factor map: the port's float32 resize_linear
+    in place of cv2.resize, bit for bit, and the corrected frame."""
+    from trex_tpu.pipeline import LuminanceGrid as JaxLuminanceGrid
+
+    rng = np.random.default_rng(sum(shape))
+    bg = rng.integers(20, 230, shape).astype(np.uint8)
+    bg[: shape[0] // 3, : shape[1] // 4] = 0  # cells without light
+    want = JaxLuminanceGrid(bg, cells)
+    got = pipeline.LuminanceGrid(bg, cells)
+    assert got.factor_map.dtype == want.factor_map.dtype == np.float32
+    assert np.array_equal(got.factor_map, want.factor_map)
+    img = rng.integers(0, 256, shape).astype(np.uint8)
+    assert np.array_equal(got.correct(img), want.correct(img))

@@ -32,11 +32,17 @@ the YOLOv8x pose model at 640 (``yolo_x_pose_640_b8``:
 ``chip_smoke.write_yolo_pt``'s seeded weights through
 ``create_detection``, ``YOLODetector.infer_device`` on 8 letterboxed
 frames of the tracking chunk, one batch of phase 16's
-``detect_batch_size``).
+``detect_batch_size``), and one warm encode of a 1024^2 frame plus the
+decode of 32 box prompts by a random ViT-B SAM in bfloat16
+(``sam_vitb_1024``: ``chip_smoke.write_sam_pth``'s seeded weights
+through ``SamSegmenter.from_checkpoint``, the boxes of
+``chip_smoke.sam_prompt``, as ``chip_smoke.py`` phase 17 segments a
+frame).
 ``--only`` profiles the named targets alone. For each it
 prints the host wall time (under the profiler, and of one more warm call
 without it), the summed device time of the kernels and the
-device's idle share over the call, the kernels with the most device time,
+device's idle share over the call, the peak device memory of the call,
+the kernels with the most device time,
 the PyTorch operators that launched most of it, and the port's own CUDA
 kernels (each pass of the labeler ``ccl_*`` and the stencil
 ``neighbor_min*``) with their device time and launch count. Exits
@@ -68,12 +74,14 @@ def profile_call(fn, top=12) -> dict:
     fn()
     torch.cuda.synchronize()
     plain_wall_us = (time.perf_counter() - t0) * 1e6
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     from trex_tpu_torch.ops.device_tracker import (AUCTION_RANGE,
                                                    POSTURE_RANGE,
                                                    SPLIT_RANGE)
@@ -113,6 +121,7 @@ def profile_call(fn, top=12) -> dict:
         "wall_unprofiled_ms": plain_wall_us / 1e3,
         "device_ms": device_us / 1e3,
         "idle_share": (1.0 - device_us / wall_us) if device_us else None,
+        "peak_mem_gb": peak_gb,
         "launches": sum(e.count for e in kern),
         "kernels": [{"name": e.key[:90], "ms": smoke.device_us(e) / 1e3,
                      "count": e.count} for e in by(kern)],
@@ -229,6 +238,38 @@ def main():
 
         return run
 
+    def sam_forward():
+        """One frame's encode and the decode of phase 17's boxes by the
+        bfloat16 ViT-B on the card; the model is written and loaded at
+        the first (warm-up) call."""
+        made = {}
+
+        def run():
+            if not made:
+                from trex_tpu_torch.detect.sam3 import (Sam3Prompts,
+                                                        SamSegmenter)
+
+                root = smoke.REPO / "build" / "profile_sam"
+                root.mkdir(parents=True, exist_ok=True)
+                path, _ = smoke.write_sam_pth(root)
+                made["model"] = SamSegmenter.from_checkpoint(
+                    path, device=dev).model
+                _, scene, track = smoke.synth_scene(1)
+                boxes = [o.seed_box for o in Sam3Prompts.from_setting(
+                    smoke.sam_prompt(track)).materialize(0)]
+                made["img"] = torch.as_tensor(np.repeat(
+                    scene[0][None, :, :, None], 3, 3), device=dev)
+                made["pts"] = torch.tensor(boxes, dtype=torch.float32,
+                                           device=dev).reshape(-1, 2, 2)
+                made["lbl"] = torch.tensor([[2, 3]] * len(boxes),
+                                           dtype=torch.int32, device=dev)
+            m = made["model"]
+            with torch.no_grad():
+                emb = m.encode(made["img"])
+                return m.decode(emb[0], made["pts"], made["lbl"])
+
+        return run
+
     targets = {
         "detect_batch_pallas_32": lambda: detect_batch(
             fr[:32], bgt, use_pallas=True, device=dev, **kw),
@@ -256,6 +297,7 @@ def main():
         "raycast_251": raycast(),
         "tag_decode_256": tag_decode(),
         "yolo_x_pose_640_b8": yolo_forward(),
+        "sam_vitb_1024": sam_forward(),
     }
     report = {name: profile_call(fn) for name, fn in targets.items()
               if not args.only or name in args.only}
@@ -271,7 +313,8 @@ def main():
               f"({r['wall_unprofiled_ms']:.2f} ms without the profiler), device "
               f"{r['device_ms']:.2f} ms, idle share "
               f"{'not measured' if share is None else f'{share:.3f}'}, "
-              f"{r['launches']} kernel launches")
+              f"{r['launches']} kernel launches, peak "
+              f"{r['peak_mem_gb']:.2f} GB")
         for rng, v in r["ranges"].items():
             if v["launches"]:
                 print(f"    {v['device_ms']:9.3f} ms  x{v['launches']:<6} "

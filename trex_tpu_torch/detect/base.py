@@ -5,8 +5,7 @@ python/Detection.cpp:16-189 dispatch and its BackendRegistry): one
 backend per ``detect_type`` in {background_subtraction, yolo, sam3,
 precomputed, none} with init/apply/deinit. ``create_detection`` runs
 its backend on the card unless the caller names the CPU; without CUDA
-and without ``device="cpu"`` it raises. The SAM backend is not ported
-yet: it raises, naming its ROADMAP item.
+and without ``device="cpu"`` it raises.
 """
 from __future__ import annotations
 
@@ -179,14 +178,37 @@ class NoDetection(DetectionBackend):
 
 
 class Sam3Backend(DetectionBackend):
-    """Prompted segmentation (python/SAM3.{h,cpp}): not ported yet."""
+    """Prompted segmentation (python/SAM3.{h,cpp}): frame-indexed
+    prompts from detect_sam3_prompt drive the SAM model on the card
+    (detect/sam3.py SamSegmenter over models/sam.py); each prompt
+    object's mask becomes an instance-segmentation blob."""
 
     def init(self, settings, background=None, device=None):
-        from ..track.engine import EngineUnsupported
+        from .sam3 import Sam3Prompts, SamSegmenter
 
-        raise EngineUnsupported(
-            "detect_type sam3 (the SAM models, ported with ROADMAP.md A "
-            "item 3f)")
+        self.settings = settings
+        prompt = settings["detect_sam3_prompt"]
+        self.prompts = Sam3Prompts.from_setting(prompt) if prompt \
+            else Sam3Prompts()
+        model_path = settings["detect_model"]
+        if model_path and Path(str(model_path)).exists():
+            self.segmenter = SamSegmenter.from_checkpoint(model_path,
+                                                          device=device)
+        else:
+            raise ValueError(
+                "detect_type sam3 needs a segment-anything checkpoint "
+                "in detect_model (none is bundled; the reference "
+                "downloads weights at runtime)")
+        return self
+
+    def apply(self, frame_index, image):
+        from .sam3 import blobs_from_masks
+
+        objs = self.prompts.materialize(frame_index)
+        if not objs:
+            return []
+        masks = self.segmenter.segment(image, objs)
+        return blobs_from_masks(masks, image)
 
 
 REGISTRY: dict[str, Callable[[], DetectionBackend]] = {

@@ -20,8 +20,10 @@ port's own ``warp.cpp`` (the identity crops' affine warp,
 ``hostmath.cpp`` (the C library's ``atan2f`` over an array, the
 visual-field projection's CPU angles, ``ops/raycast.py``), and
 ``contours.cpp`` (tag detection's border following, contour area, arc
-length and polygon approximation, ``track/tag_image.py``), which the
-JAX package also takes from OpenCV.
+length and polygon approximation, ``track/tag_image.py``) and
+``resize.cpp`` (the float32 linear resize of ``track/tag_image.py``, the
+SAM masks' and the luminance map's), which the JAX package also takes
+from OpenCV.
 
 The library is compiled with ``g++`` at first use into
 ``build/trex_tpu_torch/`` (a directory git ignores), under a name that
@@ -49,7 +51,7 @@ from ..kernels import BUILD_DIR
 NATIVE = Path(__file__).resolve().parents[1] / "native"
 SOURCES = ("labeling.cpp", "tracker_core.cpp", "posture_chain.cpp",
            "lzo1x.cpp", "imageops.cpp", "warp.cpp", "hostmath.cpp",
-           "contours.cpp")
+           "contours.cpp", "resize.cpp")
 HEADERS = ("simd_clones.h",)
 GXX_FLAGS = ["-O3", "-ffp-contract=off", "-std=c++20", "-shared", "-fPIC"]
 
@@ -203,6 +205,10 @@ _SIGNATURES = {
     "trex_contour_area": (_f64, [_i32p, _i64]),
     "trex_arc_length": (_f64, [_i32p, _i64, _i32]),
     "trex_approx_poly_dp": (_i64, [_i32p, _i64, _f64, _i32, _i32p]),
+    # (track/tag_image.py's float32 resize_linear)
+    "trex_resize_linear_f32": (None, [_f32p, _i64, _i32, _i32, _i32p,
+                                      _i32p, _f32p, _i32p, _i32p, _f32p,
+                                      _i32, _i32, _f32p]),
 }
 
 _lib_obj = None

@@ -41,7 +41,7 @@ from .track.motion import MotionRecord
 from .track.posture import (calculate_posture,
                             calculate_posture_from_outline,
                             calculate_posture_from_pose)
-from .track.tag_image import bgr_to_gray
+from .track.tag_image import bgr_to_gray, resize_linear
 from .track.tracker import Tracker
 from .utils.timing import global_collector as _global_collector
 
@@ -493,10 +493,7 @@ class LuminanceGrid:
         target = float(background.mean())
         with np.errstate(divide="ignore", invalid="ignore"):
             factors = np.where(grid > 0, target / grid, 1.0)
-        import cv2
-
-        self.factor_map = cv2.resize(factors, (w, h),
-                                     interpolation=cv2.INTER_LINEAR)
+        self.factor_map = resize_linear(factors.astype(np.float32), (w, h))
 
     def correct(self, image: np.ndarray) -> np.ndarray:
         f = self.factor_map if image.ndim == 2 \

@@ -26,7 +26,8 @@ on 8-bit single-channel images, bit for bit
 The detection path's routines live here too (``detect/yolo.py``,
 ``detect/base.py``, ``track/posture.py``; held in
 ``tests/test_torch_detect_cv.py``): :func:`resize_linear`
-(``INTER_LINEAR``, 1 and 3 channels), :func:`bgr_to_gray` and
+(``INTER_LINEAR``, 8-bit with 1 and 3 channels, and float32 with one,
+OpenCV's IPP path), :func:`bgr_to_gray` and
 :func:`gray_to_bgr` (``cvtColor``) and :func:`fill_circle`
 (``cv2.circle`` filled).
 
@@ -212,17 +213,17 @@ def _resize_linear_area(img: np.ndarray, w: int, h: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=512)
-def _bilinear_coefs(ssize: int, dsize: int, clamp: bool):
-    """Source index and fixed-point weights of ``INTER_LINEAR``: the
-    source coordinate ``float((d + 0.5) * scale - 0.5)``. Horizontally
-    (`clamp`) a coordinate before the first pixel takes it whole and one
-    past the last takes the last, with the bound ``xmax`` of the two-tap
-    outputs; vertically the index and weight stay and the rows are
-    clamped when read."""
+def _float_coefs(ssize: int, dsize: int, clamp: bool):
+    """Source index and float32 weights ``(1 - fx, fx)`` of OpenCV's
+    ``INTER_LINEAR``: the source coordinate ``float((d + 0.5) * scale -
+    0.5)``. Horizontally (`clamp`) a coordinate before the first pixel
+    takes it whole and one past the last takes the last, with the bound
+    ``xmax`` of the two-tap outputs; vertically the index and weight stay
+    and the rows are clamped when read."""
     scale = _scale(ssize, dsize)
     xmax = dsize
     ofs = np.zeros(dsize, np.int64)
-    coef = np.zeros((dsize, 2), np.int64)
+    coef = np.zeros((dsize, 2), np.float32)
     for d in range(dsize):
         fx = np.float32((d + 0.5) * scale - 0.5)
         sx = int(np.floor(fx))
@@ -235,22 +236,37 @@ def _bilinear_coefs(ssize: int, dsize: int, clamp: bool):
                 if sx >= ssize - 1:
                     fx, sx = np.float32(0.0), ssize - 1
         ofs[d] = sx
-        coef[d] = [int(np.rint(np.float32(v) * np.float32(_COEF_SCALE)))
-                   for v in (np.float32(1.0) - fx, fx)]
+        coef[d] = (np.float32(1.0) - fx, fx)
     return _frozen(ofs), _frozen(coef), xmax
+
+
+@lru_cache(maxsize=512)
+def _bilinear_coefs(ssize: int, dsize: int, clamp: bool):
+    """:func:`_float_coefs` with the weights in 11-bit fixed point (the
+    8-bit path's)."""
+    ofs, coef, xmax = _float_coefs(ssize, dsize, clamp)
+    fixed = np.rint(coef * np.float32(_COEF_SCALE)).astype(np.int64)
+    return ofs, _frozen(fixed), xmax
 
 
 def resize_linear(img, size) -> np.ndarray:
     """``cv2.resize(img, (w, h))`` (``INTER_LINEAR``) of an 8-bit image
-    with 1 or 3 channels: 11-bit weights, the vector path's vertical
-    cast; an exact halving is the 2x2 block mean, as OpenCV takes
-    ``INTER_AREA`` there."""
+    with 1 or 3 channels or of a float32 image with one channel.
+
+    The same size is a copy, as OpenCV makes it. 8-bit: 11-bit weights,
+    the vector path's vertical cast; an exact halving is the 2x2 block
+    mean, as OpenCV takes ``INTER_AREA`` there. float32:
+    :func:`_resize_linear_f32`."""
     img = np.ascontiguousarray(img)
+    if img.dtype == np.float32 and img.ndim == 2:
+        return _resize_linear_f32(img[None], size)[0]
     if img.dtype != np.uint8 or img.ndim not in (2, 3):
-        raise ValueError(f"expected an 8-bit image, got {img.dtype} "
-                         f"{img.shape}")
+        raise ValueError(f"expected an 8-bit image or a one-channel "
+                         f"float32 one, got {img.dtype} {img.shape}")
     w, h = int(size[0]), int(size[1])
     sh, sw = img.shape[:2]
+    if (sw, sh) == (w, h):  # OpenCV copies
+        return img.copy()
     if sw == 2 * w and sh == 2 * h:
         blocks = img[:2 * h, :2 * w].astype(np.int32).reshape(
             (h, 2, w, 2) + img.shape[2:]).sum(axis=(1, 3))
@@ -258,6 +274,66 @@ def resize_linear(img, size) -> np.ndarray:
     xofs, alpha, xmax = _bilinear_coefs(sw, w, True)
     yofs, beta, _ = _bilinear_coefs(sh, h, False)
     return _resize_taps(img, xofs, alpha, xmax, yofs, beta)
+
+
+@lru_cache(maxsize=512)
+def _lerp_taps(ssize: int, dsize: int) -> tuple:
+    """The float32 resize's taps along one axis: source coordinate
+    ``(d + 0.5) * (src / dst) - 0.5`` in double, left and right indices
+    clamped to the image, and the fraction rounded to float32."""
+    fx = (np.arange(dsize) + 0.5) * (ssize / dsize) - 0.5
+    i0 = np.floor(fx)
+    t = (fx - i0).astype(np.float32)
+    i0 = i0.astype(np.int64)
+    a = np.clip(i0, 0, ssize - 1).astype(np.int32)
+    b = np.clip(i0 + 1, 0, ssize - 1).astype(np.int32)
+    return _frozen(a), _frozen(b), _frozen(t)
+
+
+def _resize_linear_f32(imgs: np.ndarray, size) -> np.ndarray:
+    """``cv2.resize(img, (w, h))`` of each float32 image of the stack
+    `imgs` (N, H, W), as OpenCV 5.0.0 computes it.
+
+    With both source sides at least 2 its Intel IPP layer takes the call:
+    a lerp ``a + (b - a) * t`` with one fused multiply-add, along the rows
+    first, then along the columns, on :func:`_lerp_taps` (an exact halving
+    too); in C++ (``native/resize.cpp``, ``std::fma``). A source with a
+    side of 1 takes OpenCV's own path: float32 weights from the float
+    coordinate, ``s0 * (1 - fx) + s1 * fx`` without fusion, rows clamped
+    when read."""
+    imgs = np.ascontiguousarray(imgs, np.float32)
+    w, h = int(size[0]), int(size[1])
+    n, sh, sw = imgs.shape
+    if (sw, sh) == (w, h):  # OpenCV copies
+        return imgs.copy()
+    if sh < 2 or sw < 2:
+        return _resize_linear_f32_generic(imgs, w, h)
+    x0, x1, tx = _lerp_taps(sw, w)
+    y0, y1, ty = _lerp_taps(sh, h)
+    out = np.empty((n, h, w), np.float32)
+    if n == 0 or h == 0 or w == 0:
+        return out
+    f32p = ctypes.POINTER(ctypes.c_float)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    _native().trex_resize_linear_f32(
+        imgs.ctypes.data_as(f32p), n, sh, sw, x0.ctypes.data_as(i32p),
+        x1.ctypes.data_as(i32p), tx.ctypes.data_as(f32p),
+        y0.ctypes.data_as(i32p), y1.ctypes.data_as(i32p),
+        ty.ctypes.data_as(f32p), h, w, out.ctypes.data_as(f32p))
+    return out
+
+
+def _resize_linear_f32_generic(imgs: np.ndarray, w: int, h: int
+                               ) -> np.ndarray:
+    n, sh, sw = imgs.shape
+    xofs, alpha, xmax = _float_coefs(sw, w, True)
+    yofs, beta, _ = _float_coefs(sh, h, False)
+    x1 = np.minimum(xofs + 1, sw - 1)
+    rows = imgs[:, :, xofs] * alpha[:, 0] + imgs[:, :, x1] * alpha[:, 1]
+    rows[:, :, xmax:] = imgs[:, :, xofs[xmax:]]
+    r0 = rows[:, np.clip(yofs, 0, sh - 1)]
+    r1 = rows[:, np.clip(yofs + 1, 0, sh - 1)]
+    return (r0 * beta[:, :1] + r1 * beta[:, 1:]).astype(np.float32)
 
 
 def resize_area(img, size) -> np.ndarray:
