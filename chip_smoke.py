@@ -259,7 +259,8 @@ Phases, each raising on failure:
     :data:`YOLO_BF16_TOL`, in both the detections agree wherever the
     scores lie beyond that bound of the threshold; no port kernel
     launched.
-    Then :func:`prediction_pv` writes 64-frame ``.pv`` files of the
+    Then :func:`prediction_pv` writes :data:`YOLO_PV_FRAMES`-frame
+    (32) ``.pv`` files of the
     scene whose blobs carry 5 pose keypoints along their stamp's long
     axis from the ground truth, or their own outline as
     ``original_outline``, and the CLI's ``-task track -auto_quit
@@ -290,7 +291,34 @@ Phases, each raising on failure:
     frames (:func:`sam_session`). No port kernel launched. Alone:
     ``python3 -c 'import torch, chip_smoke;
     chip_smoke.phase_sam(torch.device("cuda", 0), {})'``.
-18. Report: frames per second of phases 2-11, the replay's assist frames
+18. Several cards (``multi``, cell multi-32x1024-256), in a form that
+    means something on one card, printed with the numbers: 32 frames of
+    :func:`synth_frames` (1024^2, 256 fish) through
+    ``detect_batch_runs_sharded`` over the mesh of every card and over
+    two shards on cuda:0 (the split and the join), ``torch.equal`` to
+    the unsharded call on every table, and through ``DeviceDetector``
+    with its default (the card mesh where there are several cards), on
+    one card and over the two shards: the same blobs.
+    ``track_videos_sharded`` of lcm(2, cards) videos of 32 frames (both
+    meshes divide them: the two-shard mesh as well as the cards), each
+    its own seed, under phase 4's settings over both meshes: equal bit
+    for bit to each video's ``track_video_device``. Each form's
+    frames/s is the median of :data:`MULTI_REPEATS` rounds, the forms
+    timed in turn within a round, with its range and each form's median
+    ratio to the single card's call of the same round.
+    Data-parallel VI training (:func:`multi_train`: v118_3 in float32
+    at 80x80, batch 128, :data:`MULTI_EPOCHS` epochs over
+    :func:`multi_set`) on two gloo ranks sharing cuda:0 (gloo
+    all-reduces CUDA tensors through the host) and on NCCL ranks over
+    min(cards, 4) cards where there are two or more, each held to the
+    single card by :func:`multi_held`; ms a step for one and two ranks
+    with the gradient all-reduce's ms (CUDA events: median and quartiles
+    of :data:`MULTI_TIMED_EPOCHS` more epochs' warm steps) and peak
+    memory.
+    ``parallel.dryrun.dryrun_multichip`` over the cards (1x1 on one
+    card). No port kernel launches. Alone: ``python3 -c 'import torch,
+    chip_smoke; chip_smoke.phase_multi(torch.device("cuda", 0), {})'``.
+19. Report: frames per second of phases 2-11, the replay's assist frames
    and seconds, the card's name and power limit, and one JSON line with
     every kernel's launches on its path, error against its plain
     version, time, bound, the plain version's time and the nearest
@@ -3835,6 +3863,7 @@ YOLO_SCALE = "x"           # the widest scale the repo supports
 YOLO_KEYPOINTS = 5
 YOLO_FRAMES = 64
 YOLO_CUT_FRAMES = 16       # part (a)'s frames when the script runs late
+YOLO_PV_FRAMES = 32        # part (b)'s frames (was 64; cut for time)
 YOLO_LATE_S = 900.0
 YOLO_HELD_FRAMES = 2
 YOLO_ROW_TOL = 0.02        # tests/test_torch_yolo.py ROW_TOL
@@ -4500,7 +4529,8 @@ def phase_yolo(dev, report, t_script=0.0):
     for kind in ("pose", "outline"):
         pv = root / kind / f"{kind}.pv"
         pv.parent.mkdir()
-        n_pred = prediction_pv(pv, bg, frames, track, kind, values)
+        n_pred = prediction_pv(pv, bg, frames[:YOLO_PV_FRAMES],
+                               track[:YOLO_PV_FRAMES], kind, values)
         run = track_cli(dev, pv, root / kind / "card", values, "object",
                         ["-output_posture_data", "true"])
         ref = track_cli("cpu", pv, root / kind / "cpu", values, "object",
@@ -4513,7 +4543,7 @@ def phase_yolo(dev, report, t_script=0.0):
         tr = run["tracker"]
         stats = [tr.statistics[f] for f in sorted(tr.statistics)]
         share, ratio = [], []
-        for f in range(YOLO_FRAMES):
+        for f in range(YOLO_PV_FRAMES):
             n_here = n_mid = 0
             for ind in tr.individuals.values():
                 basic = ind.basic_stuff(f)
@@ -4530,8 +4560,9 @@ def phase_yolo(dev, report, t_script=0.0):
         post[kind] = dict(
             predictions=n_pred, wall_s=run["wall_s"],
             track_s=run["track_s"],
-            posture_s=sum(s.posture_seconds for s in stats) / YOLO_FRAMES,
-            adding_s=sum(s.adding_seconds for s in stats) / YOLO_FRAMES,
+            posture_s=sum(s.posture_seconds for s in stats)
+            / YOLO_PV_FRAMES,
+            adding_s=sum(s.adding_seconds for s in stats) / YOLO_PV_FRAMES,
             midline_share=(float(np.mean(share)), float(min(share))),
             length_ratio=(float(np.median(ratio)), float(np.min(ratio)),
                           float(np.max(ratio))),
@@ -5037,6 +5068,324 @@ def phase_sam(dev, report, t_script=0.0):
     torch.cuda.empty_cache()
 
 
+
+MULTI_FRAMES = 32          # detection batch and frames a video
+MULTI_CLASSES = 15         # phase 13's individuals
+MULTI_IMAGES = 256         # two 128-batches an epoch
+MULTI_BATCH = 128
+MULTI_EPOCHS = 2
+MULTI_TIMED_EPOCHS = 10    # 20 warm steps timed after the held run
+MULTI_REPEATS = 5          # timed rounds of each detection/tracking form
+MULTI_LOSS_TOL = 1e-4      # float32 loss, sums split over ranks
+MULTI_PROB_TOL = 1e-3      # tests/test_torch_vi_dp.py's PROB_TOL
+MULTI_SEED = 21
+
+
+def multi_set():
+    """Phase 18's training set: MULTI_IMAGES 80x80 crops of
+    MULTI_CLASSES classes, each class a brighter 16x16 square at its own
+    place on seeded noise (learnable, so that the predictions' margins
+    are wide); the labels."""
+    rng = np.random.default_rng(MULTI_SEED)
+    labels = np.arange(MULTI_IMAGES) % MULTI_CLASSES
+    images = rng.normal(100, 25, (MULTI_IMAGES, 80, 80, 1))
+    for i, c in enumerate(labels):
+        y, x = divmod(int(c), 4)
+        images[i, 4 + 18 * y:20 + 18 * y, 4 + 18 * x:20 + 18 * x] += 80
+    return np.clip(images, 0, 255).astype(np.float32), labels.astype(
+        np.int32)
+
+
+def multi_train(mesh_kind, images, labels):
+    """One rank of phase 18's data-parallel training (also the
+    single-card run, with no mesh): float32 v118_3 at 80x80 from
+    MULTI_SEED on this rank's card, MULTI_EPOCHS over the set with
+    itself as validation; the history, the set's predictions, then
+    MULTI_TIMED_EPOCHS more epochs, which never stop early, of warm
+    steps: ms a step and ms of the gradient all-reduce a step between
+    CUDA events; the peak memory. `mesh_kind`: None (one card), "shared" (every rank
+    on cuda:0) or "cards" (rank r on card r)."""
+    import torch
+
+    from trex_tpu_torch.models import VITrainer, build, training
+    from trex_tpu_torch.parallel import Mesh, make_mesh
+    from trex_tpu_torch.parallel.distributed import rank_device
+
+    if mesh_kind is None:
+        mesh, kw = None, dict(device=torch.device("cuda", 0))
+    else:
+        import torch.distributed as dist
+
+        n = dist.get_world_size()
+        mesh = Mesh([torch.device("cuda", 0)] * n, ("data",)) \
+            if mesh_kind == "shared" else make_mesh(n)
+        kw = dict(mesh=mesh)
+    dev = rank_device() if mesh is not None else kw["device"]
+    torch.cuda.set_device(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = VITrainer(build("v118_3", MULTI_CLASSES, dtype=torch.float32),
+                  MULTI_CLASSES, (80, 80, 1), seed=MULTI_SEED, **kw)
+    step_ms, reduce_ms = [], []
+    inner = t._train_step
+    reduce = training.mean_gradients
+
+    def timed(fn, out):
+        def call(*a):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r = fn(*a)
+            e1.record()
+            e1.synchronize()
+            out.append(e0.elapsed_time(e1))
+            return r
+        return call
+    res = t.train(images, labels, val_images=images, val_labels=labels,
+                  max_epochs=MULTI_EPOCHS, batch_size=MULTI_BATCH,
+                  min_iterations=1)
+    probs = t.predict(images, batch_size=MULTI_BATCH)
+    params = {k: v.detach().cpu().numpy() for k, v in
+              t.model.state_dict().items()}
+    t._train_step = timed(inner, step_ms)
+    training.mean_gradients = timed(reduce, reduce_ms)
+    try:
+        t.train(images, labels, val_images=images, val_labels=labels,
+                max_epochs=MULTI_TIMED_EPOCHS, batch_size=MULTI_BATCH,
+                min_iterations=1, accuracy_stop_all=2.0,
+                accuracy_stop_worst=2.0)
+    finally:
+        training.mean_gradients = reduce
+    return dict(history=res.history, probs=probs, params=params,
+                step_ms=step_ms, reduce_ms=reduce_ms,
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                device=str(dev))
+
+
+def multi_held(got, want, labels, tag):
+    """Phase 18's rule: every rank's history within MULTI_LOSS_TOL
+    (loss, relative) and one image of the smallest class of `labels`
+    (the accuracies, shares of images: a prediction at a near tie may
+    flip), its predictions within MULTI_PROB_TOL of the single card's,
+    the ranks' parameters equal bit for bit. Returns the largest
+    gaps."""
+    one = 1.0 / np.bincount(labels).min() + 1e-6
+    gaps = dict(loss=0.0, acc=0.0, probs=0.0)
+    for o in got:
+        check(len(o["history"]) == len(want["history"]),
+              f"{tag}: epochs differ")
+        for a, b in zip(want["history"], o["history"]):
+            d = abs(a["loss"] - b["loss"]) / max(1.0, abs(a["loss"]))
+            gaps["loss"] = max(gaps["loss"], d)
+            for k in ("acc", "val_worst", "val_mean"):
+                gaps["acc"] = max(gaps["acc"], abs(a[k] - b[k]))
+        gaps["probs"] = max(gaps["probs"], float(
+            np.abs(o["probs"] - want["probs"]).max()))
+        for k, v in o["params"].items():
+            check(np.array_equal(v, got[0]["params"][k]),
+                  f"{tag}: rank parameters differ at {k}")
+    check(gaps["loss"] <= MULTI_LOSS_TOL, f"{tag}: loss {gaps['loss']}")
+    check(gaps["acc"] <= one, f"{tag}: accuracy {gaps['acc']}")
+    check(gaps["probs"] <= MULTI_PROB_TOL, f"{tag}: predictions "
+          f"{gaps['probs']}")
+    return gaps
+
+
+def phase_multi(dev, report):
+    """Several cards (``multi``, cell multi-32x1024-256): sharded
+    detection and multi-video tracking over the mesh of every card and
+    over two shards on one card, DeviceDetector over the mesh, data-
+    parallel VI training on gloo ranks sharing cuda:0 (and on NCCL
+    ranks, one a card, where there are two cards or more), and the
+    dryrun over the cards. Every sharded result equals its single-card
+    run; no port kernel launched."""
+    import torch
+
+    from trex_tpu_torch import kernels
+    from trex_tpu_torch.ops.device_tracker import (
+        _detect_kwargs, track_video_device, track_videos_sharded)
+    from trex_tpu_torch.ops.runcc import (detect_batch_runs,
+                                          detect_batch_runs_sharded)
+    from trex_tpu_torch.parallel import Mesh, dryrun, launch, make_mesh
+    from trex_tpu_torch.pipeline import DeviceDetector
+
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    n_cards = torch.cuda.device_count()
+    cards = make_mesh()
+    two = Mesh([dev, dev], ("data",))
+    form = (f"{n_cards} cards: the card mesh spans them" if n_cards > 1
+            else "one card: the card mesh is that card, the split and "
+            "join run as two shards on cuda:0, NCCL across cards is not "
+            "run")
+    settings = track_settings()
+    kw = _detect_kwargs(settings, TRACK_CAPS)
+    bg, frames = synth_frames(MULTI_FRAMES)
+
+    def timed_forms(forms, per_call):
+        """Each form's output (a warm call each), then MULTI_REPEATS
+        rounds of one call a form in turn: the rate (`per_call` over
+        seconds) median, min and max, and the median, min and max of the
+        round's ratio to the first form's rate."""
+        outs = {name: fn() for name, fn in forms.items()}
+        sync()
+        secs = {name: [] for name in forms}
+        for _ in range(MULTI_REPEATS):
+            for name, fn in forms.items():
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                secs[name].append(time.perf_counter() - t0)
+        first = secs[next(iter(forms))]
+        rates = {}
+        for name, ss in secs.items():
+            ratio = [a / b for a, b in zip(first, ss)]
+            rates[name] = dict(
+                median=per_call / statistics.median(ss),
+                min=per_call / max(ss), max=per_call / min(ss),
+                ratio=statistics.median(ratio), ratio_min=min(ratio),
+                ratio_max=max(ratio))
+        return outs, rates
+
+    def tables_equal(a, b, tag):
+        for g in ("det", "child", "det_runs", "child_runs"):
+            for k, v in a[g].items():
+                check(torch.equal(v.to(dev), b[g][k]),
+                      f"{tag}: {g}.{k} != the single card's")
+        check(torch.equal(a["overflow"].to(dev), b["overflow"]),
+              f"{tag}: overflow")
+
+    fr = torch.as_tensor(frames, device=dev)
+    outs, det = timed_forms({
+        "single": lambda: detect_batch_runs(fr, bg, device=dev, **kw),
+        "cards": lambda: detect_batch_runs_sharded(fr, bg, cards, **kw),
+        "two_on_one": lambda: detect_batch_runs_sharded(fr, bg, two,
+                                                        **kw)},
+        MULTI_FRAMES)
+    for name in ("cards", "two_on_one"):
+        tables_equal(outs[name], outs["single"], f"detect over {name}")
+    s_det = registry(product_settings())
+    images = list(frames)
+    detectors = {name: DeviceDetector(s_det, bg, batch_size=MULTI_FRAMES,
+                                      **d_kw)
+                 for name, d_kw in (("card", dict(device=dev)),
+                                    ("default", {}),
+                                    ("two_on_one", dict(mesh=two)))}
+    got, dd_rates = timed_forms({name: (lambda dd=dd: dd.detect(images))
+                                 for name, dd in detectors.items()},
+                                MULTI_FRAMES)
+    det.update({f"detector_{k}": v for k, v in dd_rates.items()})
+    blobs = {name: [[(np.asarray(b.lines).tobytes(),
+                      np.asarray(b.pixels).tobytes()) for b in f]
+                    for f in out] for name, out in got.items()}
+    check(blobs["default"] == blobs["card"] == blobs["two_on_one"],
+          "DeviceDetector over the mesh != one card")
+
+    # lcm: the two-shard mesh must divide the videos as well as the cards
+    n_videos = math.lcm(2, n_cards)
+    videos = np.stack([synth_frames(MULTI_FRAMES, seed=v)[1]
+                       for v in range(n_videos)])
+    hists, trk = timed_forms({
+        "per_video": lambda: [track_video_device(
+            videos[v], bg, settings, device=dev, **TRACK_CAPS)
+            for v in range(n_videos)],
+        "cards": lambda: track_videos_sharded(
+            videos, bg, settings, mesh=cards, **TRACK_CAPS),
+        "two_on_one": lambda: track_videos_sharded(
+            videos, bg, settings, mesh=two, **TRACK_CAPS)},
+        n_videos * MULTI_FRAMES)
+    solo = hists["per_video"]
+    for name in ("cards", "two_on_one"):
+        for v in range(n_videos):
+            for k in ("fish_x", "fish_y", "fish_seen", "fish_row",
+                      "n_assigned", "needs_host", "detect_overflow"):
+                check(torch.equal(hists[name][k][v].to(dev), solo[v][k]),
+                      f"track_videos_sharded over {name}: video {v} {k}")
+
+    images_t, labels_t = multi_set()
+    one = multi_train(None, images_t, labels_t)
+    vi = {"single": one}
+    gloo = launch(multi_train, 2, "cuda:0", "shared", images_t, labels_t,
+                  backend="gloo")
+    vi["gloo_2"] = multi_held(gloo, one, labels_t, "2 gloo ranks on cuda:0")
+    vi["gloo_ranks"] = gloo
+    if n_cards >= 2:
+        k = min(n_cards, 4)
+        nccl = launch(multi_train, k, None, "cards", images_t, labels_t)
+        vi[f"nccl_{k}"] = multi_held(nccl, one, labels_t,
+                                     f"{k} NCCL ranks")
+        vi["nccl_ranks"] = nccl
+    dry = dryrun.dryrun_multichip(n_cards)
+    check(not any(kernels.launches.values()),
+          "multi: a port kernel launched on a path that has none")
+
+    def quartiles(outs, key):
+        """Median and quartiles of every rank's timed steps."""
+        xs = [x for o in outs for x in o[key]]
+        if len(xs) < 2:
+            return dict(median=xs[0] if xs else 0.0, q1=0.0, q3=0.0)
+        q1, med, q3 = statistics.quantiles(xs, n=4)
+        return dict(median=med, q1=q1, q3=q3)
+    train = {name: dict(step_ms=quartiles(outs, "step_ms"),
+                        reduce_ms=quartiles(outs, "reduce_ms"),
+                        peak_gb=max(o["peak_gb"] for o in outs))
+             for name, outs in (("single", [one]), ("gloo_2", gloo))
+             + ((("nccl", vi["nccl_ranks"]),) if n_cards >= 2 else ())}
+    r = dict(cell="multi-32x1024-256", card=card_name_and_limit(),
+             cards=n_cards, form=form,
+             detect_fps=det, track_fps=trk, videos=n_videos, train=train,
+             held={k: v for k, v in vi.items() if k.startswith(
+                 ("gloo_2", "nccl_")) and not k.endswith("ranks")},
+             dryrun={k: dry[k] for k in ("mesh", "loss_err", "grad_err",
+                                         "param_err", "detect_equal",
+                                         "track_equal")},
+             s=time.perf_counter() - t_phase)
+    report["multi"] = r
+    g, one_t = train["gloo_2"], train["single"]
+
+    def rate(x):
+        return (f"{x['median']:.1f} [{x['min']:.1f}-{x['max']:.1f}], "
+                f"x{x['ratio']:.3f} [{x['ratio_min']:.3f}-"
+                f"{x['ratio_max']:.3f}]")
+
+    def q(x):
+        return f"{x['median']:.2f} [{x['q1']:.2f}-{x['q3']:.2f}]"
+    print(f"phase 18 ok on {r['card']} ({form}): frames/s, median "
+          f"[min-max] of {MULTI_REPEATS} rounds and ratio to the round's "
+          f"first form: detection of {MULTI_FRAMES} frames of {SIZE}^2 "
+          f"({N_FISH} fish): one card {rate(det['single'])}, card mesh "
+          f"{rate(det['cards'])}, two shards on one card "
+          f"{rate(det['two_on_one'])}; DeviceDetector card "
+          f"{rate(det['detector_card'])}, default "
+          f"{rate(det['detector_default'])}, two shards "
+          f"{rate(det['detector_two_on_one'])}; all equal; {n_videos} "
+          f"videos of {MULTI_FRAMES} frames: per video "
+          f"{rate(trk['per_video'])}, card mesh {rate(trk['cards'])}, two "
+          f"shards {rate(trk['two_on_one'])}, equal bit for bit; v118_3 "
+          f"float32 80x80 batch {MULTI_BATCH}, ms a warm step, median "
+          f"[quartiles]: one card {q(one_t['step_ms'])}, 2 gloo ranks on "
+          f"cuda:0 {q(g['step_ms'])} of which the gradient all-reduce "
+          f"{q(g['reduce_ms'])} (gloo all-reduces CUDA tensors through "
+          f"the host), peak {g['peak_gb']:.2f} GB a rank (one card "
+          f"{one_t['peak_gb']:.2f}); held: loss {vi['gloo_2']['loss']:.2e}, "
+          f"accuracies {vi['gloo_2']['acc']:.3g}, predictions "
+          f"{vi['gloo_2']['probs']:.2e}"
+          + (f"; NCCL over {min(n_cards, 4)} cards "
+             f"{q(train['nccl']['step_ms'])} ms a step" if n_cards >= 2
+             else "") + f"; dryrun mesh {dry['mesh']}; phase {r['s']:.1f} s",
+          flush=True)
+
+
+def card_name_and_limit() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the report as JSON here")
@@ -5074,13 +5423,9 @@ def main():
     phase_tags(dev, report)
     phase_yolo(dev, report, time.perf_counter() - t0)
     phase_sam(dev, report, time.perf_counter() - t0)
+    phase_multi(dev, report)
     report["total_s"] = time.perf_counter() - t0
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name_and_limit()
     report["card"] = card
     report["kernels"] = kern
     if args.out:
@@ -5091,7 +5436,8 @@ def main():
     print(json.dumps({k: report[k] for k in (
         "detect", "label", "track", "device_tracker", "auto_split",
         "posture", "decay", "archive", "product", "object", "vi",
-        "vi_train", "vf", "tags", "yolo", "sam", "build_s", "total_s")}))
+        "vi_train", "vf", "tags", "yolo", "sam", "multi", "build_s",
+        "total_s")}))
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

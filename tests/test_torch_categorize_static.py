@@ -203,8 +203,16 @@ def test_learn_static_entry(tmp_path, capfd):
     assert capfd.readouterr().out.startswith("trained 2 epochs; per-class "
                                              "accuracy mean ")
     assert (tmp_path / "cli_weights.npz").exists()
-    with pytest.raises(NotImplementedError, match="A item 4"):
-        learn_static.train_static(imgs, lbls, mesh=object(), device="cpu")
+    # a mesh of one device is the plain trainer on that device
+    from trex_tpu_torch.parallel import make_mesh
+
+    meshed, mres = learn_static.train_static(
+        imgs, lbls, max_epochs=2, batch_size=32,
+        mesh=make_mesh(1, device="cpu"))
+    plain, pres = learn_static.train_static(imgs, lbls, max_epochs=2,
+                                            batch_size=32, device="cpu")
+    assert meshed.dp is None and meshed.device == torch.device("cpu")
+    assert mres.history == pres.history
 
 
 def test_vi_network_facade_modes(tmp_path):

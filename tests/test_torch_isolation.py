@@ -64,7 +64,8 @@ def test_no_jax_import_lines():
     files = list((REPO / "trex_tpu_torch").rglob("*.py")) \
         + [REPO / "chip_smoke.py", REPO / "torch_profile.py",
            REPO / "kernel_ab.py",
-           REPO / "tests" / "test_torch_ccl_kernel.py"]
+           REPO / "tests" / "test_torch_ccl_kernel.py",
+           REPO / "tests" / "torch_parallel_ranks.py"]
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
@@ -150,6 +151,20 @@ def test_entry_points_need_cuda_unless_cpu_asked():
     yolo.set("detect_type", "yolo")
     calls += [lambda: create_detection(yolo), lambda: YOLODetector(yolo),
               lambda: load_ultralytics_checkpoint(REPO / "missing.pt")]
+    # several devices: the mesh of every card, the sharded detector and
+    # tracker, the rank launcher, the trainer's mesh and the dryrun
+    from trex_tpu_torch.models import VITrainer, build
+    from trex_tpu_torch.ops.device_tracker import track_videos_sharded
+    from trex_tpu_torch.parallel import dryrun, hybrid_mesh, launch, \
+        make_mesh
+    from trex_tpu_torch.parallel.distributed import rank_device
+    from trex_tpu_torch.pipeline import DeviceDetector
+
+    calls += [lambda: make_mesh(), lambda: hybrid_mesh(), rank_device,
+              lambda: DeviceDetector(Settings(), frames[0]),
+              lambda: track_videos_sharded(frames[None], frames[0], base),
+              lambda: launch(print, 2), lambda: dryrun.entry(),
+              lambda: dryrun.dryrun_multichip(2)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -232,8 +247,30 @@ def test_package_lists_every_module():
                  "ml.tagwork", "ml.auto_tags", "models.yolo",
                  "models.yolo_convert", "detect.base", "detect.yolo",
                  "detect.tiling", "detect.rotated", "detect.region",
-                 "detect.prediction_filter", "models.sam", "detect.sam3"):
+                 "detect.prediction_filter", "models.sam", "detect.sam3",
+                 "parallel", "parallel.mesh", "parallel.distributed",
+                 "parallel.dryrun"):
         assert f"trex_tpu_torch.{name}" in mods
+
+
+def test_pipeline_converts_without_opencv_image_operations():
+    """pipeline.py calls none of cv2's grey conversion, resizes or
+    histogram equalization (the port's copies in track/tag_image.py
+    serve them); only the undistortion, the adaptive threshold, the
+    morphology and the raw-movie writer still reach cv2, and the
+    parallel package imports cv2 nowhere."""
+    import ast
+
+    tree = ast.parse((REPO / "trex_tpu_torch" / "pipeline.py").read_text())
+    used = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+            and isinstance(n.value, ast.Name) and n.value.id == "cv2"}
+    assert used and not used & {"cvtColor", "COLOR_BGR2GRAY", "resize",
+                                "INTER_AREA", "INTER_NEAREST",
+                                "equalizeHist"}, used
+    for f in (REPO / "trex_tpu_torch" / "parallel").glob("*.py"):
+        every = {m.split(".")[0] for m in _imports(ast.parse(
+            f.read_text()), False)}
+        assert not every & {"cv2", "jax", "trex_tpu"}, (f, every)
 
 
 def _imports(tree, top_level_only):

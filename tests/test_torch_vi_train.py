@@ -659,6 +659,24 @@ def test_state_snapshot_restores_weights_moments_and_step():
 
 
 def test_mesh_raises_naming_the_multi_gpu_item():
-    with pytest.raises(NotImplementedError, match="A item 4"):
+    """A mesh of one device is the plain trainer on it; a mesh of
+    several devices in one process raises with the launch hint (one
+    rank a card); a mesh of another kind raises."""
+    from trex_tpu_torch.parallel import make_mesh
+
+    x, y = _batch(16)
+    trainers = [training.VITrainer(vi_network.build("v118_3", 2), 2,
+                                   (16, 16, 1), **kw)
+                for kw in (dict(mesh=make_mesh(1, device="cpu")),
+                           dict(device="cpu"))]
+    assert trainers[0].dp is None
+    assert trainers[0].device == torch.device("cpu")
+    hist = [t.train(x, y % 2, max_epochs=1, batch_size=4,
+                    min_iterations=1).history for t in trainers]
+    assert hist[0] == hist[1]
+    with pytest.raises(ValueError, match="one rank a card.*torchrun"):
+        training.VITrainer(vi_network.build("v118_3", 2), 2, (16, 16, 1),
+                           mesh=make_mesh(2, device="cpu"))
+    with pytest.raises(TypeError, match="Mesh"):
         training.VITrainer(vi_network.build("v118_3", 2), 2, (16, 16, 1),
                            device="cpu", mesh=object())

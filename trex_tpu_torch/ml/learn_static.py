@@ -37,7 +37,8 @@ def train_static(images: np.ndarray, labels: np.ndarray,
                  mesh=None, device=None):
     """Train a classifier on a static dataset; returns (trainer,
     TrainResult). Saves `<output_prefix>_weights.npz` when given.
-    `mesh` (several cards) raises: ROADMAP.md A item 4."""
+    `mesh` trains data parallel over its ranks (``VITrainer(mesh=...)``:
+    every rank calls this with the same arrays)."""
     from ..models import VITrainer, build
 
     images = np.asarray(images, np.float32)

@@ -21,6 +21,13 @@ A network runs in train mode when it is called with ``train=True``
 child it makes, ``BatchNorm`` then normalizes with the batch's
 statistics and updates its running ones, and ``Dropout`` drops with the
 generator passed as ``rng`` (flax's ``rngs={"dropout": ...}``).
+
+Data parallel (:func:`data_parallel`): a network whose ranks each see a
+slice of the batch computes what flax computes on the whole batch under
+JAX's sharded ``jit``. Train-mode ``BatchNorm`` takes its statistics
+over the global batch (the ranks' sums all-reduced) and ``Dropout``
+draws the global batch's mask from the generator, identical on every
+rank, and keeps its rank's rows.
 """
 from __future__ import annotations
 
@@ -172,6 +179,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.epsilon = epsilon
         self.momentum = momentum
+        self.dp = None  # the data-parallel group (data_parallel)
         self.scale = nn.Parameter(torch.empty(features))
         self.bias = nn.Parameter(torch.empty(features))
         self.register_buffer("mean", torch.empty(features))
@@ -182,8 +190,12 @@ class BatchNorm(nn.Module):
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             axes = [0] + list(range(2, x.dim()))
-            mean = x.mean(axes)
-            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            if self.dp is None:
+                mean = x.mean(axes)
+                meansq = (x * x).mean(axes)
+            else:
+                mean, meansq = _global_moments(x, axes, self.dp)
+            var = torch.clamp(meansq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -193,6 +205,19 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         y = (x - mean.reshape(shape)) * mul.reshape(shape)
         return y + self.bias.reshape(shape)
+
+
+def _global_moments(x, axes, dp):
+    """E[x] and E[x^2] over the global batch: each rank's sums of x and
+    x*x and its element count, all-reduced (SUM) in one autograd-aware
+    collective, so gradients flow through the global statistics."""
+    from ..parallel.distributed import all_reduce_sum
+
+    c = x.shape[1]
+    n = torch.full((1,), x.numel() // c, dtype=x.dtype, device=x.device)
+    sums = all_reduce_sum(torch.cat([x.sum(axes), (x * x).sum(axes), n]),
+                          dp.group)
+    return sums[:c] / sums[2 * c], sums[c:2 * c] / sums[2 * c]
 
 
 class Dropout(nn.Module):
@@ -206,6 +231,7 @@ class Dropout(nn.Module):
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.dp = None  # the data-parallel group (data_parallel)
 
     def forward(self, x, train: bool = False,
                 rng: Optional[torch.Generator] = None):
@@ -216,8 +242,27 @@ class Dropout(nn.Module):
         if rng is None:
             raise ValueError("train-mode dropout needs a generator (rng)")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        if self.dp is None:
+            mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        else:
+            b = x.shape[0]
+            mask = torch.rand((b * self.dp.size,) + tuple(x.shape[1:]),
+                              generator=rng, device=x.device)[
+                self.dp.rank * b:(self.dp.rank + 1) * b] < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def data_parallel(model: nn.Module, dp) -> nn.Module:
+    """Make `model`'s train mode data parallel over `dp` (an object with
+    the process ``group``, this rank's ``rank`` and the group's
+    ``size``; None makes it single-device again): every ``BatchNorm``
+    takes global batch statistics, every ``Dropout`` the global batch's
+    mask. Each rank's slice of the batch is rows ``[rank * b, (rank + 1)
+    * b)`` of the global batch."""
+    for m in model.modules():
+        if isinstance(m, (BatchNorm, Dropout)):
+            m.dp = dp
+    return model
 
 
 class LayerNorm(nn.Module):

@@ -19,6 +19,16 @@ augmentation run on the card unless the caller names the CPU
 (``device.py``). The batch order and the validation split are drawn in
 numpy exactly as the JAX package draws them; dropout and augmentation
 draw from ``torch.Generator``s of the trainer on its device.
+
+Data parallel (``mesh``): the JAX package shards each batch over a
+mesh's ``data`` axis from one controller, and XLA all-reduces what the
+step needs. The port runs one process (rank) a card under
+``torch.distributed``: every rank calls the same ``train`` on the same
+arrays, draws the same split, batch order, augmentation and dropout,
+keeps its rows of each batch, and all-reduces the BatchNorm statistics
+(``layers.data_parallel``), the gradients, the loss and the accuracy,
+so that every rank takes the step the single-card trainer takes on the
+whole batch, within float32 summation order.
 """
 from __future__ import annotations
 
@@ -31,14 +41,12 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .layers import materialize
+from .layers import data_parallel, materialize
 from .vi_params import from_flax_arrays, to_flax_arrays
-
-MULTI_GPU = ("VITrainer(mesh=...): data-parallel training over several "
-             "cards comes with the multi-GPU slice (ROADMAP.md A item 4)")
 
 
 def softmax_cross_entropy(logits, labels, num_classes):
@@ -73,11 +81,32 @@ def adam_steps(opt: torch.optim.Adam) -> int:
     return 0
 
 
-def make_train_step(model, num_classes: int, loss: str = "ce"):
+def mean_gradients(params, group=None, size: Optional[int] = None) -> None:
+    """Average the gradients of `params` over the ranks of `group` (every
+    rank when None) in one flattened all-reduce (SUM), then divide by
+    `size` (the group's size unless given) once. In the trainer, each
+    rank's gradient of its local mean loss already carries, through the
+    all-reduced BatchNorm statistics, the other ranks' terms, so the
+    mean is the gradient of the global batch's mean loss."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group) if size is None else size
+    i = 0
+    for g in grads:
+        g.copy_(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+
+
+def make_train_step(model, num_classes: int, loss: str = "ce", dp=None):
     """One training step: the loss of a train-mode forward (batch
     statistics, dropout from `rng`), its gradients, the Adam update and
     the BatchNorm running statistics of the same forward. Returns the
-    loss and the batch accuracy as device scalars."""
+    loss and the batch accuracy as device scalars (this rank's, when
+    data parallel over `dp`; the gradients are averaged over the ranks
+    before the update)."""
     loss_fn = focal_loss if loss == "focal" else softmax_cross_entropy
 
     def train_step(opt: torch.optim.Adam, images, labels, rng):
@@ -85,6 +114,8 @@ def make_train_step(model, num_classes: int, loss: str = "ce"):
         logits = model(images, train=True, rng=rng)
         loss_val = loss_fn(logits, labels, num_classes)
         loss_val.backward()
+        if dp is not None:
+            mean_gradients(model.parameters(), dp.group, dp.size)
         opt.step()
         acc = (logits.argmax(-1) == labels).float().mean()
         return loss_val.detach(), acc
@@ -172,23 +203,37 @@ class VITrainer:
     placed on `device` (the card when None). Dropout draws from a
     generator on that device seeded with ``seed + 1``, the augmentation
     from one seeded with ``seed + 7`` (the JAX package's augmentation
-    key)."""
+    key).
+
+    `mesh` makes the trainer data parallel over the ranks of its
+    `data_axis` (``parallel.distributed.data_group``): a
+    ``DeviceMesh`` (``parallel.hybrid_mesh`` across ranks), or a port
+    ``Mesh`` of as many devices as ranks, rank r on its r-th device; the
+    mesh then names the device. A mesh of one device is the plain
+    trainer on it. A mesh of several devices in one process raises:
+    training over several cards runs one rank a card (torchrun or
+    ``parallel.launch``). Every rank calls ``train`` with the same
+    arguments; ``batch_size`` must divide by the ranks."""
 
     def __init__(self, model, num_classes: int, image_shape,
                  learning_rate: float = 1e-4, loss: str = "ce",
                  seed: int = 0, generator: Optional[torch.Generator] = None,
-                 device=None, mesh=None):
+                 device=None, mesh=None, data_axis: str = "data"):
+        self.dp = None
         if mesh is not None:
-            raise NotImplementedError(MULTI_GPU)
+            from ..parallel.distributed import data_group
+
+            device, self.dp = data_group(mesh, data_axis)
         self.device = resolve_device(device)
         self.num_classes = num_classes
         self.image_shape = tuple(int(v) for v in image_shape)
         if generator is None:
             generator = torch.Generator().manual_seed(seed)
-        self.model = materialize(model, self.image_shape, generator,
-                                 self.device)
+        self.model = data_parallel(materialize(
+            model, self.image_shape, generator, self.device), self.dp)
         self.opt = adam(self.model.parameters(), learning_rate)
-        self._train_step = make_train_step(self.model, num_classes, loss)
+        self._train_step = make_train_step(self.model, num_classes, loss,
+                                           self.dp)
         self._dropout_rng = torch.Generator(self.device).manual_seed(
             seed + 1)
         self._aug_rng = torch.Generator(self.device).manual_seed(seed + 7)
@@ -237,6 +282,12 @@ class VITrainer:
                 "normalizes x/127.5-1); inputs look 0-1 scaled",
                 stacklevel=2)
         n = len(images)
+        dp = self.dp
+        if dp is not None and batch_size % dp.size:
+            raise ValueError(f"batch_size {batch_size} does not split over "
+                             f"{dp.size} data-parallel ranks")
+        local = batch_size // (1 if dp is None else dp.size)
+        lo = 0 if dp is None else dp.rank * local
         if val_images is None:
             # stratified 25% split: every class keeps at least one
             # validation sample (a plain permutation can drop a rare
@@ -287,18 +338,26 @@ class VITrainer:
                 if len(idx) < batch_size:
                     idx = np.concatenate(
                         [idx, order[: batch_size - len(idx)]])
-                at = torch.from_numpy(idx).to(self.device)
+                at = torch.from_numpy(idx[lo:lo + local]).to(self.device)
                 bi, bl = dev_images[at], dev_labels[at]
                 if augment:
-                    bi = augment_transform(bi, **augment_draws(
-                        batch_size, h, w, self._aug_rng, self.device))
+                    draws = augment_draws(batch_size, h, w, self._aug_rng,
+                                          self.device)
+                    bi = augment_transform(bi, **{
+                        k: v[lo:lo + local] for k, v in draws.items()})
                 loss_v, acc = self._train_step(self.opt, bi, bl,
                                                self._dropout_rng)
                 losses.append(loss_v)
                 accs.append(acc)
                 steps_done += 1
-            losses = torch.stack(losses).tolist()
-            accs = torch.stack(accs).tolist()
+            if dp is None:
+                losses = torch.stack(losses).tolist()
+                accs = torch.stack(accs).tolist()
+            else:
+                both = torch.stack([torch.stack(losses).float(),
+                                    torch.stack(accs).float()])
+                dist.all_reduce(both, group=dp.group)
+                losses, accs = (both / dp.size).tolist()
             per_class = self.per_class_accuracy(val_images, val_labels,
                                                 batch_size)
             worst = float(np.min(per_class)) if len(per_class) else 0.0
@@ -339,21 +398,31 @@ class VITrainer:
     @torch.no_grad()
     def predict(self, images: np.ndarray, batch_size: int = 512) -> np.ndarray:
         """Softmax probabilities (N, num_classes) of NHWC images (uint8
-        or float); the tail batch is padded with zeros to `batch_size`."""
+        or float); the tail batch is padded with zeros to `batch_size`.
+        Data parallel, each rank computes its rows of every batch and
+        every rank returns all of them."""
+        from ..parallel.distributed import gather_rows
+
         images = np.asarray(images)
         if images.dtype != np.uint8:
             images = images.astype(np.float32)
         n = len(images)
+        dp = self.dp
+        per = batch_size if dp is None else -(-batch_size // dp.size)
+        rows = per if dp is None else per * dp.size
+        lo = 0 if dp is None else dp.rank * per
         out = np.empty((n, self.num_classes), np.float32)
         for s in range(0, n, batch_size):
             chunk = torch.from_numpy(np.ascontiguousarray(
                 images[s : s + batch_size]))
             k = len(chunk)
-            x = torch.zeros((batch_size, *chunk.shape[1:]),
+            x = torch.zeros((rows, *chunk.shape[1:]),
                             dtype=chunk.dtype, device=self.device)
             x[:k] = chunk.to(self.device)
-            logits = self.model(x.permute(0, 3, 1, 2))
+            logits = self.model(x[lo:lo + per].permute(0, 3, 1, 2))
             probs = torch.softmax(logits.float(), dim=-1)
+            if dp is not None:
+                probs = gather_rows(probs, dp.group)
             out[s : s + k] = probs[:k].cpu().numpy()
         return out
 
@@ -370,14 +439,19 @@ class VITrainer:
 
     # ------------------------------------------------------------------
     def save_weights(self, path):
-        """<filename>_weights.npz layout: flat param arrays + meta."""
-        arrays = to_flax_arrays(self.model)
-        arrays["__meta__"] = np.array([json.dumps({
-            "num_classes": self.num_classes,
-            "image_shape": self.image_shape,
-        })])
-        with open(path, "wb") as f:
-            np.savez(f, **arrays)
+        """<filename>_weights.npz layout: flat param arrays + meta.
+        Data parallel, rank 0 writes and every rank returns once the
+        file is written."""
+        if self.dp is None or self.dp.rank == 0:
+            arrays = to_flax_arrays(self.model)
+            arrays["__meta__"] = np.array([json.dumps({
+                "num_classes": self.num_classes,
+                "image_shape": self.image_shape,
+            })])
+            with open(path, "wb") as f:
+                np.savez(f, **arrays)
+        if self.dp is not None:
+            dist.barrier(group=self.dp.group)
 
     def load_weights(self, path):
         with np.load(path, allow_pickle=False) as data:

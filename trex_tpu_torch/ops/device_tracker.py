@@ -1320,6 +1320,55 @@ def track_video_device(frames, background, settings, device=None,
     return hist
 
 
+def track_videos_sharded(frames, background, settings, mesh=None,
+                         axis: str = "data", device=None, **caps) -> dict:
+    """Multi-video tracking: a (V, T, H, W) batch of videos, one
+    independent detect and scan recurrence a video, the videos given to
+    the devices along the mesh's `axis` in contiguous blocks of V / n as
+    the JAX package shards them, each device running its videos one
+    after another (``parallel.mesh.run_shards``; the scan's inner loops
+    depend on the data, so ``torch.vmap`` does not serve). Without a
+    mesh, every video runs on `device` (the card when None).
+
+    Computes what the JAX function computes: ``track_scan`` gets neither
+    the frames nor a split spec, so no video runs the history split on
+    the card, even with ``track_do_history_split`` on (the frames it
+    would split are flagged ``needs_host``; ROADMAP.md C11). Returns the
+    histories stacked along V (on the axis' first device), with
+    ``detect_overflow``."""
+    from ..parallel.mesh import join_shards, run_shards
+
+    P = params_from_settings(settings)
+    kw = _detect_kwargs(settings, caps)
+    V, T = frames.shape[:2]
+    fr = float(SettingsView(settings)["frame_rate"] or 25)
+    times = frame_times(T, fr)
+    devs = [resolve_device(device)] if mesh is None \
+        else mesh.axis_devices(axis)
+    if V % len(devs):
+        raise ValueError(f"{V} videos do not split over {len(devs)} "
+                         f"devices of axis {axis!r}")
+    per = V // len(devs)
+
+    def one_video(video, dev):
+        video = torch.as_tensor(video, device=dev)
+        out = detect_batch_runs(video, torch.as_tensor(background,
+                                                       device=dev),
+                                device=dev, **kw)
+        det = detections_from_runcc(out, P)
+        hist = track_scan(det, torch.as_tensor(times, device=dev),
+                          torch.arange(T, dtype=_I32, device=dev), P)
+        hist["detect_overflow"] = out["overflow"]
+        return {k: v.unsqueeze(0) if isinstance(v, torch.Tensor)
+                else {c: x.unsqueeze(0) for c, x in v.items()}
+                for k, v in hist.items()}
+
+    def shard(i, dev):
+        return join_shards([one_video(frames[v], dev)
+                            for v in range(i * per, (i + 1) * per)], dev)
+    return join_shards(run_shards(shard, devs), devs[0])
+
+
 def _history_from_fast_tracker(tracker, n_frames: int,
                                max_fish: int) -> dict:
     """FastTracker per-frame history -> the track_scan output schema

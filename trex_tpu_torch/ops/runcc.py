@@ -271,3 +271,42 @@ def detect_batch_runs(frames, background, detect_threshold: int,
                    max_pixels=max_pixels, max_blobs=max_blobs,
                    max_child_runs=max_child_runs,
                    max_children=max_children)
+
+
+def background_copies(background, devices) -> dict:
+    """One copy of `background` on each of `devices`, by device."""
+    return {dev: torch.as_tensor(background, device=dev)
+            for dev in set(devices)}
+
+
+def detect_batch_runs_sharded(frames, background, mesh, axis: str = "data",
+                              **kwargs) -> dict:
+    """Detection with the frame batch split over the mesh's `axis`:
+    contiguous blocks of B / n frames, one a device along the axis, each
+    through :func:`detect_batch_runs` on its device with its own copy of
+    the background (`background` may be those copies already, a dict
+    from device to tensor, :func:`background_copies`), every shard
+    launched before any is copied back (``parallel.mesh.run_shards``);
+    the per-frame tables are joined in the batch's order on the axis'
+    first device, equal byte for byte to the unsharded call (every
+    table is per frame, and the label loop's extra rounds leave
+    converged frames as they are). No collectives: the counterpart of
+    the JAX package's batch-sharded ``jit``. The batch must divide by
+    the axis size, as a JAX sharding requires. `kwargs` are
+    detect_batch_runs' threshold and capacity options."""
+    from ..parallel.mesh import join_shards, run_shards
+
+    devs = mesh.axis_devices(axis)
+    n = len(devs)
+    if frames.shape[0] % n:
+        raise ValueError(f"a batch of {frames.shape[0]} frames does not "
+                         f"split over {n} devices of axis {axis!r}")
+    per = frames.shape[0] // n
+    bgs = background if isinstance(background, dict) else \
+        background_copies(background, devs)
+
+    def shard(i, dev):
+        return detect_batch_runs(torch.as_tensor(
+            frames[i * per:(i + 1) * per], device=dev), bgs[dev],
+            device=dev, **kwargs)
+    return join_shards(run_shards(shard, devs), devs[0])

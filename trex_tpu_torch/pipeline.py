@@ -41,7 +41,8 @@ from .track.motion import MotionRecord
 from .track.posture import (calculate_posture,
                             calculate_posture_from_outline,
                             calculate_posture_from_pose)
-from .track.tag_image import bgr_to_gray, resize_linear
+from .track.tag_image import (bgr_to_gray, equalize_hist, resize_area,
+                              resize_linear, resize_nearest)
 from .track.tracker import Tracker
 from .utils.timing import global_collector as _global_collector
 
@@ -175,7 +176,9 @@ def preprocess_video_frame(image: np.ndarray, settings: Settings,
     core/AbstractVideoSource.h:172-287): undistortion from
     cam_matrix/cam_undistort_vector, meta_video_scale resize,
     crop_offsets, image_invert/image_adjust and equalize_histogram.
-    OpenCV is imported only by the options that need it."""
+    The resize and the equalization are the port's bit-for-bit copies of
+    OpenCV's (``track/tag_image.py``); OpenCV is imported only for the
+    undistortion."""
     s = settings
     if undistort_maps is not None:
         import cv2
@@ -185,10 +188,7 @@ def preprocess_video_frame(image: np.ndarray, settings: Settings,
     scale = float(s["meta_video_scale"] or 0) \
         if "meta_video_scale" in s else 0.0
     if scale and scale > 0 and scale != 1.0:
-        import cv2
-
-        image = cv2.resize(image, None, fx=scale, fy=scale,
-                           interpolation=cv2.INTER_AREA)
+        image = resize_area(image, None, fx=scale, fy=scale)
     crop = s["crop_offsets"]
     if crop and any(crop):
         h, w = image.shape[:2]
@@ -203,9 +203,7 @@ def preprocess_video_frame(image: np.ndarray, settings: Settings,
             + float(s["image_brightness_increase"])
         image = np.clip(img, 0, 255).astype(np.uint8)
     if s["equalize_histogram"] and image.ndim == 2:
-        import cv2
-
-        image = cv2.equalizeHist(image)
+        image = equalize_hist(image)
     return image
 
 
@@ -360,21 +358,36 @@ class DeviceDetector:
     frame that overflows the capacity caps falls back to the host
     labeler, so results are engine-independent. `frames` and
     `overflow_frames` count the frames detected and those that fell
-    back. One device only: the multi-device mesh is ROADMAP.md A
-    item 4."""
+    back.
+
+    Several devices, as the JAX package's detector takes them: with
+    `device` None and more than one card, a data mesh over every card
+    (``parallel.make_mesh``) and a batch of at least one frame a card;
+    `mesh` (a port ``Mesh``) names the mesh. A
+    batch whose length divides by the mesh's size goes through
+    ``detect_batch_runs_sharded``, any other through one call on the
+    mesh's first device. One card, or ``device="cpu"``, is the single
+    call on that device."""
 
     def __init__(self, settings: Settings, background: np.ndarray,
-                 batch_size: Optional[int] = None, device=None):
+                 batch_size: Optional[int] = None, device=None, mesh=None):
         import threading
 
         import torch
 
         from .device import resolve_device
+        from .ops.runcc import background_copies
+        from .parallel.mesh import make_mesh
 
         s = settings
         self.settings = s
         self.background = background
-        self.device = resolve_device(device)
+        if mesh is None and device is None and torch.cuda.is_available() \
+                and torch.cuda.device_count() > 1:
+            mesh = make_mesh(torch.cuda.device_count())
+        self.mesh = mesh
+        self.device = mesh.devices.ravel()[0] if mesh is not None \
+            else resolve_device(device)
         h, w = background.shape[:2]
         self.kw = dict(
             detect_threshold=int(s["detect_threshold"]),
@@ -385,8 +398,11 @@ class DeviceDetector:
             max_runs=4096, max_pixels=min(h * w, 1 << 17),
             max_blobs=1024, max_child_runs=4096, max_children=1024)
         self.batch_size = int(batch_size or s["detect_batch_size"] or 8)
-        self._bg_dev = torch.as_tensor(np.ascontiguousarray(background),
-                                       device=self.device)
+        if mesh is not None:
+            self.batch_size = max(self.batch_size, mesh.size)
+        self._bg_devs = background_copies(
+            np.ascontiguousarray(background), [self.device] if mesh is None
+            else mesh.devices.ravel())
         self._count_lock = threading.Lock()
         self.frames = 0
         self.overflow_frames = 0
@@ -394,14 +410,19 @@ class DeviceDetector:
     def detect(self, images: list[np.ndarray]) -> list[list[TrackBlob]]:
         import torch
 
-        from .ops.runcc import detect_batch_runs
+        from .ops.runcc import detect_batch_runs, detect_batch_runs_sharded
 
         n = len(images)
         B = self.batch_size
         pad = (-n) % B
         batch = np.stack(list(images) + [images[-1]] * pad)
-        out = detect_batch_runs(torch.from_numpy(batch), self._bg_dev,
-                                device=self.device, **self.kw)
+        if self.mesh is not None and len(batch) % self.mesh.size == 0:
+            out = detect_batch_runs_sharded(batch, self._bg_devs,
+                                            self.mesh, **self.kw)
+        else:
+            out = detect_batch_runs(torch.from_numpy(batch),
+                                    self._bg_devs[self.device],
+                                    device=self.device, **self.kw)
         out = _to_host(out)
         with self._count_lock:
             self.frames += n
@@ -598,8 +619,7 @@ class Segmenter:
             average = generate_average(src, s, undistort_maps,
                                        color=self._color)
         if average.ndim == 3:
-            import cv2
-            self.background = cv2.cvtColor(average, cv2.COLOR_BGR2GRAY)
+            self.background = bgr_to_gray(average)
             if s["meta_encoding"] == "r3g3b2":
                 # r3g3b2 stores a 1-channel encoded average
                 from .io.encoding import bgr_to_r3g3b2
@@ -662,16 +682,10 @@ class Segmenter:
                 msrc = VideoSource(mask_p)
                 m = msrc.get(0)
                 if m.ndim == 3:
-                    import cv2
-
-                    m = cv2.cvtColor(m, cv2.COLOR_BGR2GRAY)
+                    m = bgr_to_gray(m)
                 if m.shape != self.background.shape[:2]:
-                    import cv2
-
-                    m = cv2.resize(
-                        m, (self.background.shape[1],
-                            self.background.shape[0]),
-                        interpolation=cv2.INTER_NEAREST)
+                    m = resize_nearest(m, (self.background.shape[1],
+                                           self.background.shape[0]))
                 conv_mask = (m > 0)
                 self.background = np.where(
                     conv_mask, self.background, 0).astype(np.uint8)
@@ -712,13 +726,11 @@ class Segmenter:
                 img = src.get(idx)
                 color = None
                 if img.ndim == 3:
-                    import cv2
-
                     color = img if self._color else None
                     if channel is not None and 0 <= int(channel) < 3:
                         img = np.ascontiguousarray(img[..., int(channel)])
                     else:
-                        img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+                        img = bgr_to_gray(img)
                 img = preprocess_video_frame(img, s, undistort)
                 if lum_grid is not None:
                     img = lum_grid.correct(img)

@@ -76,10 +76,11 @@ def resize_nearest(img, size) -> np.ndarray:
     return img[ys[:, None], xs[None, :]]
 
 
-def _scale(ssize: int, dsize: int) -> float:
-    """OpenCV's source step a destination pixel, ``1 / (dst / src)``
+def _scale(ssize: int, dsize: int, inv: float = None) -> float:
+    """OpenCV's source step a destination pixel, ``1 / inv`` with `inv`
+    the resize factor, ``dst / src`` when the caller gives the size
     (which can differ from ``src / dst`` in the last bit)."""
-    return 1.0 / (dsize / ssize)
+    return 1.0 / (dsize / ssize if inv is None else inv)
 
 
 def _frozen(a: np.ndarray) -> np.ndarray:
@@ -89,10 +90,10 @@ def _frozen(a: np.ndarray) -> np.ndarray:
 
 
 @lru_cache(maxsize=512)
-def _area_tab(ssize: int, dsize: int) -> tuple:
+def _area_tab(ssize: int, dsize: int, inv: float = None) -> tuple:
     """OpenCV's computeResizeAreaTab: (dst index, src index, float32
     weight) in its order."""
-    scale = _scale(ssize, dsize)
+    scale = _scale(ssize, dsize, inv)
     tab = []
     for dx in range(dsize):
         fsx1 = dx * scale
@@ -113,11 +114,11 @@ def _area_tab(ssize: int, dsize: int) -> tuple:
 
 
 @lru_cache(maxsize=512)
-def _area_taps(ssize: int, dsize: int) -> tuple:
+def _area_taps(ssize: int, dsize: int, inv: float = None) -> tuple:
     """The area table as k-th tap arrays: (index, weight, present), each
     (max taps, dsize)."""
     taps: list[list] = [[] for _ in range(dsize)]
-    for d, s, a in _area_tab(ssize, dsize):
+    for d, s, a in _area_tab(ssize, dsize, inv):
         taps[d].append((s, a))
     n = max(len(t) for t in taps)
     idx = np.array([[t[k][0] if k < len(t) else 0 for t in taps]
@@ -128,10 +129,11 @@ def _area_taps(ssize: int, dsize: int) -> tuple:
     return _frozen(idx), _frozen(alpha), _frozen(has)
 
 
-def _area_rows(src: np.ndarray, dsize: int) -> np.ndarray:
+def _area_rows(src: np.ndarray, dsize: int, inv: float = None
+               ) -> np.ndarray:
     """Apply the area table along the last axis: each output element adds
     its taps in table order, in float32."""
-    idx, alpha, has = _area_taps(src.shape[-1], dsize)
+    idx, alpha, has = _area_taps(src.shape[-1], dsize, inv)
     out = np.zeros(src.shape[:-1] + (dsize,), np.float32)
     for k in range(len(idx)):
         term = src[..., idx[k]].astype(np.float32) * alpha[k]
@@ -139,12 +141,13 @@ def _area_rows(src: np.ndarray, dsize: int) -> np.ndarray:
     return out
 
 
-def _area_cols(rows: np.ndarray, dsize: int) -> np.ndarray:
+def _area_cols(rows: np.ndarray, dsize: int, inv: float = None
+               ) -> np.ndarray:
     """The vertical pass: each output row is beta0 * row0, then
     ``+= beta_j * row_j`` in table order, in float32."""
     out = np.zeros((dsize,) + rows.shape[1:], np.float32)
     seen = set()
-    for d, s, b in _area_tab(rows.shape[0], dsize):
+    for d, s, b in _area_tab(rows.shape[0], dsize, inv):
         term = np.float32(b) * rows[s]
         if d in seen:
             out[d] = out[d] + term
@@ -155,11 +158,14 @@ def _area_cols(rows: np.ndarray, dsize: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=512)
-def _linear_coefs(ssize: int, dsize: int):
+def _linear_coefs(ssize: int, dsize: int, inv: float = None,
+                  clamp: bool = True):
     """Source index and fixed-point weights of the linear resize with
     OpenCV's area coefficients (``INTER_AREA`` when upscaling), and the
-    index bounds [xmin, xmax) of the two-tap outputs."""
-    inv = dsize / ssize
+    index bounds [xmin, xmax) of the two-tap outputs. OpenCV clamps a
+    column's index and weight at the right edge (`clamp`), not a row's:
+    a last row past the source keeps its weight on the clamped rows."""
+    inv = dsize / ssize if inv is None else inv
     scale = 1.0 / inv
     xmin, xmax = 0, dsize
     ofs = np.zeros(dsize, np.int64)
@@ -169,10 +175,10 @@ def _linear_coefs(ssize: int, dsize: int):
         fx = np.float32((dx + 1) - (sx + 1) * inv)
         fx = np.float32(0.0) if fx <= 0 else \
             np.float32(fx - np.float32(np.floor(fx)))
-        if sx < 0:
+        if sx < 0 and clamp:
             xmin = dx + 1
             fx, sx = np.float32(0.0), 0
-        if sx + 1 >= ssize:
+        if sx + 1 >= ssize and clamp:
             xmax = min(xmax, dx)
             if sx >= ssize - 1:
                 fx, sx = np.float32(0.0), ssize - 1
@@ -205,10 +211,11 @@ def _resize_taps(img: np.ndarray, xofs, alpha, xmax, yofs, beta
     return out.reshape((h, w) + img.shape[2:])
 
 
-def _resize_linear_area(img: np.ndarray, w: int, h: int) -> np.ndarray:
+def _resize_linear_area(img: np.ndarray, w: int, h: int, inv_x=None,
+                        inv_y=None) -> np.ndarray:
     sh, sw = img.shape
-    xofs, alpha, _xmin, xmax = _linear_coefs(sw, w)
-    yofs, beta, _, _ = _linear_coefs(sh, h)
+    xofs, alpha, _xmin, xmax = _linear_coefs(sw, w, inv_x)
+    yofs, beta, _, _ = _linear_coefs(sh, h, inv_y, clamp=False)
     return _resize_taps(img, xofs, alpha, xmax, yofs, beta)
 
 
@@ -336,24 +343,64 @@ def _resize_linear_f32_generic(imgs: np.ndarray, w: int, h: int
     return (r0 * beta[:, :1] + r1 * beta[:, 1:]).astype(np.float32)
 
 
-def resize_area(img, size) -> np.ndarray:
-    """``cv2.resize(img, (w, h), interpolation=INTER_AREA)``."""
+def resize_area(img, size, fx: float = None, fy: float = None
+                ) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=INTER_AREA)``; with `size`
+    None, ``cv2.resize(img, None, fx=fx, fy=fy, interpolation=
+    INTER_AREA)``: the destination is ``fx * width`` by ``fy * height``
+    rounded half to even (OpenCV's ``saturate_cast<int>``), the source
+    step ``1 / fx``, and a destination of the source's size is a copy.
+    Each channel of an (H, W, C) image is resized on its own, as OpenCV
+    computes it."""
+    img = np.ascontiguousarray(img)
+    if img.ndim == 3:
+        return np.stack([resize_area(img[..., c], size, fx, fy)
+                         for c in range(img.shape[2])], axis=-1)
     img = _u8(img)
-    w, h = int(size[0]), int(size[1])
     sh, sw = img.shape
-    scale_x, scale_y = _scale(sw, w), _scale(sh, h)
+    if size is None:
+        w, h = round(sw * fx), round(sh * fy)
+        if not (w > 0 and h > 0):
+            raise ValueError(f"{sw}x{sh} scaled by ({fx}, {fy}) is empty")
+        if (w, h) == (sw, sh):
+            return img.copy()
+    else:
+        w, h = int(size[0]), int(size[1])
+        fx = fy = None
+    scale_x, scale_y = _scale(sw, w, fx), _scale(sh, h, fy)
     if scale_x < 1 or scale_y < 1:
-        return _resize_linear_area(img, w, h)
+        return _resize_linear_area(img, w, h, fx, fy)
     ix, iy = int(round(scale_x)), int(round(scale_y))
     eps = np.finfo(np.float64).eps
     if abs(scale_x - ix) < eps and abs(scale_y - iy) < eps:
-        blocks = img[:h * iy, :w * ix].astype(np.int64).reshape(
-            h, iy, w, ix).sum(axis=(1, 3))
-        if ix == 2 and iy == 2:
-            return ((blocks + 2) >> 2).astype(np.uint8)
-        scale = np.float32(1.0) / np.float32(ix * iy)
-        return _rint_u8(blocks.astype(np.float32) * scale)
-    return _rint_u8(_area_cols(_area_rows(img, w), h))
+        return _area_fast(img, w, h, ix, iy)
+    return _rint_u8(_area_cols(_area_rows(img, w, fx), h, fy))
+
+
+def _area_fast(img: np.ndarray, w: int, h: int, ix: int, iy: int
+               ) -> np.ndarray:
+    """OpenCV's integer-factor area resize: a whole ix x iy block is its
+    sum times ``float32(1 / (ix * iy))`` (``(sum + 2) >> 2`` for 2 x 2,
+    its vector path), a block cut by the image's right or bottom edge
+    ``float32(sum) / float32(count)`` of the pixels inside."""
+    sh, sw = img.shape
+    pad = np.zeros((h * iy, w * ix), np.int64)
+    ch, cw = min(sh, h * iy), min(sw, w * ix)
+    pad[:ch, :cw] = img[:ch, :cw]
+    inside = np.zeros_like(pad)
+    inside[:ch, :cw] = 1
+    sums = pad.reshape(h, iy, w, ix).sum(axis=(1, 3))
+    counts = inside.reshape(h, iy, w, ix).sum(axis=(1, 3))
+    if ix == 2 and iy == 2:
+        out = ((sums + 2) >> 2).astype(np.uint8)
+    else:
+        out = _rint_u8(sums.astype(np.float32)
+                       * (np.float32(1.0) / np.float32(ix * iy)))
+    cut = np.ones((h, w), bool)
+    cut[:sh // iy, :sw // ix] = False
+    part = _rint_u8(sums.astype(np.float32)
+                    / np.maximum(counts, 1).astype(np.float32))
+    return np.where(cut, part, out)
 
 
 # --------------------------------------------------------------------------
