@@ -318,7 +318,20 @@ Phases, each raising on failure:
     ``parallel.dryrun.dryrun_multichip`` over the cards (1x1 on one
     card). No port kernel launches. Alone: ``python3 -c 'import torch,
     chip_smoke; chip_smoke.phase_multi(torch.device("cuda", 0), {})'``.
-19. Report: frames per second of phases 2-11, the replay's assist frames
+19. Without OpenCV (``without_opencv``, :func:`phase_without_opencv`),
+    cv2 blocked: the port's rebuilt OpenCV routines (blurs, the adaptive
+    threshold, ellipse and rectangle morphology, contours, polygon fill,
+    the undistortion maps and remap, PNG and BMP decode) held to sha256
+    digests of cv2 5.0.0's outputs on seeded inputs and timed at 1024^2;
+    phase 10's scene as PNG and BMP sequences through ``trex -task
+    convert`` on the card, each ``.pv`` equal to the in-memory
+    conversion; ``cam_undistort``; the six host detection options, each
+    tracked by the DeviceTracker; ``recognition_border`` outline and
+    heatmap through the track task's export. 16 frames a run (8 past
+    1000 s). No port kernel launches. Alone: ``python3 -c 'import torch,
+    chip_smoke; chip_smoke.phase_without_opencv(torch.device("cuda", 0),
+    {})'``.
+20. Report: frames per second of phases 2-11, the replay's assist frames
    and seconds, the card's name and power limit, and one JSON line with
     every kernel's launches on its path, error against its plain
     version, time, bound, the plain version's time and the nearest
@@ -2147,14 +2160,14 @@ def pv_payload(path):
 
 
 def convert(dev, frames, path, values, track):
-    """The port's Segmenter over `frames`; returns it and its wall
-    seconds."""
+    """The port's Segmenter over `frames` (an array, or a file pattern
+    as a string); returns it and its wall seconds."""
     from trex_tpu_torch.pipeline import Segmenter
     from trex_tpu_torch.utils.timing import global_collector
 
     global_collector().clear()
-    seg = Segmenter(registry(values), array_source(frames), path,
-                    track=track, device=dev)
+    source = frames if isinstance(frames, str) else array_source(frames)
+    seg = Segmenter(registry(values), source, path, track=track, device=dev)
     t0 = time.perf_counter()
     seg.run()
     return seg, time.perf_counter() - t0
@@ -5375,6 +5388,583 @@ def phase_multi(dev, report):
           flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 19: the options that needed OpenCV, without it
+# --------------------------------------------------------------------------
+
+WO_FRAMES = 16             # frames of each sequence, option and border run
+WO_CUT_FRAMES = 8          # when the script reaches the phase late
+WO_LATE_S = 1000.0
+WO_SEED = 16
+WO_TIMED = 5               # calls a routine is timed over at 1024^2
+# a fixed camera of a 1024^2 arena and a 5-term distortion vector
+WO_CAM_MATRIX = [900.0, 0.0, 511.5, 0.0, 905.0, 508.0, 0.0, 0.0, 1.0]
+WO_UNDISTORT = [-0.21, 0.09, 0.0012, -0.0009, -0.018]
+# the six host detection options (detect_engine=host): each run's values
+# over product_settings(); enable_difference=false thresholds the raw
+# grey values, so the frames are inverted (bright fish on a dark arena,
+# whose background is the frames' minimum)
+WO_OPTIONS = (
+    ("use_closing", dict(use_closing=True, closing_size=3)),
+    ("dilation_size", dict(dilation_size=2)),
+    ("blur_difference", dict(blur_difference=True)),
+    ("use_adaptive_threshold", dict(use_adaptive_threshold=True)),
+    ("enable_difference", dict(enable_difference=False, image_invert=True,
+                               detect_threshold=120, averaging_method="min",
+                               track_threshold_is_absolute=True)),
+    ("image_square_brightness", dict(image_square_brightness=True)),
+)
+# sha256 of each rebuilt routine's output on wo_digest_inputs(), as
+# cv2 5.0.0 computes it (tests/test_torch_imgproc.py recomputes them)
+WO_DIGESTS = {
+    "box_blur":
+        "fd40a7208f7733770452ae12e40a10022412f7da533c22e52d5f1da358bbb313",
+    "gaussian_blur5":
+        "4782684b46b0ee2b8f4671330fc25a4e8d7cafb114af3313c023be86a465e94c",
+    "adaptive_threshold":
+        "c0b5c429058c248a595eb49a6f39005bba66055fec2cc1b2f88c04e5285b73b1",
+    "ellipse_morphology":
+        "60d69a2189885aa2a2eb561bd80c3ee99a47a7f7374a4d3aea4508180a774be1",
+    "rect_morphology":
+        "4191c6d47088bb38ad4ea0a2e986a2b23c3db5d38c80023182e1d815763e4d25",
+    "contours_none":
+        "c6c06ced5696c84a2b7377747ea88e45a0299f8034ae00520fa41b9a39984252",
+    "fill_poly":
+        "fa471ec229d350eaaee2618975e9e1abe641db69030cee6ea595b8b63bf695df",
+    "undistort_maps":
+        "502665a9d358e3ce09837345cefe0bf7b9a1c0b5a59480bd5b665b6dc7787fab",
+    "remap":
+        "3777c2d0ca9dd7d9615718589eb63a58ec239ac532b2e17b4ae22cfd867ea4af",
+    "png":
+        "01934fb6b329f45cc23290937776a31d7af5da5bef5f3d5e636e3afb09d42dda",
+    "bmp":
+        "5afc2f10971285c7a3ef401d625a9db90e7ec9db216413f0918c40acdff4b122",
+}
+
+
+def wo_digest(*arrays) -> str:
+    """sha256 over each array's dtype, shape and bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype.str}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def wo_png_chunk(kind, body):
+    import struct
+    import zlib
+
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def wo_png_bytes(samples, ctype, depth, interlace, palette=None, seed=0):
+    """A PNG of (h, w, c) integer samples, every row under a random filter
+    (None, Sub, Up, Average, Paeth), Adam7 with `interlace`."""
+    import struct
+    import zlib
+
+    rng = np.random.default_rng(seed)
+    h, w, c = samples.shape
+    bpp = max(1, c * depth // 8)
+
+    def packed(part):
+        rows, n = part.shape[0], part.shape[1] * c
+        s = part.reshape(rows, n).astype(np.int64)
+        if depth == 16:
+            return s.astype(">u2").view(np.uint8).reshape(rows, 2 * n)
+        if depth == 8:
+            return s.astype(np.uint8)
+        bits = (s[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+        return np.packbits(bits.reshape(rows, n * depth).astype(np.uint8),
+                           axis=1)
+
+    def filtered(lines):
+        out, prev = [], np.zeros(lines.shape[1], np.int64)
+        for line in lines.astype(np.int64):
+            f = int(rng.integers(0, 5))
+            z = np.zeros(min(bpp, len(line)), np.int64)
+            left = np.concatenate([z, line[:-bpp]])[:len(line)]
+            ul = np.concatenate([z, prev[:-bpp]])[:len(line)]
+            p = left + prev - ul
+            pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - ul)
+            pred = [0, left, prev, (left + prev) // 2,
+                    np.where((pa <= pb) & (pa <= pc), left,
+                             np.where(pb <= pc, prev, ul))][f]
+            out.append(bytes([f]) + ((line - pred) & 255).astype(
+                np.uint8).tobytes())
+            prev = line
+        return b"".join(out)
+
+    if interlace:
+        raw = b"".join(
+            filtered(packed(samples[y0::dy, x0::dx]))
+            for x0, y0, dx, dy in ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8),
+                                   (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+                                   (0, 1, 1, 2))
+            if samples[y0::dy, x0::dx].size)
+    else:
+        raw = filtered(packed(samples))
+    data = b"\x89PNG\r\n\x1a\n" + wo_png_chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, ctype, 0, 0, int(interlace)))
+    if palette is not None:
+        data += wo_png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return data + wo_png_chunk(b"IDAT", zlib.compress(raw)) \
+        + wo_png_chunk(b"IEND", b"")
+
+
+def wo_bmp_bytes(img=None, idx=None, palette=None, top_down=False):
+    """A BI_RGB BMP: 24 bits from a (h, w, 3) BGR `img`, or `idx` indices
+    into a (n, 3) BGR `palette` at 1, 4 or 8 bits (the smallest that
+    holds n)."""
+    import struct
+
+    if img is not None:
+        h, w = img.shape[:2]
+        bpp, pal, rows = 24, b"", img.reshape(h, w * 3)
+    else:
+        h, w = idx.shape
+        n = len(palette)
+        bpp = 1 if n <= 2 else (4 if n <= 16 else 8)
+        pal = np.concatenate([palette, np.zeros((n, 1))], 1).astype(
+            np.uint8).tobytes()
+        bits = (idx[..., None].astype(np.int64)
+                >> np.arange(bpp - 1, -1, -1)) & 1
+        rows = np.packbits(bits.reshape(h, w * bpp).astype(np.uint8), axis=1)
+    stride = ((w * bpp + 31) // 32) * 4
+    body = np.zeros((h, stride), np.uint8)
+    body[:, :rows.shape[1]] = rows
+    if not top_down:
+        body = body[::-1]
+    n_pal = len(pal) // 4
+    info = struct.pack("<IiiHHIIiiII", 40, w, -h if top_down else h, 1, bpp,
+                       0, stride * h, 2835, 2835, n_pal, 0)
+    offset = 14 + len(info) + len(pal)
+    return struct.pack("<2sIHHI", b"BM", offset + stride * h, 0, 0,
+                       offset) + info + pal + body.tobytes()
+
+
+def write_bmp_gray(path, img):
+    """An 8-bit grey image as a BMP with a grey palette."""
+    grey = np.repeat(np.arange(256)[:, None], 3, 1)
+    Path(path).write_bytes(wo_bmp_bytes(idx=np.asarray(img, np.uint8),
+                                        palette=grey))
+
+
+def wo_star(rng, w, h, n=48):
+    """A star polygon about a random centre, reaching past the frame."""
+    cx, cy = rng.uniform(0.3, 0.7) * w, rng.uniform(0.3, 0.7) * h
+    ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+    rad = rng.uniform(0.2, 0.75, n) * max(w, h)
+    return np.round(np.stack([cx + rad * np.cos(ang),
+                              cy + rad * np.sin(ang)], 1)).astype(np.int32)
+
+
+def wo_digest_inputs(root, seed=WO_SEED):
+    """The fixed inputs of the pinned digests, from one seed: images with
+    widths that leave vector tails, masks, a polygon, a camera, and PNG
+    and BMP files written into `root`."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (240, 333), np.uint8)
+    mask = (rng.random((240, 333)) < 0.55).astype(np.uint8)
+    blobs = np.zeros((240, 333), np.uint8)
+    for x, y, a, b in rng.integers(0, 330, (40, 4)):
+        blobs[y % 230:y % 230 + a % 40 + 2, x:x + b % 50 + 2] = 1
+    big = rng.integers(0, 256, (1024, 1021), np.uint8)
+    colour = rng.integers(0, 256, (200, 301, 3), np.uint8)
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    files = {
+        "png_rgb16_adam7": wo_png_bytes(
+            rng.integers(0, 65536, (37, 45, 3)), 2, 16, True, seed=seed),
+        "png_palette4": wo_png_bytes(
+            rng.integers(0, 13, (41, 39, 1)), 3, 4, False,
+            palette=rng.integers(0, 256, (13, 3)), seed=seed + 1),
+        "png_rgba8": wo_png_bytes(
+            rng.integers(0, 256, (33, 50, 4)), 6, 8, False, seed=seed + 2),
+        "png_grey2_adam7": wo_png_bytes(
+            rng.integers(0, 4, (29, 31, 1)), 0, 2, True, seed=seed + 3),
+        "bmp_bgr24": wo_bmp_bytes(img=rng.integers(0, 256, (27, 35, 3))
+                                  .astype(np.uint8)),
+        "bmp_palette4_top_down": wo_bmp_bytes(
+            idx=rng.integers(0, 11, (31, 29)),
+            palette=rng.integers(0, 256, (11, 3)), top_down=True),
+    }
+    paths = {}
+    for name, data in files.items():
+        p = root / (name + (".png" if name.startswith("png") else ".bmp"))
+        p.write_bytes(data)
+        paths[name] = p
+    return dict(img=img, mask=mask, blobs=blobs, big=big, colour=colour,
+                star=wo_star(rng, 333, 240),
+                camera=np.asarray(WO_CAM_MATRIX).reshape(3, 3) * np.array(
+                    [[301 / 1024, 1, 301 / 1024], [1, 200 / 1024,
+                                                   200 / 1024], [1, 1, 1]]),
+                files=paths)
+
+
+def wo_outputs(ops, inputs):
+    """Each rebuilt routine's output on `inputs` through `ops`, a
+    namespace of box_blur, gaussian_blur5, adaptive_threshold_gaussian,
+    ellipse_element, erode, dilate, close_rect, dilate_rect, erode_rect,
+    contours_none, fill_poly, init_undistort_maps, remap_linear and
+    imread (the port's, or cv2's in the tests)."""
+    i = inputs
+    e17, e11 = ops.ellipse_element((17, 17)), ops.ellipse_element((11, 11))
+    m = i["blobs"]
+    shrunk = ops.erode(ops.dilate(ops.erode(m, e17), e17), e11)
+    poly = np.zeros(i["img"].shape, np.uint8)
+    ops.fill_poly(poly, i["star"], 7)
+    m1, m2 = ops.init_undistort_maps(i["camera"], WO_UNDISTORT, (301, 200))
+    rng = np.random.default_rng(WO_SEED + 9)
+    f1 = rng.uniform(-3, 335, (230, 320)).astype(np.float32)
+    f2 = rng.uniform(-3, 243, (230, 320)).astype(np.float32)
+    return {
+        "box_blur": (ops.box_blur(i["mask"] * 255, (23, 17)),
+                     ops.box_blur(i["img"], (5, 9))),
+        "gaussian_blur5": (ops.gaussian_blur5(i["img"]),),
+        "adaptive_threshold": (ops.adaptive_threshold_gaussian(
+            i["big"], 1, 129, -2.0), ops.adaptive_threshold_gaussian(
+            i["img"], 255, 33, 3.5)),
+        "ellipse_morphology": (e17, e11, shrunk),
+        "rect_morphology": (ops.close_rect(i["mask"], 3),
+                            ops.dilate_rect(i["mask"], 4),
+                            ops.erode_rect(i["mask"], 2)),
+        "contours_none": tuple(ops.contours_none(m)),
+        "fill_poly": (poly,),
+        "undistort_maps": (m1, m2),
+        "remap": (ops.remap_linear(i["colour"], m1, m2),
+                  ops.remap_linear(i["img"], f1, f2)),
+        "png": tuple(ops.imread(i["files"][k], c) for k in sorted(
+            i["files"]) if k.startswith("png") for c in (False, True)),
+        "bmp": tuple(ops.imread(i["files"][k], c) for k in sorted(
+            i["files"]) if k.startswith("bmp") for c in (False, True)),
+    }
+
+
+def wo_port_ops():
+    """The port's routines under :func:`wo_outputs`' names."""
+    from types import SimpleNamespace
+
+    from trex_tpu_torch.io.image_decode import imread
+    from trex_tpu_torch.track.tag_image import find_contours_external
+    from trex_tpu_torch.utils import imgproc
+
+    ops = {k: getattr(imgproc, k) for k in (
+        "box_blur", "gaussian_blur5", "adaptive_threshold_gaussian",
+        "ellipse_element", "erode", "dilate", "close_rect", "dilate_rect",
+        "erode_rect", "fill_poly", "init_undistort_maps", "remap_linear")}
+    return SimpleNamespace(
+        contours_none=lambda m: find_contours_external(m, every_point=True),
+        imread=imread, **ops)
+
+
+def wo_timed_ms(fn, calls=WO_TIMED):
+    """Median host ms of `calls` calls after one warm call."""
+    fn()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def wo_routine_ms(root, bg, frame):
+    """Host ms of each rebuilt routine on 1024^2 inputs of the scene, at
+    the sizes the pipeline and the border call them with."""
+    from trex_tpu_torch.io.image_decode import imread
+    from trex_tpu_torch.track.tag_image import find_contours_external
+    from trex_tpu_torch.utils import imgproc as ip
+    from trex_tpu_torch.utils.drawing import write_png
+
+    diff = np.clip(bg.astype(np.int16) - frame, 0, 255).astype(np.uint8)
+    mask = (diff >= 15).astype(np.uint8)
+    arena = np.zeros(bg.shape, np.uint8)
+    arena[40:-60, 70:-30] = 1
+    morph = int(SIZE * 0.025)
+    e = ip.ellipse_element((2 * morph + 1, 2 * morph + 1))
+    k = (int(SIZE * 0.07) | 1,) * 2
+    outline = find_contours_external(arena, every_point=True)[0]
+    m1, m2 = ip.init_undistort_maps(np.reshape(WO_CAM_MATRIX, (3, 3)),
+                                    WO_UNDISTORT, (SIZE, SIZE))
+    write_png(root / "t.png", frame)
+    write_bmp_gray(root / "t.bmp", frame)
+
+    def filled():
+        ip.fill_poly(np.zeros(bg.shape, np.uint8), outline, 1)
+
+    return dict(
+        box_blur_71=wo_timed_ms(lambda: ip.box_blur(arena * 255, k)),
+        gaussian_blur5=wo_timed_ms(lambda: ip.gaussian_blur5(diff)),
+        adaptive_threshold_129=wo_timed_ms(
+            lambda: ip.adaptive_threshold_gaussian(diff, 1, 129, -2.0)),
+        close_rect_3=wo_timed_ms(lambda: ip.close_rect(mask, 3)),
+        dilate_rect_2=wo_timed_ms(lambda: ip.dilate_rect(mask, 2)),
+        erode_ellipse_51=wo_timed_ms(lambda: ip.erode(arena, e)),
+        contours_none=wo_timed_ms(
+            lambda: find_contours_external(arena, every_point=True)),
+        fill_poly=wo_timed_ms(filled),
+        undistort_maps=wo_timed_ms(lambda: ip.init_undistort_maps(
+            np.reshape(WO_CAM_MATRIX, (3, 3)), WO_UNDISTORT, (SIZE, SIZE))),
+        remap=wo_timed_ms(lambda: ip.remap_linear(frame, m1, m2)),
+        png_decode=wo_timed_ms(lambda: imread(root / "t.png")),
+        bmp_decode=wo_timed_ms(lambda: imread(root / "t.bmp")))
+
+
+def wo_arena(img):
+    """`img` inside a wobbly disk arena: the floor 150 where the scene
+    is 200 (the fish, darker, kept), the walls outside 240."""
+    yy, xx = np.mgrid[0:img.shape[0], 0:img.shape[1]]
+    c = (img.shape[0] - 1) / 2
+    r = np.hypot(yy - c, xx - c)
+    inside = r < 0.45 * img.shape[0] + 9 * np.sin(
+        np.arctan2(yy - c, xx - c) * 7)
+    return np.where(inside, np.where(img >= 200, 150, img), 240).astype(
+        np.uint8)
+
+
+def wo_convert_cli(dev, source, out, values):
+    """``trex -i source -d out -s settings -task convert -nowindow
+    -auto_quit`` through the port's ``cli.trex.main`` (it converts,
+    tracks on the card and exports); returns the wall seconds."""
+    import trex_tpu_torch.cli.trex as cli
+    from trex_tpu_torch.config import write_settings_file
+
+    out.mkdir(parents=True, exist_ok=True)
+    sfile = out / "run.settings"
+    write_settings_file(registry(values), sfile)
+    argv = ["-i", str(source), "-d", str(out), "-s", str(sfile), "-task",
+            "convert", "-nowindow", "-auto_quit"]
+    t0 = time.perf_counter()
+    rc = cli.main(argv, device=dev)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"without_opencv: trex {' '.join(argv)} exited {rc}")
+    return wall
+
+
+def phase_without_opencv(dev, report, t_script=0.0):
+    """The options that needed OpenCV, run without it (``without_opencv``):
+    cv2 is blocked for the phase. Every rebuilt routine's output on
+    :func:`wo_digest_inputs` is held to :data:`WO_DIGESTS`, cv2 5.0.0's
+    sha256, and timed at 1024^2. Phase 10's scene (1024^2, 256 fish) is
+    written as PNG and BMP files and converted by the port's ``trex
+    -task convert -i <dir>/f_%03d.<ext>`` on the card; each ``.pv`` equals
+    the in-memory conversion frame for frame. A conversion under
+    ``cam_undistort`` (:data:`WO_CAM_MATRIX`, five terms) equals the
+    in-memory conversion of frames undistorted by the port's remap. Each
+    of the six host detection options (:data:`WO_OPTIONS`,
+    ``detect_engine=host``) converts and is tracked by ``-track_engine
+    device -auto_quit``, with the blur's, the adaptive threshold's and
+    the morphology's ms a frame and the blobs a frame. The track task
+    with ``recognition_border`` outline and heatmap, on the scene at scale
+    2 inside a dark arena (:func:`wo_arena`), exports finite
+    BORDER_DISTANCE columns, and each shrunk mask differs from the mask
+    before the shrink. :data:`WO_FRAMES` frames a run
+    (:data:`WO_CUT_FRAMES` past :data:`WO_LATE_S` s, but for the border's
+    scene, whose heatmap needs the 16)."""
+    import shutil
+
+    import trex_tpu_torch.pipeline as pipeline
+    from trex_tpu_torch import kernels
+    from trex_tpu_torch.track import border as border_mod
+
+    t_phase = time.perf_counter()
+    n = WO_CUT_FRAMES if t_script > WO_LATE_S else WO_FRAMES
+    root = REPO / "build" / "smoke_without_opencv"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    saved_cv2 = sys.modules.get("cv2", "absent")
+    sys.modules["cv2"] = None
+    try:
+        kernels.reset_launches()
+        r = _phase_without_opencv(dev, root, n, pipeline, border_mod)
+        r["kernel_launches"] = dict(kernels.launches)
+    finally:
+        if saved_cv2 == "absent":
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = saved_cv2
+    r.update(frames=n, s=time.perf_counter() - t_phase)
+    report["without_opencv"] = r
+    ms = r["routine_ms"]
+    print(f"phase 19 ok: without OpenCV, {len(WO_DIGESTS)} routines equal "
+          f"cv2 5.0.0's digests; host ms at {SIZE}^2: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + f"; PNG / BMP sequences of {n} frames converted at "
+          f"{r['png']['fps']:.2f} / {r['bmp']['fps']:.2f} frames/s (in "
+          f"memory {r['in_memory_fps']:.2f}), decode "
+          f"{r['png']['decode_ms']:.2f} / {r['bmp']['decode_ms']:.2f} ms a "
+          f"call, through trex -task convert (tracked and exported) "
+          f"{r['png']['cli_fps']:.2f} / {r['bmp']['cli_fps']:.2f} frames/s, "
+          f"every .pv equal; cam_undistort maps "
+          f"{r['undistort']['maps_ms']:.2f}"
+          f" ms, remap {r['undistort']['remap_ms']:.2f} ms a frame; options "
+          + ", ".join(f"{k} {v['blobs_per_frame']:.1f} blobs a frame "
+                      f"({v['option_ms_per_frame']:.2f} ms)"
+                      for k, v in r["options"].items())
+          + "; border " + ", ".join(
+              f"{k} {v['finite']} finite distances, shrink moved "
+              f"{v['shrink_changed']} px" for k, v in r["border"].items())
+          + f"; phase {r['s']:.1f} s", flush=True)
+
+
+def _phase_without_opencv(dev, root, n, pipeline, border_mod):
+    from trex_tpu_torch.utils.imgproc import remap_linear
+    from trex_tpu_torch.utils.drawing import write_png
+
+    # pinned digests
+    inputs = wo_digest_inputs(root / "digests")
+    outs = wo_outputs(wo_port_ops(), inputs)
+    got = {k: wo_digest(*v) for k, v in outs.items()}
+    bad = sorted(k for k in WO_DIGESTS if got.get(k) != WO_DIGESTS[k])
+    check(set(got) == set(WO_DIGESTS) and not bad,
+          f"without_opencv: the digests of {bad} differ from cv2 5.0.0's "
+          f"(got {[got.get(k) for k in bad]})")
+    bg, frames = synth_frames(n)
+    r = dict(routine_ms=wo_routine_ms(root, bg, frames[0]))
+
+    # image sequences: the Segmenter over the files against the same
+    # conversion in memory (the first in-memory run warms the card up),
+    # then the CLI's convert task, which also tracks and exports
+    import trex_tpu_torch.io.video as video
+
+    values = product_settings()
+    convert(dev, frames, root / "warm.pv", values, False)
+    _, mem_s = convert(dev, frames, root / "mem.pv", values, False)
+    want = pv_payload(root / "mem.pv")
+    r["in_memory_fps"] = n / mem_s
+    for ext, write in (("png", write_png), ("bmp", write_bmp_gray)):
+        d = root / ext
+        d.mkdir()
+        for i, f in enumerate(frames):
+            write(d / f"f_{i:03d}.{ext}", f)
+        pattern = d / f"f_%03d.{ext}"
+        with Spy((video, "imread")) as spy:
+            _, seq_s = convert(dev, str(pattern), root / f"{ext}.pv", values,
+                               False)
+        calls = len(spy.returned["imread"])
+        cli_s = wo_convert_cli(dev, pattern, root / f"{ext}_out", values)
+        for pv in (root / f"{ext}.pv",
+                   next((root / f"{ext}_out").glob("*.pv"))):
+            got_pv = pv_payload(pv)
+            bad = [i for i, (a, b) in enumerate(zip(got_pv, want))
+                   if a != b]
+            check(len(got_pv) == n and not bad,
+                  f"without_opencv: the {ext} sequence's {pv.name} differs "
+                  f"from the in-memory conversion on frames {bad[:5]}")
+        # the decoder also reads the frames of the background average
+        r[ext] = dict(s=seq_s, fps=n / seq_s, ratio=mem_s / seq_s,
+                      decode_calls=calls,
+                      decode_ms=spy.seconds["imread"] * 1e3 / calls,
+                      cli_s=cli_s, cli_fps=n / cli_s,
+                      objects=sum(len(f) for f in got_pv))
+
+    # cam_undistort
+    uvalues = dict(values, cam_undistort=True, cam_matrix=WO_CAM_MATRIX,
+                   cam_undistort_vector=WO_UNDISTORT)
+    with Spy((pipeline, "init_undistort_maps"), (pipeline, "remap_linear"),
+             keep=True) as spy:
+        _, u_s = convert(dev, frames, root / "u.pv", uvalues, False)
+    maps = spy.returned["init_undistort_maps"]
+    check(len(maps) >= 1 and len(spy.returned["remap_linear"]) >= n,
+          f"without_opencv: cam_undistort built {len(maps)} maps and "
+          f"remapped {len(spy.returned['remap_linear'])} frames")
+    remapped = [remap_linear(f, *maps[0]) for f in frames]
+    check(not np.array_equal(remapped[0], frames[0]),
+          "without_opencv: the undistortion moved no pixel")
+    convert(dev, remapped, root / "u_ref.pv", values, False)
+    bad = [i for i, (a, b) in enumerate(zip(pv_payload(root / "u.pv"),
+                                            pv_payload(root / "u_ref.pv")))
+           if a != b]
+    check(not bad, f"without_opencv: the cam_undistort .pv differs from "
+          f"the remapped frames' on frames {bad[:5]}")
+    n_remap = len(spy.returned["remap_linear"])
+    r["undistort"] = dict(
+        s=u_s, fps=n / u_s,
+        maps_ms=spy.seconds["init_undistort_maps"] * 1e3,
+        remap_ms=spy.seconds["remap_linear"] * 1e3 / n_remap,
+        remapped_frames=n_remap)
+
+    # the six host detection options
+    r["options"] = {}
+    routines = ("gaussian_blur5", "adaptive_threshold_gaussian",
+                "close_rect", "dilate_rect", "erode_rect")
+    for name, over in WO_OPTIONS:
+        ovalues = dict(values, detect_engine="host", **over)
+        with Spy(*((pipeline, f) for f in routines), keep=False) as spy:
+            _, o_s = convert(dev, frames, root / f"{name}.pv", ovalues,
+                             False)
+        payload = pv_payload(root / f"{name}.pv")
+        blobs = [len(f) for f in payload]
+        check(len(payload) == n and min(blobs) > 0,
+              f"without_opencv: {name} found {blobs} blobs a frame")
+        run = track_cli(dev, root / f"{name}.pv", root / f"{name}_track",
+                        ovalues, "device")
+        r["options"][name] = dict(
+            convert_s=o_s, blobs_per_frame=sum(blobs) / n,
+            blur_ms=spy.seconds["gaussian_blur5"] * 1e3 / n,
+            adaptive_ms=spy.seconds["adaptive_threshold_gaussian"] * 1e3 / n,
+            morphology_ms=sum(spy.seconds[f] for f in routines[2:]) * 1e3
+            / n,
+            option_ms_per_frame=sum(spy.seconds.values()) * 1e3 / n,
+            track_s=run["wall_s"], individuals=len(run["tracker"].individuals))
+
+    # recognition_border outline and heatmap, on the scene at scale 2
+    # inside a dark arena (the outline is the background's largest dark
+    # region; the heatmap needs the fish to visit most of its grid cells
+    # to survive its blur in 16 frames)
+    bvalues = dict(values, track_size_filter=[[20, 2000]])
+    _, bframes, _ = synth_scene(WO_FRAMES, scale=2)
+    convert(dev, [wo_arena(f) for f in bframes], root / "arena.pv",
+            bvalues, False)
+    r["border"] = {}
+    shrinks = []
+    real_shrink = border_mod.Border._shrink
+
+    def shrink(self, mask):
+        out = real_shrink(self, mask)
+        shrinks.append((np.asarray(mask, bool), out))
+        return out
+
+    border_mod.Border._shrink = shrink
+    try:
+        for kind in ("outline", "heatmap"):
+            shrinks.clear()
+            run = track_cli(dev, root / "arena.pv", root / f"border_{kind}",
+                            dict(bvalues, recognition_border=kind), "device")
+            seen = []
+            for f in (root / f"border_{kind}" / "data").glob("*.npz"):
+                with np.load(f) as z:
+                    keys = [k for k in z.files if "BORDER_DISTANCE" in k]
+                    check(keys, f"without_opencv: {f.name} has no "
+                          f"BORDER_DISTANCE column")
+                    # frames where the individual is missing hold inf
+                    seen.append(np.asarray(z[keys[0]], np.float64)[
+                        np.asarray(z["missing"]) == 0])
+            seen = np.concatenate(seen) if seen else np.zeros(0)
+            check(len(shrinks) >= 1 and len(seen)
+                  and np.isfinite(seen).all() and (seen > 0).any(),
+                  f"without_opencv: {kind} gave {len(shrinks)} shrinks and "
+                  f"BORDER_DISTANCE {seen[~np.isfinite(seen)][:5]} of "
+                  f"{len(seen)}")
+            before, after = shrinks[-1]
+            changed = int((before != after).sum())
+            check(changed > 0, f"without_opencv: the {kind} mask's shrink "
+                  f"changed nothing")
+            r["border"][kind] = dict(
+                track_s=run["wall_s"], finite=int(len(seen)),
+                mean_distance=float(seen.mean()), shrink_changed=changed,
+                mask_pixels=int(after.sum()))
+    finally:
+        border_mod.Border._shrink = real_shrink
+    return r
+
+
 def card_name_and_limit() -> str:
     """The first card's name and power limit, as ``nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
@@ -5424,6 +6014,7 @@ def main():
     phase_yolo(dev, report, time.perf_counter() - t0)
     phase_sam(dev, report, time.perf_counter() - t0)
     phase_multi(dev, report)
+    phase_without_opencv(dev, report, time.perf_counter() - t0)
     report["total_s"] = time.perf_counter() - t0
     card = card_name_and_limit()
     report["card"] = card
@@ -5436,8 +6027,8 @@ def main():
     print(json.dumps({k: report[k] for k in (
         "detect", "label", "track", "device_tracker", "auto_split",
         "posture", "decay", "archive", "product", "object", "vi",
-        "vi_train", "vf", "tags", "yolo", "sam", "multi", "build_s",
-        "total_s")}))
+        "vi_train", "vf", "tags", "yolo", "sam", "multi",
+        "without_opencv", "build_s", "total_s")}))
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -199,15 +199,16 @@ def test_host_labeler_built_from_the_port():
     JAX package takes from OpenCV), hostmath.cpp (the C library's
     atan2f for the visual fields' CPU path, which XLA calls),
     contours.cpp (tag detection's contour routines, OpenCV's in the JAX
-    package) and resize.cpp (the float32 linear resize, OpenCV's in the
-    JAX package)."""
+    package), resize.cpp (the float32 linear resize, OpenCV's in the JAX
+    package) and imgproc.cpp (the pipeline's, the decoder's and the
+    border's image routines, OpenCV's in the JAX package)."""
     from trex_tpu_torch.ops import labeling
 
     assert labeling.NATIVE == REPO / "trex_tpu_torch" / "native"
     assert labeling.SOURCES == ("labeling.cpp", "tracker_core.cpp",
                                 "posture_chain.cpp", "lzo1x.cpp",
                                 "imageops.cpp", "warp.cpp", "hostmath.cpp",
-                                "contours.cpp", "resize.cpp")
+                                "contours.cpp", "resize.cpp", "imgproc.cpp")
     assert sorted(p.name for p in labeling.NATIVE.iterdir()) \
         == sorted(labeling.SOURCES + labeling.HEADERS)
     lib = labeling._lib()
@@ -249,28 +250,61 @@ def test_package_lists_every_module():
                  "detect.tiling", "detect.rotated", "detect.region",
                  "detect.prediction_filter", "models.sam", "detect.sam3",
                  "parallel", "parallel.mesh", "parallel.distributed",
-                 "parallel.dryrun"):
+                 "parallel.dryrun", "io.image_decode", "utils.imgproc"):
         assert f"trex_tpu_torch.{name}" in mods
 
 
 def test_pipeline_converts_without_opencv_image_operations():
-    """pipeline.py calls none of cv2's grey conversion, resizes or
-    histogram equalization (the port's copies in track/tag_image.py
-    serve them); only the undistortion, the adaptive threshold, the
-    morphology and the raw-movie writer still reach cv2, and the
-    parallel package imports cv2 nowhere."""
+    """pipeline.py reaches cv2 only for the raw-movie writer
+    (``VideoWriter``): grey conversion, resizes, equalization, the
+    undistortion, the detection options' blurs, adaptive threshold and
+    morphology are the port's own copies; track/border.py reaches cv2
+    nowhere; io/video.py reaches it only through ``_cv2``, for video
+    files, the webcam, JPEG and TIFF; the parallel package imports cv2
+    nowhere."""
     import ast
 
-    tree = ast.parse((REPO / "trex_tpu_torch" / "pipeline.py").read_text())
+    root = REPO / "trex_tpu_torch"
+    tree = ast.parse((root / "pipeline.py").read_text())
     used = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)
             and isinstance(n.value, ast.Name) and n.value.id == "cv2"}
-    assert used and not used & {"cvtColor", "COLOR_BGR2GRAY", "resize",
-                                "INTER_AREA", "INTER_NEAREST",
-                                "equalizeHist"}, used
+    assert used == {"VideoWriter_fourcc", "VideoWriter"}, used
+    importers = [f.name for f in ast.walk(tree)
+                 if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+                 and any(isinstance(n, ast.Import) and any(
+                     a.name == "cv2" for a in n.names) for n in ast.walk(f))]
+    assert importers == ["_write_raw"], importers
+    border = (root / "track" / "border.py").read_text()
+    assert "cv2" not in border and "ImportError" not in border
+    video = ast.parse((root / "io" / "video.py").read_text())
+    purposes = {n.args[0].value if isinstance(n.args[0], ast.Constant)
+                else "image decode" for n in ast.walk(video)
+                if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+                and n.func.id == "_cv2"}
+    assert purposes == {"webcam capture", "video decode", "image decode"}, \
+        purposes
+    importers = [f.name for f in ast.walk(video)
+                 if isinstance(f, ast.FunctionDef)
+                 and any(isinstance(n, ast.Import) and any(
+                     a.name == "cv2" for a in n.names) for n in ast.walk(f))]
+    assert importers == ["_cv2"], importers
     for f in (REPO / "trex_tpu_torch" / "parallel").glob("*.py"):
         every = {m.split(".")[0] for m in _imports(ast.parse(
             f.read_text()), False)}
         assert not every & {"cv2", "jax", "trex_tpu"}, (f, every)
+
+
+def test_only_video_decode_and_the_raw_writer_import_opencv():
+    """``import cv2`` appears in io/video.py's ``_cv2`` and in
+    pipeline.py's raw-movie writer, nowhere else in the port."""
+    import ast
+
+    root = REPO / "trex_tpu_torch"
+    users = sorted(f.relative_to(root).as_posix()
+                   for f in root.rglob("*.py")
+                   if "cv2" in {m.split(".")[0] for m in _imports(
+                       ast.parse(f.read_text()), False)})
+    assert users == ["io/video.py", "pipeline.py"], users
 
 
 def _imports(tree, top_level_only):
@@ -347,3 +381,137 @@ def test_cli_track_without_a_card_raises(tmp_path, monkeypatch):
     reset_global_settings()
     assert not (tmp_path / "out").exists()
     assert not pv.with_suffix(".results").exists()
+
+
+_NO_CV2_OPTIONS = """
+import json, sys
+from pathlib import Path
+sys.modules["cv2"] = None
+import numpy as np
+from trex_tpu_torch.config import reset_global_settings
+from trex_tpu_torch.io.pv import PVFile
+from trex_tpu_torch.pipeline import Segmenter
+from trex_tpu_torch.track.border import Border
+root = Path(sys.argv[1])
+runs = json.loads((root / "runs.json").read_text())
+for name, (source, values) in runs.items():
+    s = reset_global_settings()
+    for k, v in values.items():
+        s.set(k, v)
+    Segmenter(s, source, root / f"port_{name}.pv", track=False,
+              device="cpu").run()
+arena = np.load(root / "arena.npy")
+out = {}
+for kind in ("outline", "heatmap"):
+    s = reset_global_settings()
+    for k, v in json.loads((root / "border.json").read_text()).items():
+        s.set(k, v)
+    s.set("recognition_border", kind)
+    if kind == "outline":
+        b = Border(s, arena)
+    else:
+        pv = PVFile.open(root / "port_png.pv")
+        b = Border(s, pv.header.average)
+        b.update_from_video(pv)
+    out[kind + "_mask"] = b._mask
+    out[kind + "_distance"] = np.array(
+        [b.distance(x + 0.5, y + 0.25) for y in range(0, 96, 5)
+         for x in range(0, 128, 7)])
+np.savez(root / "port_border.npz", **out)
+assert sys.modules["cv2"] is None
+print("ok", len(runs))
+"""
+
+
+def test_options_run_without_opencv_and_equal_jax(tmp_path):
+    """With cv2 blocked, the port converts a PNG and a BMP sequence,
+    each of the six host detection options and ``cam_undistort``, and
+    builds the ``outline`` and ``heatmap`` borders; every ``.pv``
+    payload, mask and distance equals the JAX package's with cv2."""
+    import json
+
+    import cv2
+
+    from trex_tpu.config import reset_global_settings as jax_reset
+    from trex_tpu.io.pv import PVFile as JaxPVFile
+    from trex_tpu.pipeline import Segmenter as JaxSegmenter
+    from trex_tpu.track.border import Border as JaxBorder
+
+    rng = np.random.default_rng(12)
+    for f in range(8):
+        img = np.full((96, 128), 200, np.int16) + rng.integers(-5, 6,
+                                                               (96, 128))
+        for k in range(4):
+            x, y = 10 + 25 * k + 2 * f, 15 + 18 * k
+            img[y:y + 7, x:x + 12] = 90 + 15 * k
+        img[80, 20 + f:34 + f] = 180
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        cv2.imwrite(str(tmp_path / f"g_{f:03d}.png"), img)
+        cv2.imwrite(str(tmp_path / f"c_{f:03d}.bmp"),
+                    np.stack([img, np.roll(img, 1, 1), img], -1))
+    png, bmp = str(tmp_path / "g_%03d.png"), str(tmp_path / "c_%03d.bmp")
+    base = dict(detect_threshold=15, track_threshold=20,
+                track_background_subtraction=True, cm_per_pixel=1.0,
+                averaging_method="max", meta_encoding="gray",
+                detect_engine="host", calculate_posture=False)
+    options = dict(
+        use_closing=dict(use_closing=True, closing_size=4),
+        dilation_size=dict(dilation_size=2),
+        blur_difference=dict(blur_difference=True),
+        use_adaptive_threshold=dict(use_adaptive_threshold=True),
+        enable_difference=dict(enable_difference=False,
+                               detect_threshold=170),
+        image_square_brightness=dict(image_square_brightness=True),
+        cam_undistort=dict(cam_undistort=True, cam_matrix=[
+            150.0, 0, 63.5, 0, 140.0, 47.5, 0, 0, 1],
+            cam_undistort_vector=[-0.3, 0.1, 0.002, -0.001, 0.02]))
+    runs = {"png": (png, base), "bmp": (bmp, base)}
+    runs.update({k: (png, dict(base, **v)) for k, v in options.items()})
+    (tmp_path / "runs.json").write_text(json.dumps(runs))
+    border = dict(track_threshold=10, track_size_filter=[[10, 400]],
+                  cm_per_pixel=1.0, track_background_subtraction=True)
+    (tmp_path / "border.json").write_text(json.dumps(border))
+    arena = np.full((96, 128), 230, np.uint8)
+    yy, xx = np.mgrid[0:96, 0:128]
+    arena[np.hypot(yy - 48, xx - 64) < 38 + 5 * np.sin(
+        7 * np.arctan2(yy - 48, xx - 64))] = 40
+    np.save(tmp_path / "arena.npy", arena)
+
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _NO_CV2_OPTIONS,
+                        str(tmp_path)], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().splitlines()[-1] == f"ok {len(runs)}"
+
+    def payload(cls, path):
+        with cls.open(path) as pv:
+            return [[(np.asarray(m).tobytes(), np.asarray(p).tobytes())
+                     for m, p in zip(fr.masks, fr.pixels)]
+                    for fr in (pv.read_frame(i) for i in range(len(pv)))]
+
+    for name, (source, values) in runs.items():
+        js = jax_reset()
+        for k, v in values.items():
+            js.set(k, v)
+        JaxSegmenter(js, source, tmp_path / f"jax_{name}.pv",
+                     track=False).run()
+        want = payload(JaxPVFile, tmp_path / f"jax_{name}.pv")
+        assert sum(len(f) for f in want) > 0, name
+        assert payload(JaxPVFile, tmp_path / f"port_{name}.pv") == want, \
+            name
+    got = np.load(tmp_path / "port_border.npz")
+    for kind in ("outline", "heatmap"):
+        js = jax_reset()
+        for k, v in dict(border, recognition_border=kind).items():
+            js.set(k, v)
+        if kind == "outline":
+            b = JaxBorder(js, arena)
+        else:
+            pv = JaxPVFile.open(tmp_path / "jax_png.pv")
+            b = JaxBorder(js, pv.header.average)
+            b.update_from_video(pv)
+        np.testing.assert_array_equal(got[kind + "_mask"], b._mask)
+        np.testing.assert_array_equal(got[kind + "_distance"], [
+            b.distance(x + 0.5, y + 0.25) for y in range(0, 96, 5)
+            for x in range(0, 128, 7)])

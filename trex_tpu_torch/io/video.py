@@ -5,8 +5,10 @@ Re-creates the acquisition layer of the reference
 commons VideoSource/AveragingAccumulator): uniform `get(index)` /
 iteration over grayscale-or-color frames plus the background averaging
 accumulator (mean/mode/max/min, grabber default_config.cpp:72-133).
-Decode is host-side (OpenCV, imported only where a source needs it);
-device transfer happens downstream.
+Decode is host-side: PNG and BMP image sequences through the port's own
+decoder (``io/image_decode.py``, the pixels ``cv2.imread`` gives), video
+files, the webcam, JPEG and TIFF through OpenCV, imported only where such
+a source needs it; device transfer happens downstream.
 """
 from __future__ import annotations
 
@@ -17,16 +19,18 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from ..track.tag_image import bgr_to_gray
+from .image_decode import can_decode, imread
 from .patharray import has_pattern, resolve_paths
 
 _cv2_mod = None
 
 
 def _cv2(purpose: str):
-    """OpenCV, imported at the first use that needs it (video-file,
-    webcam and image-file decode, colour conversion). The grey path
-    from an in-memory or ``.pv`` source never calls this, so it runs
-    without OpenCV installed."""
+    """OpenCV, imported at the first use that needs it: video-file,
+    webcam, JPEG and TIFF decode. In-memory and ``.pv`` sources and PNG
+    or BMP image sequences never call this, so they run without OpenCV
+    installed."""
     global _cv2_mod
     if _cv2_mod is None:
         try:
@@ -144,7 +148,19 @@ class VideoSource:
 
     def get(self, index: int) -> np.ndarray:
         """Fetch frame `index` as uint8 (h, w) gray or (h, w, 3) BGR."""
-        cv2 = _cv2("frame decode")
+        if self._files is not None:
+            if not 0 <= index < len(self._files):
+                raise IndexError(index)
+            path = self._files[index]
+            if can_decode(path):
+                return imread(path, self.color)
+            cv2 = _cv2(f"image decode ({Path(path).suffix or path})")
+            flag = cv2.IMREAD_COLOR if self.color else cv2.IMREAD_GRAYSCALE
+            img = cv2.imread(path, flag)
+            if img is None:
+                raise IOError(f"failed to decode {path}")
+            return img
+        cv2 = _cv2("video decode")
         if self._videos is not None:
             if not 0 <= index < len(self):
                 raise IndexError(index)
@@ -162,14 +178,6 @@ class VideoSource:
                 raise IndexError(index)
             if not self.color and img.ndim == 3:
                 img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
-            return img
-        if self._files is not None:
-            if not 0 <= index < len(self._files):
-                raise IndexError(index)
-            flag = cv2.IMREAD_COLOR if self.color else cv2.IMREAD_GRAYSCALE
-            img = cv2.imread(self._files[index], flag)
-            if img is None:
-                raise IOError(f"failed to decode {self._files[index]}")
             return img
         with self._seek_lock:
             if not self._live and index != self._cap_pos:
@@ -252,8 +260,7 @@ class BaslerVideoSource:
         finally:
             res.Release()
         if not self.color and img.ndim == 3:
-            cv2 = _cv2("colour conversion")
-            img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+            img = bgr_to_gray(img)
         return img
 
     def __iter__(self):

@@ -2,12 +2,13 @@
 // as OpenCV 5.0.0 computes them on 8-bit masks and integer points:
 //
 // - trex_find_contours_external: findContours(RETR_EXTERNAL,
-//   CHAIN_APPROX_SIMPLE). The mask is copied into a frame one pixel
-//   wider on each side (OpenCV's copyMakeBorder), thresholded to 0/1 and
-//   scanned row by row; each outer border not inside another component
-//   is followed with Suzuki's rule and written where the direction
-//   changes. OpenCV links each new contour in front of its siblings, so
-//   the list comes out in reverse order of discovery.
+//   CHAIN_APPROX_SIMPLE), or CHAIN_APPROX_NONE with `every_point`. The
+//   mask is copied into a frame one pixel wider on each side (OpenCV's
+//   copyMakeBorder), thresholded to 0/1 and scanned row by row; each
+//   outer border not inside another component is followed with Suzuki's
+//   rule and written where the direction changes (SIMPLE) or at every
+//   step (NONE). OpenCV links each new contour in front of its
+//   siblings, so the list comes out in reverse order of discovery.
 // - trex_contour_area: the shoelace sum in double, its absolute value.
 // - trex_arc_length: float32 square roots of float32 squared edge
 //   lengths, in batches of 16, added into a double in reverse order
@@ -29,9 +30,11 @@ struct Pt {
 const int kCodeDx[8] = {1, 1, 0, -1, -1, -1, 0, 1};
 const int kCodeDy[8] = {0, -1, -1, -1, 0, 1, 1, 1};
 
-// icvFetchContour with CV_CHAIN_APPROX_SIMPLE for an outer border
-// starting at `i0` (point `pt` in the padded frame).
-void fetch_contour(int8_t* i0, int step, Pt pt, std::vector<Pt>& out) {
+// icvFetchContour with CV_CHAIN_APPROX_SIMPLE (or, with `every_point`,
+// CV_CHAIN_APPROX_NONE) for an outer border starting at `i0` (point `pt`
+// in the padded frame).
+void fetch_contour(int8_t* i0, int step, Pt pt, bool every_point,
+                   std::vector<Pt>& out) {
     const int8_t nbd = 2;
     int deltas[16];
     deltas[0] = 1;
@@ -72,7 +75,7 @@ void fetch_contour(int8_t* i0, int step, Pt pt, std::vector<Pt>& out) {
         } else if (*i3 == 1) {
             *i3 = nbd;
         }
-        if (s != prev_s) {
+        if (s != prev_s || every_point) {
             out.push_back(pt);
             prev_s = s;
         }
@@ -94,7 +97,7 @@ extern "C" {
 // is too small.
 int64_t trex_find_contours_external(const uint8_t* mask, int32_t h,
                                     int32_t w, int32_t* pts, int64_t cap,
-                                    int64_t* starts) {
+                                    int64_t* starts, int32_t every_point) {
     const int W = w + 2, H = h + 2;
     std::vector<int8_t> img((size_t)W * H, 0);
     for (int y = 0; y < h; ++y)
@@ -130,7 +133,7 @@ int64_t trex_find_contours_external(const uint8_t* mask, int32_t h,
                 skip = true;
             if (!skip) {
                 std::vector<Pt> c;
-                fetch_contour(row + x, W, Pt{x - 1, y - 1}, c);
+                fetch_contour(row + x, W, Pt{x - 1, y - 1}, every_point != 0, c);
                 found.push_back(std::move(c));
                 lnbd_x = x;
                 prev = row[x];

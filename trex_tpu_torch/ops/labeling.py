@@ -22,8 +22,10 @@ visual-field projection's CPU angles, ``ops/raycast.py``), and
 ``contours.cpp`` (tag detection's border following, contour area, arc
 length and polygon approximation, ``track/tag_image.py``) and
 ``resize.cpp`` (the float32 linear resize of ``track/tag_image.py``, the
-SAM masks' and the luminance map's), which the JAX package also takes
-from OpenCV.
+SAM masks' and the luminance map's) and ``imgproc.cpp`` (the pipeline's
+blurs, adaptive threshold, undistortion and remap, the arena border's
+morphology and polygon fill, PNG's row filters; ``utils/imgproc.py``,
+``io/image_decode.py``), which the JAX package also takes from OpenCV.
 
 The library is compiled with ``g++`` at first use into
 ``build/trex_tpu_torch/`` (a directory git ignores), under a name that
@@ -51,7 +53,7 @@ from ..kernels import BUILD_DIR
 NATIVE = Path(__file__).resolve().parents[1] / "native"
 SOURCES = ("labeling.cpp", "tracker_core.cpp", "posture_chain.cpp",
            "lzo1x.cpp", "imageops.cpp", "warp.cpp", "hostmath.cpp",
-           "contours.cpp", "resize.cpp")
+           "contours.cpp", "resize.cpp", "imgproc.cpp")
 HEADERS = ("simd_clones.h",)
 GXX_FLAGS = ["-O3", "-ffp-contract=off", "-std=c++20", "-shared", "-fPIC"]
 
@@ -201,7 +203,7 @@ _SIGNATURES = {
     # contours.cpp: tag detection's contour routines
     # (track/tag_image.py)
     "trex_find_contours_external": (_i64, [_c, _i32, _i32, _i32p, _i64,
-                                           _i64p]),
+                                           _i64p, _i32]),
     "trex_contour_area": (_f64, [_i32p, _i64]),
     "trex_arc_length": (_f64, [_i32p, _i64, _i32]),
     "trex_approx_poly_dp": (_i64, [_i32p, _i64, _f64, _i32, _i32p]),
@@ -209,6 +211,21 @@ _SIGNATURES = {
     "trex_resize_linear_f32": (None, [_f32p, _i64, _i32, _i32, _i32p,
                                       _i32p, _f32p, _i32p, _i32p, _f32p,
                                       _i32, _i32, _f32p]),
+    # imgproc.cpp: the pipeline's, the decoder's and the border's image
+    # routines (utils/imgproc.py, io/image_decode.py)
+    "trex_box_blur_u8": (None, [_u8p, _i32, _i32, _i32, _i32, _u8p]),
+    "trex_gaussian5_u8": (None, [_u8p, _i32, _i32, _u8p]),
+    "trex_adaptive_gaussian_u8": (None, [_u8p, _i32, _i32, _i32, _f32p,
+                                         _i32, ctypes.c_uint8, _u8p]),
+    "trex_morph_runs_u8": (None, [_u8p, _i32, _i32, _i32p, _i32p, _i32p,
+                                  _i32, _i32, _u8p]),
+    "trex_fill_poly_u8": (None, [_u8p, _i32, _i32, _i32p, _i32,
+                                 ctypes.c_uint8]),
+    "trex_undistort_maps_f32": (None, [_f64p, _f64p, _f64p, _i32, _i32,
+                                       _i32, _f32p, _f32p]),
+    "trex_remap_linear_u8": (None, [_u8p, _i32, _i32, _i32, _f32p, _f32p,
+                                    _i32, _i32, _u8p]),
+    "trex_png_unfilter": (_i32, [_u8p, _i64, _i64, _i32]),
 }
 
 _lib_obj = None

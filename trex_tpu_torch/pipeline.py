@@ -16,10 +16,13 @@ through `DeviceDetector` (detect_engine=device) and tracking through
 the DeviceTracker (track_engine=device, or auto on a card). The object
 Tracker (track_engine=object, and auto for the configurations both fast
 engines refuse, the registry's defaults among them) tracks on the host,
-with the per-blob posture chain of `run_postures`. OpenCV is imported
-only by the options that need it (undistortion, resizing, histogram
-equalisation, morphology, colour sources, the luminance grid,
-mask_path, the raw-movie writer, file decode).
+with the per-blob posture chain of `run_postures`. The image operations
+of the options (undistortion, resizing, histogram equalisation, the
+detection options' blurs, adaptive threshold and morphology, colour
+sources, the luminance grid, mask_path) are the port's bit-for-bit
+copies of OpenCV's; OpenCV is imported only by the raw-movie writer
+without ``ffmpeg_path`` (and by ``io/video.py`` for video files, the
+webcam, JPEG and TIFF).
 """
 from __future__ import annotations
 
@@ -44,6 +47,9 @@ from .track.posture import (calculate_posture,
 from .track.tag_image import (bgr_to_gray, equalize_hist, resize_area,
                               resize_linear, resize_nearest)
 from .track.tracker import Tracker
+from .utils.imgproc import (adaptive_threshold_gaussian, close_rect,
+                            dilate_rect, erode_rect, gaussian_blur5,
+                            init_undistort_maps, remap_linear)
 from .utils.timing import global_collector as _global_collector
 
 _collector = _global_collector()
@@ -177,14 +183,11 @@ def preprocess_video_frame(image: np.ndarray, settings: Settings,
     cam_matrix/cam_undistort_vector, meta_video_scale resize,
     crop_offsets, image_invert/image_adjust and equalize_histogram.
     The resize and the equalization are the port's bit-for-bit copies of
-    OpenCV's (``track/tag_image.py``); OpenCV is imported only for the
-    undistortion."""
+    OpenCV's (``track/tag_image.py``), and so is the undistortion's remap
+    (``utils/imgproc.py``)."""
     s = settings
     if undistort_maps is not None:
-        import cv2
-
-        image = cv2.remap(image, undistort_maps[0], undistort_maps[1],
-                          cv2.INTER_LINEAR)
+        image = remap_linear(image, undistort_maps[0], undistort_maps[1])
     scale = float(s["meta_video_scale"] or 0) \
         if "meta_video_scale" in s else 0.0
     if scale and scale > 0 and scale != 1.0:
@@ -208,19 +211,18 @@ def preprocess_video_frame(image: np.ndarray, settings: Settings,
 
 
 def build_undistort_maps(settings: Settings, size):
-    """Precompute remap tables from cam_matrix/cam_undistort_vector."""
+    """Precompute remap tables from cam_matrix/cam_undistort_vector
+    (``cv2.initUndistortRectifyMap`` as ``utils/imgproc.py`` rebuilds
+    it)."""
     s = settings
     mat = s["cam_matrix"]
     dist = s["cam_undistort_vector"]
     if not s["cam_undistort"] or not mat or not dist \
             or list(mat) == [1, 0, 0, 0, 1, 0, 0, 0, 1]:
         return None
-    w, h = size
-    import cv2
-
     K = np.asarray(mat, np.float64).reshape(3, 3)
     D = np.asarray(dist, np.float64)
-    return cv2.initUndistortRectifyMap(K, D, None, K, (w, h), cv2.CV_32FC1)
+    return init_undistort_maps(K, D, size)
 
 
 def detect_frame(image: np.ndarray, background: np.ndarray,
@@ -280,9 +282,8 @@ def _detect_frame_morph(image: np.ndarray, background: np.ndarray,
     thresholding (enable_difference=false), squared brightness,
     blur-then-rethreshold, adaptive thresholding, and morphological
     closing/dilation — then label the shapes with pixels from the
-    original image."""
-    import cv2
-
+    original image. The blur, the adaptive threshold and the morphology
+    are ``utils/imgproc.py``'s bit-for-bit copies of OpenCV's."""
     s = settings
     threshold = int(s["detect_threshold"])
     absolute = bool(s["detect_threshold_is_absolute"])
@@ -301,7 +302,7 @@ def _detect_frame_morph(image: np.ndarray, background: np.ndarray,
     if s["blur_difference"]:
         # 1. truncate below threshold 2. blur 3. threshold again (doc)
         trunc = np.where(diff >= threshold, diff, 0).astype(np.uint8)
-        blurred = cv2.GaussianBlur(trunc, (5, 5), 0)
+        blurred = gaussian_blur5(trunc)
         mask = ((blurred >= threshold) & (image > 0)).astype(np.uint8)
     elif s["use_adaptive_threshold"]:
         # per-neighborhood threshold on the difference image; the
@@ -309,22 +310,19 @@ def _detect_frame_morph(image: np.ndarray, background: np.ndarray,
         # to be used for adaptive thresholding')
         d8 = np.clip(diff, 0, 255).astype(np.uint8)
         block = 2 * max(7, min(image.shape) // 16) + 1
-        m = cv2.adaptiveThreshold(
-            d8, 1, cv2.ADAPTIVE_THRESH_GAUSSIAN_C, cv2.THRESH_BINARY,
-            block, -float(s["adaptive_threshold_scale"]))
+        m = adaptive_threshold_gaussian(
+            d8, 1, block, -float(s["adaptive_threshold_scale"]))
         mask = (m.astype(bool) & (d8 >= threshold)
                 & (image > 0)).astype(np.uint8)
     else:
         mask = ((diff >= threshold) & (image > 0)).astype(np.uint8)
     if s["use_closing"]:
-        k = int(s["closing_size"])
-        kernel = np.ones((k, k), np.uint8)
-        mask = cv2.morphologyEx(mask, cv2.MORPH_CLOSE, kernel)
+        mask = close_rect(mask, int(s["closing_size"]))
     d = int(s["dilation_size"])
     if d > 0:
-        mask = cv2.dilate(mask, np.ones((d, d), np.uint8))
+        mask = dilate_rect(mask, d)
     elif d < 0:
-        mask = cv2.erode(mask, np.ones((-d, -d), np.uint8))
+        mask = erode_rect(mask, -d)
     masked = np.where(mask > 0, np.maximum(image, 1), 0).astype(np.uint8)
     track_thr = int(s["track_threshold"])
     use_bgsub = bool(s["track_background_subtraction"])

@@ -17,6 +17,12 @@ for gating recognition samples near walls.
 - distance(): exact distance to the arena border — a euclidean
   distance transform of the mask for mask-based types, circle edge for
   grid, polygon edges for shapes, frame edges otherwise.
+
+The mask's image operations (the heatmap's box blur, the outline's
+contour, area and polygon fill, the shrink's elliptic erode and dilate)
+are the port's bit-for-bit copies of OpenCV's (``utils/imgproc.py``,
+``track/tag_image.py``), so the masks and distances equal the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -24,6 +30,9 @@ import math
 from typing import Optional
 
 import numpy as np
+
+from ..utils.imgproc import box_blur, dilate, ellipse_element, erode, \
+    fill_poly
 
 
 class Border:
@@ -113,14 +122,8 @@ class Border:
         mask = counts[np.ix_(ys, xs)] >= middle
         # heatmap masks blur + re-threshold, then shrink
         # (Border.cpp:214-232)
-        try:
-            import cv2
-
-            k = (int(w * 0.07) | 1, int(h * 0.07) | 1)
-            m = cv2.blur(mask.astype(np.uint8) * 255, k)
-            mask = m > 150
-        except ImportError:  # pragma: no cover
-            pass
+        k = (int(w * 0.07) | 1, int(h * 0.07) | 1)
+        mask = box_blur(mask.astype(np.uint8) * 255, k) > 150
         self._mask = self._shrink(mask)
         self._dist = None
 
@@ -145,53 +148,41 @@ class Border:
             return
         coeff = int(self.settings["recognition_coeff"] or 0)
         if coeff > 0:
-            try:
-                import cv2
+            from .posture import eft, ieft, smooth_points
+            from .tag_image import contour_area, find_contours_external
 
-                from .posture import eft, ieft, smooth_points
-
-                cs, _ = cv2.findContours(
-                    self._mask.astype(np.uint8), cv2.RETR_EXTERNAL,
-                    cv2.CHAIN_APPROX_NONE)
-                if cs:
-                    pts = max(cs, key=cv2.contourArea) \
-                        .reshape(-1, 2).astype(np.float64)
-                    amount = int(
-                        self.settings["recognition_smooth_amount"]
-                        or 0)
-                    if amount > 0 and len(pts) > 4:
-                        pts = smooth_points(pts, amount, 1)
-                    center = pts.mean(axis=0)
-                    pts = ieft(eft(pts - center, coeff),
-                               max(len(pts), 64), center)
-                    m = np.zeros(self._mask.shape, np.uint8)
-                    cv2.fillPoly(m, [np.round(pts).astype(np.int32)], 1)
-                    self._mask = m.astype(bool)
-            except ImportError:  # pragma: no cover
-                pass
+            cs = find_contours_external(self._mask.astype(np.uint8),
+                                        every_point=True)
+            if cs:
+                pts = max(cs, key=contour_area) \
+                    .reshape(-1, 2).astype(np.float64)
+                amount = int(
+                    self.settings["recognition_smooth_amount"] or 0)
+                if amount > 0 and len(pts) > 4:
+                    pts = smooth_points(pts, amount, 1)
+                center = pts.mean(axis=0)
+                pts = ieft(eft(pts - center, coeff),
+                           max(len(pts), 64), center)
+                m = np.zeros(self._mask.shape, np.uint8)
+                fill_poly(m, np.round(pts).astype(np.int32), 1)
+                self._mask = m.astype(bool)
         self._mask = self._shrink(self._mask)
 
     def _shrink(self, mask):
         """recognition_border_shrink_percent (Border.cpp:220-232):
         open with a 2.5%-of-width ellipse, then erode again with
         size * (1 - shrink)."""
-        try:
-            import cv2
-        except ImportError:  # pragma: no cover
-            return mask
         w = mask.shape[1]
         morph = max(1, int(w * 0.025))
         shrink = float(
             self.settings["recognition_border_shrink_percent"] or 0.0)
         morph1 = max(1, int(morph * (1.0 - shrink)))
-        e = cv2.getStructuringElement(
-            cv2.MORPH_ELLIPSE, (2 * morph + 1, 2 * morph + 1))
-        e1 = cv2.getStructuringElement(
-            cv2.MORPH_ELLIPSE, (2 * morph1 + 1, 2 * morph1 + 1))
+        e = ellipse_element((2 * morph + 1, 2 * morph + 1))
+        e1 = ellipse_element((2 * morph1 + 1, 2 * morph1 + 1))
         m = mask.astype(np.uint8)
-        m = cv2.erode(m, e)
-        m = cv2.dilate(m, e)
-        m = cv2.erode(m, e1)
+        m = erode(m, e)
+        m = dilate(m, e)
+        m = erode(m, e1)
         return m.astype(bool)
 
     def _build_grid(self):

@@ -50,6 +50,7 @@ import numpy as np
 from ..config import SettingsView
 from ..ops.labeling import (_c, _f32p, _f64p, _i32p, _i64p, _lib,
                              label_blobs)
+from ..utils.imgproc import rect_extreme
 from .blob import TrackBlob
 
 # the differential tests set this to run steps 4-8 in numpy
@@ -124,16 +125,6 @@ def _trace_boundary_py(mask: np.ndarray) -> np.ndarray:
     return pts
 
 
-def _rect_extreme(m: np.ndarray, lo: int, hi: int, reduce, fill: int):
-    """`reduce` (np.max or np.min) over the window [y + lo, y + hi] x
-    [x + lo, x + hi] of every pixel (lo <= 0 <= hi); pixels outside the
-    image read `fill`, the reduction's neutral value."""
-    padded = np.pad(m, ((-lo, hi), (-lo, hi)), constant_values=fill)
-    k = hi - lo + 1
-    return reduce(np.lib.stride_tricks.sliding_window_view(padded, (k, k)),
-                  axis=(2, 3))
-
-
 def close_mask(m: np.ndarray, steps: int, size: int) -> np.ndarray:
     """``cv2.erode(cv2.dilate(m, k, iterations=steps), k,
     iterations=steps)`` with ``k = np.ones((size, size))``, bit for bit,
@@ -148,8 +139,8 @@ def close_mask(m: np.ndarray, steps: int, size: int) -> np.ndarray:
     size = int(size) if size > 0 else 3
     anchor = size // 2
     lo, hi = -steps * anchor, steps * (size - 1 - anchor)
-    m = _rect_extreme(np.asarray(m, np.uint8), lo, hi, np.max, 0)
-    return _rect_extreme(m, lo, hi, np.min, 255)
+    m = rect_extreme(np.asarray(m, np.uint8), lo, hi, True)
+    return rect_extreme(m, lo, hi, False)
 
 
 def biggest_component(blob: TrackBlob, threshold: int,

@@ -533,10 +533,10 @@ def _native():
     return _lib()
 
 
-def find_contours_external(mask) -> list:
-    """``cv2.findContours(mask, RETR_EXTERNAL, CHAIN_APPROX_SIMPLE)[0]``:
-    the outer borders, each an (N, 1, 2) int32 array, in OpenCV's order
-    and from its start point."""
+def find_contours_external(mask, every_point: bool = False) -> list:
+    """``cv2.findContours(mask, RETR_EXTERNAL, CHAIN_APPROX_SIMPLE)[0]``
+    (``CHAIN_APPROX_NONE`` with `every_point`): the outer borders, each an
+    (N, 1, 2) int32 array, in OpenCV's order and from its start point."""
     m = _u8(mask)
     h, w = m.shape
     if h == 0 or w == 0:
@@ -548,7 +548,8 @@ def find_contours_external(mask) -> list:
     n = lib.trex_find_contours_external(
         m.ctypes.data_as(ctypes.c_char_p), h, w,
         pts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), cap,
-        starts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        starts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        1 if every_point else 0)
     if n < 0:
         raise RuntimeError("find_contours_external: point buffer too small")
     return [pts[starts[i]:starts[i + 1]].reshape(-1, 1, 2).copy()
