@@ -321,11 +321,13 @@ Phases, each raising on failure:
 19. Without OpenCV (``without_opencv``, :func:`phase_without_opencv`),
     cv2 blocked: the port's rebuilt OpenCV routines (blurs, the adaptive
     threshold, ellipse and rectangle morphology, contours, polygon fill,
-    the undistortion maps and remap, PNG and BMP decode) held to sha256
-    digests of cv2 5.0.0's outputs on seeded inputs and timed at 1024^2;
-    phase 10's scene as PNG and BMP sequences through ``trex -task
-    convert`` on the card, each ``.pv`` equal to the in-memory
-    conversion; ``cam_undistort``; the six host detection options, each
+    the undistortion maps and remap, PNG, BMP, JPEG and TIFF decode) held
+    to sha256 digests of cv2 5.0.0's outputs on seeded inputs and on the
+    JPEG files cv2 wrote (``tests/data/image_decode/``), timed at
+    1024^2; phase 10's scene as PNG, BMP, JPEG and LZW TIFF sequences
+    through ``trex -task convert`` on the card, each ``.pv`` equal to the
+    in-memory conversion (JPEG's to that of its decoded frames);
+    ``cam_undistort``; the six host detection options, each
     tracked by the DeviceTracker; ``recognition_border`` outline and
     heatmap through the track task's export. 16 frames a run (8 past
     1000 s). No port kernel launches. Alone: ``python3 -c 'import torch,
@@ -5397,6 +5399,8 @@ WO_CUT_FRAMES = 8          # when the script reaches the phase late
 WO_LATE_S = 1000.0
 WO_SEED = 16
 WO_TIMED = 5               # calls a routine is timed over at 1024^2
+WO_JPEG_QUALITY = 90       # of the JPEG sequence
+WO_FORMATS = ("png", "bmp", "jpg", "tif")  # the image sequences converted
 # a fixed camera of a 1024^2 arena and a 5-term distortion vector
 WO_CAM_MATRIX = [900.0, 0.0, 511.5, 0.0, 905.0, 508.0, 0.0, 0.0, 1.0]
 WO_UNDISTORT = [-0.21, 0.09, 0.0012, -0.0009, -0.018]
@@ -5414,8 +5418,9 @@ WO_OPTIONS = (
                                track_threshold_is_absolute=True)),
     ("image_square_brightness", dict(image_square_brightness=True)),
 )
-# sha256 of each rebuilt routine's output on wo_digest_inputs(), as
-# cv2 5.0.0 computes it (tests/test_torch_imgproc.py recomputes them)
+# sha256 of each rebuilt routine's output on wo_digest_inputs(), and of
+# each JPEG and TIFF file's decode under both flags, as cv2 5.0.0 computes
+# them (tests/test_torch_imgproc.py recomputes them)
 WO_DIGESTS = {
     "box_blur":
         "fd40a7208f7733770452ae12e40a10022412f7da533c22e52d5f1da358bbb313",
@@ -5439,7 +5444,32 @@ WO_DIGESTS = {
         "01934fb6b329f45cc23290937776a31d7af5da5bef5f3d5e636e3afb09d42dda",
     "bmp":
         "5afc2f10971285c7a3ef401d625a9db90e7ec9db216413f0918c40acdff4b122",
+    "jpeg_colour_420":
+        "c4aa2a093add02e1891b03127aef313f176101bfff8b91206ed612980ac758fc",
+    "jpeg_colour_422":
+        "2e07e9426dc8d793891f4eea122f0b5a431c1070e11445746db915cc4004c405",
+    "jpeg_exif_orientation_6":
+        "a8364428d1ea9f592ff428b55d140328ebc40e5ce221afcb1e6f8984aa882a76",
+    "jpeg_grey":
+        "1cab69fb4418513940a080421a5b4a856266dffb68578d59e487b9b7e8e0ae82",
+    "jpeg_progressive":
+        "042a35c43b3159e0dc119d3cbce55a53643b7dae084ba739ef2561f0ac60fd53",
+    "jpeg_restart_7":
+        "35c9cc38c112e9e908fa09dec8d93e099e49932edd6c78936e4dc1e8b0d1f153",
+    "tiff_grey16":
+        "6e4f9956455908271ea012094f5a110376804c5d61774f2c8eb23fa9850dbb6e",
+    "tiff_lzw_predictor2":
+        "0c91eaaa58de888ada9a793ff410b89ba4d97ba81de7cf0c067d197dde660b5d",
+    "tiff_palette":
+        "6e5881c468286e709f1cffe6dac92fb222cc601dac4fdcec86c6facbf73581f2",
+    "tiff_tiled_big_endian":
+        "904dd9ff2ce54a0f3de08390e7455a056999253fd5f3b36feb2596323fd7fe4a",
 }
+
+
+# JPEG files cv2 5.0.0 wrote (tests/data/image_decode/write_fixtures.py):
+# the card's machine has no JPEG encoder of OpenCV's to write them
+WO_JPEG_FIXTURES = REPO / "tests" / "data" / "image_decode"
 
 
 def wo_digest(*arrays) -> str:
@@ -5548,6 +5578,327 @@ def wo_bmp_bytes(img=None, idx=None, palette=None, top_down=False):
                        offset) + info + pal + body.tobytes()
 
 
+# JPEG's example luminance table (ITU-T T.81 Annex K.1), natural order
+WO_JPEG_LUMA = (16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60,
+                55, 14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87,
+                80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81,
+                104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95,
+                98, 112, 100, 103, 99)
+WO_ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19,
+             26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42,
+             49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59,
+             52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+# Huffman tables: the DC categories 0-11 and every AC symbol (EOB, ZRL and
+# run/size pairs with sizes 1-10) under canonical codes of these lengths
+WO_DC_BITS = (0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0)
+WO_AC_BITS = (0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125)
+WO_AC_VALS = ((0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31,
+               0x41, 0x06, 0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32,
+               0x81, 0x91, 0xA1, 0x08, 0x23, 0x42, 0xB1, 0xC1, 0x15, 0x52,
+               0xD1, 0xF0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0A)
+              + tuple((r << 4) | s for r in range(16) for s in range(1, 11)
+                      if (r << 4) | s not in (
+                          0x01, 0x02, 0x03, 0x04, 0x11, 0x05, 0x12, 0x21,
+                          0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07, 0x22,
+                          0x71, 0x14, 0x32, 0x81, 0x91, 0xA1, 0x08, 0x23,
+                          0x42, 0xB1, 0xC1, 0x15, 0x52, 0xD1, 0x24, 0x33,
+                          0x62, 0x72, 0x82, 0x09, 0x0A)))
+
+
+def wo_huffman_codes(bits, vals):
+    """symbol -> (code, length) of a canonical Huffman table."""
+    codes, code, k = {}, 0, 0
+    for length, n in enumerate(bits, 1):
+        for _ in range(n):
+            codes[vals[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    return codes
+
+
+def wo_jpeg_quant(quality):
+    """libjpeg's jpeg_quality_scaling of the luminance table, baseline."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((np.asarray(WO_JPEG_LUMA) * scale + 50) // 100, 1, 255)
+
+
+def wo_jpeg_coefficients(img, quant):
+    """(blocks, 64) quantised DCT coefficients of a grey image in zig-zag
+    order, blocks in raster order, the edges padded by replication."""
+    h, w = img.shape
+    ph, pw = -(-h // 8) * 8, -(-w // 8) * 8
+    x = np.pad(img.astype(np.float64), ((0, ph - h), (0, pw - w)),
+               mode="edge") - 128
+    u = np.arange(8)
+    c = np.cos((2 * u[None] + 1) * u[:, None] * np.pi / 16) * np.where(
+        u[:, None] == 0, np.sqrt(1 / 8), np.sqrt(2 / 8))
+    blocks = x.reshape(ph // 8, 8, pw // 8, 8).transpose(0, 2, 1, 3)
+    f = np.einsum("ui,abij,vj->abuv", c, blocks, c).reshape(-1, 64)
+    q = np.round(f / np.asarray(quant, np.float64)).astype(np.int64)
+    return q[:, list(WO_ZIGZAG)]
+
+
+def wo_bits_bytes(vals, lens):
+    """Bit strings (value, length), most significant bit first, packed
+    into bytes, the last byte padded with ones."""
+    lens = np.asarray(lens, np.int64)
+    vals = np.asarray(vals, np.int64)
+    sym = np.repeat(np.arange(len(lens)), lens)
+    at = np.arange(len(sym)) - np.repeat(np.cumsum(lens) - lens, lens)
+    bits = ((vals[sym] >> (lens[sym] - 1 - at)) & 1).astype(np.uint8)
+    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.uint8)])
+    return np.packbits(bits)
+
+
+def wo_jpeg_bytes(img=None, quality=90, coefs=None, quant=None, size=None,
+                  extended=False):
+    """A baseline (or with `extended`, SOF1 with a 16-bit quantisation
+    table) Huffman-coded grey JPEG with a JFIF marker. The coefficients
+    come from `img` (integer DCT of the rounded float transform, at
+    `quality`) or are given as `coefs` ((blocks, 64) zig-zag order, raster
+    order) with `quant` (natural order) and `size` (h, w). Numpy
+    throughout: it writes the card's JPEG sequences."""
+    import struct
+
+    if coefs is None:
+        quant = wo_jpeg_quant(quality)
+        coefs = wo_jpeg_coefficients(np.asarray(img), quant)
+        size = np.asarray(img).shape
+    z = np.asarray(coefs, np.int64)
+    nb = len(z)
+    dc = np.diff(np.concatenate([[0], z[:, 0]]))
+    nz_b, nz_k = np.nonzero(z[:, 1:])
+    nz_k = nz_k + 1
+    first = np.ones(len(nz_b), bool)
+    first[1:] = nz_b[1:] != nz_b[:-1]
+    prev = np.where(first, 0, np.concatenate([[0], nz_k[:-1]]))
+    run = nz_k - prev - 1
+    last = np.zeros(nb, np.int64)
+    last[nz_b] = nz_k
+    dcs = wo_huffman_codes(WO_DC_BITS, range(12))
+    acs = wo_huffman_codes(WO_AC_BITS, WO_AC_VALS)
+
+    def category(v):
+        a = np.abs(v)
+        s = np.zeros(len(a), np.int64)
+        nzv = a > 0
+        s[nzv] = np.floor(np.log2(a[nzv])).astype(np.int64) + 1
+        extra = np.where(v >= 0, v, v + (1 << s) - 1)
+        return s, extra
+
+    def table(codes, syms):
+        lut_c = np.zeros(256, np.int64)
+        lut_l = np.zeros(256, np.int64)
+        for t, (c, n) in codes.items():
+            lut_c[t], lut_l[t] = c, n
+        return lut_c[syms], lut_l[syms]
+
+    ds, dx = category(dc)
+    dcc, dcl = table(dcs, ds)
+    vs, vx = category(z[nz_b, nz_k])
+    pc, pl = table(acs, ((run % 16) << 4) | vs)
+    n_zrl = run // 16
+    zb = np.repeat(nz_b, n_zrl)
+    zk = np.repeat(nz_k, n_zrl)
+    eob = np.nonzero(last < 63)[0]
+    zc, zl = acs[0xF0]
+    ec, el = acs[0x00]
+    # symbol order: a block's DC, then each nonzero coefficient's ZRLs and
+    # its pair in zig-zag order, then EOB
+    keys = np.concatenate([np.arange(nb) * 256, zb * 256 + 2 * zk - 1,
+                           nz_b * 256 + 2 * nz_k, eob * 256 + 255])
+    vals = np.concatenate([(dcc << ds) | dx, np.full(len(zb), zc),
+                           (pc << vs) | vx, np.full(len(eob), ec)])
+    lens = np.concatenate([dcl + ds, np.full(len(zb), zl), pl + vs,
+                           np.full(len(eob), el)])
+    order = np.argsort(keys, kind="stable")
+    body = wo_bits_bytes(vals[order], lens[order])
+    body = np.insert(body, np.flatnonzero(body == 0xFF) + 1, 0).tobytes()
+
+    def seg(marker, payload):
+        return b"\xff" + bytes([marker]) + struct.pack(
+            ">H", len(payload) + 2) + payload
+
+    h, w = size
+    q = np.zeros(64, np.int64)
+    q[:] = np.asarray(quant)[list(WO_ZIGZAG)]
+    dqt = (b"\x10" + q.astype(">u2").tobytes()) if extended else (
+        b"\x00" + q.astype(np.uint8).tobytes())
+    dht = (b"\x00" + bytes(WO_DC_BITS) + bytes(range(12)) + b"\x10"
+           + bytes(WO_AC_BITS) + bytes(WO_AC_VALS))
+    return (b"\xff\xd8"
+            + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+            + seg(0xDB, dqt)
+            + seg(0xC1 if extended else 0xC0,
+                  struct.pack(">BHHB", 8, h, w, 1) + b"\x01\x11\x00")
+            + seg(0xC4, dht) + seg(0xDA, b"\x01\x01\x00\x00\x3f\x00")
+            + body + b"\xff\xd9")
+
+
+def wo_lzw(data: bytes, compat=False) -> bytes:
+    """TIFF's LZW (most significant bit first, the code width growing one
+    code early), a clear code first and whenever the table is full, as
+    libtiff's encoder writes it; with `compat` the old-style LZW libtiff
+    still reads (least significant bit first, the width growing when the
+    table is full)."""
+    late = 1 if compat else 0
+    codes, widths = [256], [9]
+    if data:
+        table = {}
+        free, nbits = 258, 9
+        code = data[0]
+        for c in data[1:]:
+            k = (code << 8) | c
+            nxt = table.get(k)
+            if nxt is not None:
+                code = nxt
+                continue
+            codes.append(code)
+            widths.append(nbits)
+            if free == 4094:
+                codes.append(256)
+                widths.append(nbits)
+                table.clear()
+                free, nbits = 258, 9
+            else:
+                table[k] = free
+                free += 1
+                if free > (1 << nbits) - 1 + late:
+                    nbits += 1
+            code = c
+        codes.append(code)
+        widths.append(nbits)
+        free += 1
+        if free == 4094:
+            codes.append(256)
+            widths.append(nbits)
+            nbits = 9
+        elif free > (1 << nbits) - 1 + late:
+            nbits += 1
+    codes.append(257)
+    widths.append(nbits)
+    lens = np.asarray(widths)
+    vals = np.asarray(codes)
+    sym = np.repeat(np.arange(len(lens)), lens)
+    at = np.arange(len(sym)) - np.repeat(np.cumsum(lens) - lens, lens)
+    shift = at if compat else lens[sym] - 1 - at
+    bits = ((vals[sym] >> shift) & 1).astype(np.uint8)
+    bits = np.concatenate([bits, np.zeros(-len(bits) % 8, np.uint8)])
+    if compat:
+        return np.packbits(bits, bitorder="little").tobytes()
+    return np.packbits(bits).tobytes()
+
+
+def wo_tiff_bytes(samples, bps=8, photometric=1, compression=1, predictor=1,
+                  big_endian=False, tile=None, rows_per_strip=None,
+                  colormap=None, extra_samples=None, tags=None,
+                  lzw_compat=False):
+    """A classic TIFF of (h, w, spp) integer samples: strips (or `tile`
+    (width, height) tiles), compression 1 (none), 5 (LZW, old-style with
+    `lzw_compat`), 8 (Deflate) or 32773 (PackBits, literal runs),
+    predictor 1 or 2, either byte order; `colormap` (3, 2^bps) for
+    Palette, `extra_samples` for a fourth sample, `tags` {tag: (type,
+    values)} SHORT (3) or LONG (4) fields added or replaced."""
+    import struct
+    import zlib
+
+    e = ">" if big_endian else "<"
+    s = np.asarray(samples, np.int64)
+    if s.ndim == 2:
+        s = s[..., None]
+    h, w, spp = s.shape
+
+    def rows_of(part):
+        n = part.shape[0]
+        if predictor == 2:
+            d = np.diff(part, axis=1, prepend=0)
+            part = np.concatenate([part[:, :1], d[:, 1:]], 1) & (
+                (1 << bps) - 1)
+        flat = part.reshape(n, -1)
+        if bps == 16:
+            return flat.astype(e + "u2").view(np.uint8).reshape(n, -1)
+        if bps == 8:
+            return flat.astype(np.uint8)
+        bits = (flat[..., None] >> np.arange(bps - 1, -1, -1)) & 1
+        return np.packbits(bits.reshape(n, -1).astype(np.uint8), axis=1)
+
+    def pack(rows):
+        raw = rows.tobytes()
+        if compression == 5:
+            return wo_lzw(raw, lzw_compat)
+        if compression == 8:
+            return zlib.compress(raw)
+        if compression == 32773:
+            out = b""
+            for r in rows:
+                for i in range(0, len(r), 128):
+                    chunk = r[i:i + 128].tobytes()
+                    out += bytes([len(chunk) - 1]) + chunk
+            return out
+        return raw
+
+    if tile is None:
+        rps = rows_per_strip or max(1, min(h, 8192 // max(1, w * spp)))
+        chunks = [pack(rows_of(s[y:y + rps])) for y in range(0, h, rps)]
+    else:
+        tw, th = tile
+        ph, pw = -(-h // th) * th, -(-w // tw) * tw
+        padded = np.zeros((ph, pw, spp), np.int64)
+        padded[:h, :w] = s
+        chunks = [pack(rows_of(padded[y:y + th, x:x + tw]))
+                  for y in range(0, ph, th) for x in range(0, pw, tw)]
+    data = bytearray((b"MM\x00*" if big_endian else b"II*\x00") + b"\0" * 4)
+    offsets = []
+    for c in chunks:
+        offsets.append(len(data))
+        data += c + b"\0" * (len(c) % 2)
+    fields = {256: (4, [w]), 257: (4, [h]), 258: (3, [bps] * spp),
+              259: (3, [compression]), 262: (3, [photometric]),
+              277: (3, [spp]), 284: (3, [1])}
+    if tile is None:
+        fields.update({273: (4, offsets), 278: (4, [rps]),
+                       279: (4, [len(c) for c in chunks])})
+    else:
+        fields.update({322: (3, [tile[0]]), 323: (3, [tile[1]]),
+                       324: (4, offsets),
+                       325: (4, [len(c) for c in chunks])})
+    if predictor != 1:
+        fields[317] = (3, [predictor])
+    if colormap is not None:
+        fields[320] = (3, [int(v) for v in np.asarray(colormap).ravel()])
+    if extra_samples is not None:
+        fields[338] = (3, [extra_samples])
+    fields.update(tags or {})
+    ifd = len(data)
+    entries = sorted(fields.items())
+    spill = ifd + 2 + 12 * len(entries) + 4
+    body, more = b"", b""
+    for tag, (typ, vals) in entries:
+        payload = struct.pack(e + ("H" if typ == 3 else "I") * len(vals),
+                              *vals)
+        if len(payload) <= 4:
+            body += struct.pack(e + "HHI", tag, typ, len(vals)) \
+                + payload.ljust(4, b"\0")
+        else:
+            body += struct.pack(e + "HHII", tag, typ, len(vals),
+                                spill + len(more))
+            more += payload
+    data += struct.pack(e + "H", len(entries)) + body + b"\0" * 4 + more
+    data[4:8] = struct.pack(e + "I", ifd)
+    return bytes(data)
+
+
+def write_jpeg_gray(path, img):
+    """An 8-bit grey image as a baseline JPEG at :data:`WO_JPEG_QUALITY`."""
+    Path(path).write_bytes(wo_jpeg_bytes(img, WO_JPEG_QUALITY))
+
+
+def write_tiff_gray(path, img):
+    """An 8-bit grey image as an LZW TIFF with predictor 2."""
+    Path(path).write_bytes(wo_tiff_bytes(img, compression=5, predictor=2))
+
+
 def write_bmp_gray(path, img):
     """An 8-bit grey image as a BMP with a grey palette."""
     grey = np.repeat(np.arange(256)[:, None], 3, 1)
@@ -5594,11 +5945,28 @@ def wo_digest_inputs(root, seed=WO_SEED):
             idx=rng.integers(0, 11, (31, 29)),
             palette=rng.integers(0, 256, (11, 3)), top_down=True),
     }
+    trng = np.random.default_rng(seed + 4)
+    grey16 = trng.integers(0, 65536, (29, 37))
+    smooth = np.cumsum(trng.integers(-3, 4, (45, 53, 3)), axis=1) + 128
+    files.update({
+        "tiff_grey16": wo_tiff_bytes(grey16, bps=16),
+        "tiff_lzw_predictor2": wo_tiff_bytes(
+            smooth, photometric=2, compression=5, predictor=2),
+        "tiff_tiled_big_endian": wo_tiff_bytes(
+            trng.integers(0, 256, (37, 41, 3)), photometric=2,
+            compression=8, big_endian=True, tile=(16, 32)),
+        "tiff_palette": wo_tiff_bytes(
+            trng.integers(0, 16, (23, 31)), bps=4, photometric=3,
+            compression=32773, colormap=trng.integers(0, 65536, (3, 16))),
+    })
     paths = {}
     for name, data in files.items():
-        p = root / (name + (".png" if name.startswith("png") else ".bmp"))
+        p = root / (name + {"png": ".png", "bmp": ".bmp", "tif": ".tif"}[
+            name[:3]])
         p.write_bytes(data)
         paths[name] = p
+    for p in sorted(WO_JPEG_FIXTURES.glob("*.jpg")):
+        paths["jpeg_" + p.stem] = p
     return dict(img=img, mask=mask, blobs=blobs, big=big, colour=colour,
                 star=wo_star(rng, 333, 240),
                 camera=np.asarray(WO_CAM_MATRIX).reshape(3, 3) * np.array(
@@ -5643,6 +6011,8 @@ def wo_outputs(ops, inputs):
             i["files"]) if k.startswith("png") for c in (False, True)),
         "bmp": tuple(ops.imread(i["files"][k], c) for k in sorted(
             i["files"]) if k.startswith("bmp") for c in (False, True)),
+        **{k: (ops.imread(f, False), ops.imread(f, True))
+           for k, f in i["files"].items() if k[:4] in ("jpeg", "tiff")},
     }
 
 
@@ -5694,6 +6064,8 @@ def wo_routine_ms(root, bg, frame):
                                     WO_UNDISTORT, (SIZE, SIZE))
     write_png(root / "t.png", frame)
     write_bmp_gray(root / "t.bmp", frame)
+    write_jpeg_gray(root / "t.jpg", frame)
+    write_tiff_gray(root / "t.tif", frame)
 
     def filled():
         ip.fill_poly(np.zeros(bg.shape, np.uint8), outline, 1)
@@ -5713,7 +6085,9 @@ def wo_routine_ms(root, bg, frame):
             np.reshape(WO_CAM_MATRIX, (3, 3)), WO_UNDISTORT, (SIZE, SIZE))),
         remap=wo_timed_ms(lambda: ip.remap_linear(frame, m1, m2)),
         png_decode=wo_timed_ms(lambda: imread(root / "t.png")),
-        bmp_decode=wo_timed_ms(lambda: imread(root / "t.bmp")))
+        bmp_decode=wo_timed_ms(lambda: imread(root / "t.bmp")),
+        jpeg_decode=wo_timed_ms(lambda: imread(root / "t.jpg")),
+        tiff_lzw_decode=wo_timed_ms(lambda: imread(root / "t.tif")))
 
 
 def wo_arena(img):
@@ -5751,10 +6125,15 @@ def phase_without_opencv(dev, report, t_script=0.0):
     """The options that needed OpenCV, run without it (``without_opencv``):
     cv2 is blocked for the phase. Every rebuilt routine's output on
     :func:`wo_digest_inputs` is held to :data:`WO_DIGESTS`, cv2 5.0.0's
-    sha256, and timed at 1024^2. Phase 10's scene (1024^2, 256 fish) is
-    written as PNG and BMP files and converted by the port's ``trex
-    -task convert -i <dir>/f_%03d.<ext>`` on the card; each ``.pv`` equals
-    the in-memory conversion frame for frame. A conversion under
+    sha256 (the JPEG and TIFF decodes of :data:`WO_JPEG_FIXTURES` and of
+    the smoke's own TIFF files among them), and timed at 1024^2. Phase
+    10's scene (1024^2, 256 fish) is written as PNG, BMP, JPEG (the
+    smoke's baseline encoder, :func:`wo_jpeg_bytes`) and LZW TIFF files
+    (:func:`wo_tiff_bytes`) and converted by the port's ``trex -task
+    convert -i <dir>/f_%03d.<ext>`` on the card, tracked by the
+    DeviceTracker; each ``.pv`` equals the in-memory conversion frame for
+    frame (JPEG's, of the frames the port's decoder returns). A
+    conversion under
     ``cam_undistort`` (:data:`WO_CAM_MATRIX`, five terms) equals the
     in-memory conversion of frames undistorted by the port's remap. Each
     of the six host detection options (:data:`WO_OPTIONS`,
@@ -5792,16 +6171,19 @@ def phase_without_opencv(dev, report, t_script=0.0):
     r.update(frames=n, s=time.perf_counter() - t_phase)
     report["without_opencv"] = r
     ms = r["routine_ms"]
+
+    def per_format(key):
+        return " / ".join(f"{r[e][key]:.2f}" for e in WO_FORMATS)
+
     print(f"phase 19 ok: without OpenCV, {len(WO_DIGESTS)} routines equal "
           f"cv2 5.0.0's digests; host ms at {SIZE}^2: "
           + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
-          + f"; PNG / BMP sequences of {n} frames converted at "
-          f"{r['png']['fps']:.2f} / {r['bmp']['fps']:.2f} frames/s (in "
-          f"memory {r['in_memory_fps']:.2f}), decode "
-          f"{r['png']['decode_ms']:.2f} / {r['bmp']['decode_ms']:.2f} ms a "
+          + f"; PNG / BMP / JPEG / TIFF sequences of {n} frames converted "
+          f"at {per_format('fps')} frames/s (in memory "
+          f"{r['in_memory_fps']:.2f}), decode {per_format('decode_ms')} ms a "
           f"call, through trex -task convert (tracked and exported) "
-          f"{r['png']['cli_fps']:.2f} / {r['bmp']['cli_fps']:.2f} frames/s, "
-          f"every .pv equal; cam_undistort maps "
+          f"{per_format('cli_fps')} frames/s, every .pv equal (JPEG's to "
+          f"its decoded frames' conversion); cam_undistort maps "
           f"{r['undistort']['maps_ms']:.2f}"
           f" ms, remap {r['undistort']['remap_ms']:.2f} ms a frame; options "
           + ", ".join(f"{k} {v['blobs_per_frame']:.1f} blobs a frame "
@@ -5833,17 +6215,30 @@ def _phase_without_opencv(dev, root, n, pipeline, border_mod):
     # then the CLI's convert task, which also tracks and exports
     import trex_tpu_torch.io.video as video
 
+    from trex_tpu_torch.io.image_decode import imread
+
     values = product_settings()
     convert(dev, frames, root / "warm.pv", values, False)
     _, mem_s = convert(dev, frames, root / "mem.pv", values, False)
-    want = pv_payload(root / "mem.pv")
+    want_lossless = pv_payload(root / "mem.pv")
     r["in_memory_fps"] = n / mem_s
-    for ext, write in (("png", write_png), ("bmp", write_bmp_gray)):
+    writers = dict(png=write_png, bmp=write_bmp_gray, jpg=write_jpeg_gray,
+                   tif=write_tiff_gray)
+    for ext in WO_FORMATS:
+        write = writers[ext]
         d = root / ext
         d.mkdir()
         for i, f in enumerate(frames):
             write(d / f"f_{i:03d}.{ext}", f)
         pattern = d / f"f_%03d.{ext}"
+        want = want_lossless
+        if ext == "jpg":  # lossy: held to the frames the decoder returns
+            decoded = [imread(d / f"f_{i:03d}.jpg") for i in range(n)]
+            check(not all(np.array_equal(a, b)
+                          for a, b in zip(decoded, frames)),
+                  "without_opencv: the JPEG files decode to the frames")
+            convert(dev, decoded, root / "jpg_mem.pv", values, False)
+            want = pv_payload(root / "jpg_mem.pv")
         with Spy((video, "imread")) as spy:
             _, seq_s = convert(dev, str(pattern), root / f"{ext}.pv", values,
                                False)

@@ -200,15 +200,18 @@ def test_host_labeler_built_from_the_port():
     atan2f for the visual fields' CPU path, which XLA calls),
     contours.cpp (tag detection's contour routines, OpenCV's in the JAX
     package), resize.cpp (the float32 linear resize, OpenCV's in the JAX
-    package) and imgproc.cpp (the pipeline's, the decoder's and the
-    border's image routines, OpenCV's in the JAX package)."""
+    package), imgproc.cpp (the pipeline's, the decoder's and the
+    border's image routines, OpenCV's in the JAX package), jpeg.cpp and
+    tiffcodec.cpp (the JPEG and TIFF decoders' loops, libjpeg-turbo's and
+    libtiff's through OpenCV in the JAX package)."""
     from trex_tpu_torch.ops import labeling
 
     assert labeling.NATIVE == REPO / "trex_tpu_torch" / "native"
     assert labeling.SOURCES == ("labeling.cpp", "tracker_core.cpp",
                                 "posture_chain.cpp", "lzo1x.cpp",
                                 "imageops.cpp", "warp.cpp", "hostmath.cpp",
-                                "contours.cpp", "resize.cpp", "imgproc.cpp")
+                                "contours.cpp", "resize.cpp", "imgproc.cpp",
+                                "jpeg.cpp", "tiffcodec.cpp")
     assert sorted(p.name for p in labeling.NATIVE.iterdir()) \
         == sorted(labeling.SOURCES + labeling.HEADERS)
     lib = labeling._lib()

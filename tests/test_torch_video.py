@@ -194,3 +194,35 @@ def test_a_file_source_without_opencv_names_it(monkeypatch, tmp_path):
     (tmp_path / "v.mp4").write_bytes(b"")
     with pytest.raises(RuntimeError, match="OpenCV is required"):
         port_video.VideoSource(str(tmp_path / "v.mp4"))
+
+
+@pytest.mark.parametrize("color", [False, True])
+def test_jpeg_and_tiff_directory_without_opencv_equals_jax(
+        monkeypatch, tmp_path, color):
+    """A directory of JPEG (4:2:0, progressive, grey) and TIFF (LZW,
+    Deflate with predictor 2, 16-bit) files decodes with cv2 blocked to
+    the frames the JAX package's source reads through cv2; a video file
+    still needs OpenCV."""
+    writes = [(".jpg", [cv2.IMWRITE_JPEG_QUALITY, 90]),
+              (".jpeg", [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]),
+              (".tif", [cv2.IMWRITE_TIFF_COMPRESSION, 5]),
+              (".tiff", [cv2.IMWRITE_TIFF_COMPRESSION, 8,
+                         cv2.IMWRITE_TIFF_PREDICTOR, 2])]
+    for i, f in enumerate(_frames()):
+        ext, params = writes[i % len(writes)]
+        img = np.stack([f, f // 2, 255 - f], axis=-1) if i % 3 else f
+        if i == 5:
+            img = img.astype(np.uint16) * 257
+        assert cv2.imwrite(str(tmp_path / f"frame_{i:03d}{ext}"), img,
+                           params)
+    want = jax_video.VideoSource(str(tmp_path), color=color)
+    frames = [want.get(i) for i in range(len(want))]
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setattr(port_video, "_cv2_mod", None)
+    got = port_video.VideoSource(str(tmp_path), color=color)
+    assert len(got) == len(frames) == 12
+    for i, f in enumerate(frames):
+        np.testing.assert_array_equal(got.get(i), f)
+    (tmp_path / "v.mp4").write_bytes(b"")
+    with pytest.raises(RuntimeError, match="OpenCV is required"):
+        port_video.VideoSource(str(tmp_path / "v.mp4"))

@@ -5,10 +5,11 @@ Re-creates the acquisition layer of the reference
 commons VideoSource/AveragingAccumulator): uniform `get(index)` /
 iteration over grayscale-or-color frames plus the background averaging
 accumulator (mean/mode/max/min, grabber default_config.cpp:72-133).
-Decode is host-side: PNG and BMP image sequences through the port's own
-decoder (``io/image_decode.py``, the pixels ``cv2.imread`` gives), video
-files, the webcam, JPEG and TIFF through OpenCV, imported only where such
-a source needs it; device transfer happens downstream.
+Decode is host-side: PNG, BMP, JPEG and TIFF image sequences through the
+port's own decoder (``io/image_decode.py``, the pixels ``cv2.imread``
+gives), video files, the webcam and the JPEG and TIFF variants that
+decoder refuses (named from their headers) through OpenCV, imported only
+where such a source needs it; device transfer happens downstream.
 """
 from __future__ import annotations
 
@@ -20,17 +21,18 @@ from typing import Iterator, Optional
 import numpy as np
 
 from ..track.tag_image import bgr_to_gray
-from .image_decode import can_decode, imread
+from .image_decode import can_decode, imread, refused_variant
 from .patharray import has_pattern, resolve_paths
 
 _cv2_mod = None
 
 
 def _cv2(purpose: str):
-    """OpenCV, imported at the first use that needs it: video-file,
-    webcam, JPEG and TIFF decode. In-memory and ``.pv`` sources and PNG
-    or BMP image sequences never call this, so they run without OpenCV
-    installed."""
+    """OpenCV, imported at the first use that needs it: video-file and
+    webcam decode, image files of other formats and the JPEG and TIFF
+    variants :func:`~.image_decode.refused_variant` names. In-memory and
+    ``.pv`` sources and PNG, BMP, JPEG or TIFF image sequences never call
+    this, so they run without OpenCV installed."""
     global _cv2_mod
     if _cv2_mod is None:
         try:
@@ -152,9 +154,14 @@ class VideoSource:
             if not 0 <= index < len(self._files):
                 raise IndexError(index)
             path = self._files[index]
+            variant = Path(path).suffix or path
             if can_decode(path):
-                return imread(path, self.color)
-            cv2 = _cv2(f"image decode ({Path(path).suffix or path})")
+                # the headers decide, never a failed decode: an error in a
+                # file the port decodes propagates
+                variant = refused_variant(path)
+                if variant is None:
+                    return imread(path, self.color)
+            cv2 = _cv2(f"image decode ({variant})")
             flag = cv2.IMREAD_COLOR if self.color else cv2.IMREAD_GRAYSCALE
             img = cv2.imread(path, flag)
             if img is None:

@@ -25,7 +25,11 @@ length and polygon approximation, ``track/tag_image.py``) and
 SAM masks' and the luminance map's) and ``imgproc.cpp`` (the pipeline's
 blurs, adaptive threshold, undistortion and remap, the arena border's
 morphology and polygon fill, PNG's row filters; ``utils/imgproc.py``,
-``io/image_decode.py``), which the JAX package also takes from OpenCV.
+``io/image_decode.py``), which the JAX package also takes from OpenCV,
+and ``jpeg.cpp`` (the JPEG decoder's entropy decoding, IDCT,
+upsampling and colour conversion) and ``tiffcodec.cpp`` (TIFF's LZW and
+PackBits) of ``io/image_decode.py``, which the JAX package takes from
+OpenCV's libjpeg-turbo and libtiff.
 
 The library is compiled with ``g++`` at first use into
 ``build/trex_tpu_torch/`` (a directory git ignores), under a name that
@@ -53,7 +57,8 @@ from ..kernels import BUILD_DIR
 NATIVE = Path(__file__).resolve().parents[1] / "native"
 SOURCES = ("labeling.cpp", "tracker_core.cpp", "posture_chain.cpp",
            "lzo1x.cpp", "imageops.cpp", "warp.cpp", "hostmath.cpp",
-           "contours.cpp", "resize.cpp", "imgproc.cpp")
+           "contours.cpp", "resize.cpp", "imgproc.cpp", "jpeg.cpp",
+           "tiffcodec.cpp")
 HEADERS = ("simd_clones.h",)
 GXX_FLAGS = ["-O3", "-ffp-contract=off", "-std=c++20", "-shared", "-fPIC"]
 
@@ -226,6 +231,19 @@ _SIGNATURES = {
     "trex_remap_linear_u8": (None, [_u8p, _i32, _i32, _i32, _f32p, _f32p,
                                     _i32, _i32, _u8p]),
     "trex_png_unfilter": (_i32, [_u8p, _i64, _i64, _i32]),
+    # jpeg.cpp and tiffcodec.cpp: the JPEG and TIFF decoders
+    # (io/image_decode.py)
+    "trex_jpeg_scan": (_i64, [_c, _i64, _i64, _c, _i32, _i32, _i32p,
+                              ctypes.POINTER(_vp), _i32, _i32, _i32, _i32,
+                              _i32, _i32, _i32, _i32]),
+    "trex_jpeg_idct": (None, [ctypes.POINTER(ctypes.c_int16), _i32, _i32,
+                              _i32, ctypes.POINTER(ctypes.c_uint16), _u8p,
+                              _i64]),
+    "trex_jpeg_output": (_i32, [ctypes.POINTER(_vp), _i32p, _i32, _i32,
+                                _i32, _i32, _i32, _i32, _u8p]),
+    "trex_tiff_chunks": (_i64, [_c, _i64, _i64p, _i64p, _i64p, _i64,
+                                _i32, _u8p]),
+    "trex_tiff_predict": (None, [_u8p, _i64, _i64, _i32, _i32, _i32]),
 }
 
 _lib_obj = None
