@@ -68,7 +68,7 @@ Phases, each raising on failure:
    child, a blob too big for the crop, a capacity overflow), the most
    escalation rounds and trace points of any lane, the CUDA launches and
    device time a frame inside the ``trex.posture`` range over the first
-   16 frames (a depth cut of the profile), and the pass's peak memory. ``DeviceTracker.track_frames`` over 64 frames (base) and 16
+   :data:`POSTURE_PROFILE_FRAMES` (16) frames (a depth cut of the profile), and the pass's peak memory. ``DeviceTracker.track_frames`` over 64 frames (base) and 16
    (product default) with its assists, frames scanned, replay seconds
    and postures. Held to the port's FastTracker on the card, under
    ``tests/test_device_posture.py::_compare_posture``'s rule (equal
@@ -101,8 +101,8 @@ Phases, each raising on failure:
    asymmetric scene; on the 256-fish chunk the individuals that depart
    are reported (``ROADMAP.md`` C1).
 10. The product path (``product``), through the entry points a user
-    calls: the port's ``Segmenter`` converts ``synth_frames(64)`` (256
-    fish at 1024^2, served by an in-memory ``VideoSource``: the machine
+    calls: the port's ``Segmenter`` converts ``synth_frames(32)`` (256
+    fish at 1024^2, :data:`PRODUCT_FRAMES`; served by an in-memory ``VideoSource``: the machine
     has no OpenCV) under the user's default tracking settings
     (:func:`product_settings`) with ``detect_engine=device`` and
     ``track_engine=device`` into a .pv, held frame for frame (masks and
@@ -116,7 +116,8 @@ Phases, each raising on failure:
     for byte those of ``auto`` on the CPU (the host FastTracker); on the
     256-fish chunk the individuals that depart from the FastTracker's
     are reported (``ROADMAP.md`` C1). The CLI also tracks the scene over
-    80 frames, where the DeviceTracker demotes to the host once past 64.
+    80 frames (:data:`PRODUCT_LONG_FRAMES`), where the DeviceTracker
+    demotes to the host once past 64.
     Frames per second of the conversion and of the CLI's track task,
     with the seconds of detection, scans, replay, export and .results,
     the assists, frames scanned, overflowed frames and output bytes.
@@ -124,8 +125,8 @@ Phases, each raising on failure:
     settings (:func:`object_settings`: only the conversion's encoding,
     background, clock, scale, ``detect_engine=device`` and
     ``track_engine=auto``), which both fast engines refuse: the port's
-    ``Segmenter`` converts ``synth_frames(64)`` (256 fish at 1024^2) with
-    detection on the card, and ``auto`` picks the object Tracker for the
+    ``Segmenter`` converts ``synth_frames(32)`` (256 fish at 1024^2,
+    :data:`OBJECT_FRAMES`) with detection on the card, and ``auto`` picks the object Tracker for the
     reason it records (``track_threshold == 0``); the CLI's track task
     (``-track_engine auto -auto_quit`` with output_statistics,
     output_heatmaps and gui_show_memory_stats) writes the npz files,
@@ -141,8 +142,8 @@ Phases, each raising on failure:
     and the track task, ``adding_seconds``, ``posture_seconds`` and
     ``loading_seconds`` a frame from ``FrameStatistics``, the detection
     thread's seconds, individuals and output bytes.
-12. VI apply (``vi``): phase 11's .pv and .results (251 individuals over
-    64 frames) with a v118_3 network at 80x80, one class per individual,
+12. VI apply (``vi``): phase 11's .pv and .results (its individuals
+    over 32 frames, the first :data:`VI_FRAMES` re-tracked and held) with a v118_3 network at 80x80, one class per individual,
     made from a seeded ``torch.Generator``, its head the CPU twin test's
     nearest-prototype head (``tests/test_torch_vi_apply.py``, scaled by
     :data:`VI_HEAD_SCALE`), saved with the port's ``save_weights``; the
@@ -185,11 +186,11 @@ Phases, each raising on failure:
     after, seconds of the accumulation, save, apply and re-track, peak
     device memory.
 14. Visual fields and the closed loop (``vf``): phase 11's .pv and
-    .results (251 individuals over 64 frames, posture from the object
+    .results (its individuals over 32 frames, posture from the object
     Tracker); the CLI runs ``-task track -load -output_visual_fields true
     -auto_quit`` with two view-blocking ``visual_field_shapes``
     (:data:`VF_SHAPES`), the projection (B11, ``ops/raycast.py``) on the
-    card. At frames 0, 21, 42 and 63 the export holds the card's planes,
+    card. At frames 0, 10, 21 and 31 the export holds the card's planes,
     and the card's planes equal the port's CPU path's but in cells whose
     deciding point lies within a few ulps of a bin or depth-level edge
     (:func:`vf_departures`; counted, ``ROADMAP.md`` C6). ``TrackingState``
@@ -203,7 +204,7 @@ Phases, each raising on failure:
     milliseconds a frame, the raycast's device time a frame (CUDA events)
     with its eyes and points, peak device memory, the loop's seconds a
     frame, the hybrid's engine and seconds.
-15. Physical tags (``tags``): 256 fish at 1024^2 over 32 frames, the
+15. Physical tags (``tags``): 256 fish at 1024^2 over 16 frames, the
     stamps at :data:`TAG_SCALE` (26-34 x 16-20 px), each fish carrying
     its own 12x12 code of an 8-bit id (:func:`tag_code`, a seeded
     permutation of 0-255) 6 px beside its stamp, under
@@ -244,7 +245,7 @@ Phases, each raising on failure:
     weights, BatchNorm statistics of the scene, the class prior set so
     that about as many anchors pass as the scene shows fish) loaded by
     the port's ``load_ultralytics_checkpoint`` through
-    ``create_detection``, whose ``apply`` runs over 64 frames of
+    ``create_detection``, whose ``apply`` runs over 32 frames of
     :func:`synth_scene` (1024^2, 256 fish) letterboxed whole to 640 and
     as SAHI tiles (``detect_tile_image`` 2, overlap 0.1, the four tiles
     in one batch; 16 frames when the script is past
@@ -260,7 +261,7 @@ Phases, each raising on failure:
     scores lie beyond that bound of the threshold; no port kernel
     launched.
     Then :func:`prediction_pv` writes :data:`YOLO_PV_FRAMES`-frame
-    (32) ``.pv`` files of the
+    (16) ``.pv`` files of the
     scene whose blobs carry 5 pose keypoints along their stamp's long
     axis from the ground truth, or their own outline as
     ``original_outline``, and the CLI's ``-task track -auto_quit
@@ -276,8 +277,8 @@ Phases, each raising on failure:
     ``create_detection(detect_type="sam3")`` in bfloat16 on the card,
     one box prompt for each of 32 fish at frame 0 from the ground truth
     in ``detect_sam3_prompt``'s string format (:func:`sam_prompt`), the
-    prompts kept over 16 frames of :func:`synth_scene` (1024^2, 256
-    fish; 8 when the script reaches the phase past :data:`SAM_LATE_S`).
+    prompts kept over 8 frames of :func:`synth_scene` (1024^2, 256
+    fish).
     Frames/s through ``apply``, encoder and decoder ms a frame between
     CUDA events, host ms a frame of the resizes and ``blobs_from_masks``,
     peak memory. Held (:func:`sam_held`): one frame in float32, card
@@ -326,11 +327,19 @@ Phases, each raising on failure:
     JPEG files cv2 wrote (``tests/data/image_decode/``), timed at
     1024^2; phase 10's scene as PNG, BMP, JPEG and LZW TIFF sequences
     through ``trex -task convert`` on the card, each ``.pv`` equal to the
-    in-memory conversion (JPEG's to that of its decoded frames);
+    in-memory conversion (JPEG's to that of its decoded frames); every
+    video file cv2 wrote (``tests/data/video_decode/``: ``mp4v`` MP4 and
+    MOV, ``XVID``, ``MJPG``, ``IYUV``, raw and OpenDML AVI, and MPEG-4 of
+    four motion vectors and video packets from cv2's libavcodec) decoded, in
+    order and after seeks, to cv2 5.0.0's digests, and phase 10's scene
+    as an ``mp4v`` MP4 through ``trex -task convert -i <file>``, its
+    ``.pv`` equal to the conversion of its decoded frames, with the
+    decode's ms an I- and a P-VOP;
     ``cam_undistort``; the six host detection options, each
     tracked by the DeviceTracker; ``recognition_border`` outline and
-    heatmap through the track task's export. 16 frames a run (8 past
-    1000 s). No port kernel launches. Alone: ``python3 -c 'import torch,
+    heatmap through the track task's export. 8 frames a sequence or
+    option run (4 past :data:`WO_LATE_S`), 16 for the ``mp4v`` scene and
+    the border. No port kernel launches. Alone: ``python3 -c 'import torch,
     chip_smoke; chip_smoke.phase_without_opencv(torch.device("cuda", 0),
     {})'``.
 20. Report: frames per second of phases 2-11, the replay's assist frames
@@ -2077,7 +2086,13 @@ def phase_archive(dev, report, bg, frames):
           f"{', '.join(held)}", flush=True)
 
 
-PRODUCT_FRAMES = 64
+# phase 10's frames (64 until the script outgrew its time limit on a slow
+# machine) and its video-length run's, which must pass the DeviceTracker's
+# demote_min_frames (64) by a quarter of that
+PRODUCT_FRAMES = 32
+PRODUCT_LONG_FRAMES = 80
+# phase 11's frames, which phases 12 and 14 load (64 until then as well)
+OBJECT_FRAMES = 32
 
 
 def product_settings(n_fish=N_FISH):
@@ -2225,10 +2240,10 @@ def phase_product(dev, report, n_frames=PRODUCT_FRAMES):
     CLI then tracks the .pv with ``-track_engine device -auto_quit``
     (DeviceTracker, not demoted; npz files and .results written). The
     DeviceTracker demotes to its host engine once assists pass a quarter
-    of at least 64 frames, so at 64 frames it cannot have demoted: the
-    CLI also tracks a video a quarter longer, and the frame at which the
-    card handed tracking to the host is reported and held to the assist
-    share of the 64-frame run. On the sparse 64-fish chunk, ``-track_engine auto`` picks the card's
+    of at least 64 frames, so at `n_frames` (< 64) it cannot have
+    demoted: the CLI also tracks a video of :data:`PRODUCT_LONG_FRAMES`,
+    and the frame at which the card handed tracking to the host is
+    reported and held to the assist share of the shorter run. On the sparse 64-fish chunk, ``-track_engine auto`` picks the card's
     engine and writes the same npz and .results bytes as ``auto`` on the
     CPU, i.e. the host FastTracker. On the 256-fish chunk the
     individuals departing from the host FastTracker's are reported
@@ -2244,7 +2259,7 @@ def phase_product(dev, report, n_frames=PRODUCT_FRAMES):
     root.mkdir(parents=True)
     values = product_settings()
     # the first n_frames of the longer video are synth_frames(n_frames)
-    bg, long_frames = synth_frames(n_frames + n_frames // 4)
+    bg, long_frames = synth_frames(PRODUCT_LONG_FRAMES)
     frames = long_frames[:n_frames]
     t_phase = time.perf_counter()
 
@@ -2305,8 +2320,8 @@ def phase_product(dev, report, n_frames=PRODUCT_FRAMES):
                    demote_rule_trips=len(tr.assist_frames)
                    > tr.demote_threshold * n_frames)
 
-    # video length: the same scene over 1.25 * n_frames frames, detected on
-    # the card without tracking, then tracked through the CLI
+    # video length: the same scene over PRODUCT_LONG_FRAMES frames,
+    # detected on the card without tracking, then tracked through the CLI
     n_long = len(long_frames)
     convert(dev, long_frames, root / "long.pv", values, False)
     run = track_cli(dev, root / "long.pv", root / "long", values, "device")
@@ -2315,7 +2330,7 @@ def phase_product(dev, report, n_frames=PRODUCT_FRAMES):
           and lt.demoted == track_r["demote_rule_trips"],
           f"product: over {n_long} frames the CLI tracked with "
           f"{type(lt).__name__} (demoted {getattr(lt, 'demoted', None)}); "
-          f"the 64-frame run's {track_r['assists']} assists predict "
+          f"the {n_frames}-frame run's {track_r['assists']} assists predict "
           f"demoted {track_r['demote_rule_trips']}")
     on_card = (lt.demoted_at if lt.demoted else n_long)
     long_r = dict(
@@ -2457,7 +2472,7 @@ def npz_files(out):
             and "_memory" not in k and "_heatmap" not in k}
 
 
-def phase_object(dev, report, n_frames=PRODUCT_FRAMES, n_fish=N_FISH,
+def phase_object(dev, report, n_frames=OBJECT_FRAMES, n_fish=N_FISH,
                  size=SIZE, sparse_fish=64):
     """The object Tracker (``object``): the registry's default tracking
     settings, which both fast engines refuse, through the entry points a
@@ -2637,9 +2652,9 @@ VI_HEAD_SCALE = 12.0
 VI_PROB_TOL = 0.02
 VI_BATCH = 512
 # depth of the VI phase's re-track (analysis_range) and of its CPU hold:
-# the first 32 of phase 11's 64 frames, which keeps the script near half
-# its time limit; the network predicts all 64
-VI_FRAMES = 32
+# the first 16 of phase 11's 32 frames (32 of 64 until the script outgrew
+# its time limit on a slow machine); the network predicts all of them
+VI_FRAMES = 16
 
 
 def vi_features(model, x):
@@ -2714,7 +2729,7 @@ def vi_decided(preds, min_p, tol):
 
 def phase_vi(dev, report, proto_every=8):
     """VI apply (``vi``): phase 11's .pv and .results (256 fish at 1024^2,
-    64 frames, the object Tracker), a v118_3 network at 80x80 with one
+    :data:`OBJECT_FRAMES` frames, the object Tracker), a v118_3 network at 80x80 with one
     class per loaded individual made from a seeded torch.Generator, its
     head the CPU twin test's prototype head (scaled by VI_HEAD_SCALE) and
     saved with the port's save_weights as ``o_weights.npz``; the port's
@@ -2887,7 +2902,7 @@ def phase_vi(dev, report, proto_every=8):
              s=time.perf_counter() - t_phase)
     report["vi"] = r
     print(f"phase 12 ok: VI apply, v118_3 at 80x80 with {n} classes on "
-          f"phase 11's {PRODUCT_FRAMES} frames, re-tracked over "
+          f"phase 11's {OBJECT_FRAMES} frames, re-tracked over "
           f"{VI_FRAMES}: host crop path {r['crops_per_s']:.0f} "
           f"crops/s; network {r['images_per_s']:.0f} images/s, "
           f"{batch_ms:.3f} ms per {VI_BATCH}-batch on the card; CLI "
@@ -3348,7 +3363,7 @@ def vf_departures(inputs, got, want, n_bins=512):
 # 1024^2 arena: a wall and a triangle
 VF_SHAPES = [[[500, 100], [520, 100], [520, 900], [500, 900]],
              [[150, 700], [300, 650], [220, 850]]]
-VF_HELD_FRAMES = (0, 21, 42, 63)
+VF_HELD_FRAMES = (0, 10, 21, 31)
 VF_LOOP_FRAMES = 16
 VF_HYBRID_FRAMES = 16
 
@@ -3383,7 +3398,7 @@ def vf_held(dev, tracker, s, frame):
 
 def phase_vf(dev, report, bg, frames):
     """Visual fields and the closed loop (``vf``): phase 11's .pv and
-    .results (256 fish at 1024^2, 64 frames, 251 individuals with
+    .results (256 fish at 1024^2, :data:`OBJECT_FRAMES` frames, with
     posture). The CLI's ``-task track -load -output_visual_fields true``
     with :data:`VF_SHAPES` exports every individual's planes, projected on
     the card; at :data:`VF_HELD_FRAMES` the card's planes equal the
@@ -3429,7 +3444,7 @@ def phase_vf(dev, report, bg, frames):
     s = registry(dict(values, visual_field_shapes=VF_SHAPES))
     paths = spy.returned["export_visual_fields"][0]
     n_frames = len(spy.returned["visual_field_inputs"])
-    check(len(paths) > 1 and n_frames == PRODUCT_FRAMES,
+    check(len(paths) > 1 and n_frames == OBJECT_FRAMES,
           f"vf: the export wrote {len(paths)} files over {n_frames} frames")
     exported = {}
     for p in paths:
@@ -3571,8 +3586,8 @@ def phase_vf(dev, report, bg, frames):
 
 
 TAG_FISH = N_FISH
-TAG_FRAMES = 32
-TAG_HELD_FRAMES = (0, 10, 21, 31)
+TAG_FRAMES = 16             # 32 until the script outgrew its time limit
+TAG_HELD_FRAMES = (0, 5, 10, 15)
 TAG_PER_ID = 32
 TAG_EPOCHS = 12
 TAG_BATCH = 128
@@ -3876,10 +3891,11 @@ def phase_tags(dev, report):
 
 YOLO_SCALE = "x"           # the widest scale the repo supports
 YOLO_KEYPOINTS = 5
-YOLO_FRAMES = 64
+YOLO_FRAMES = 32           # part (a)'s frames (64 until the script
+                           # outgrew its time limit on a slow machine)
 YOLO_CUT_FRAMES = 16       # part (a)'s frames when the script runs late
-YOLO_PV_FRAMES = 32        # part (b)'s frames (was 64; cut for time)
-YOLO_LATE_S = 900.0
+YOLO_PV_FRAMES = 16        # part (b)'s frames (64, then 32; cut for time)
+YOLO_LATE_S = 700.0
 YOLO_HELD_FRAMES = 2
 YOLO_ROW_TOL = 0.02        # tests/test_torch_yolo.py ROW_TOL
 YOLO_F32_TOL = 1e-3        # float32 card against CPU: scores, and boxes
@@ -4639,9 +4655,8 @@ def phase_yolo(dev, report, t_script=0.0):
 
 
 SAM_FISH = 32              # box prompts, one per fish, at frame 0
-SAM_FRAMES = 16
-SAM_CUT_FRAMES = 8         # when the script reaches the phase late
-SAM_LATE_S = 950.0
+SAM_FRAMES = 8             # the session's last frame is 7 (16 until the
+                           # script outgrew its time limit)
 SAM_SEED = 17
 SAM_ROW_TOL = 0.02         # tests/test_torch_sam.py ROW_TOL
 SAM_BF16_RATIO = 1.25      # C8's rule: the card's bfloat16 distance from
@@ -4969,7 +4984,7 @@ def sam_session(seg, frames, prompt, direct):
                 frames=sorted(runs["card"][1]))
 
 
-def phase_sam(dev, report, t_script=0.0):
+def phase_sam(dev, report):
     """Promptable segmentation (phase 17 of the module docstring)."""
     import shutil
 
@@ -4986,8 +5001,7 @@ def phase_sam(dev, report, t_script=0.0):
     t_phase = time.perf_counter()
     torch.cuda.set_device(dev)
     kernels.reset_launches()
-    late = t_script > SAM_LATE_S
-    n_frames = SAM_CUT_FRAMES if late else SAM_FRAMES
+    n_frames = SAM_FRAMES
     bg, frames, track = synth_scene(n_frames)
     prompt = sam_prompt(track)
     path, state = write_sam_pth(root)
@@ -5050,7 +5064,7 @@ def phase_sam(dev, report, t_script=0.0):
         for i in range(n_frames)})
     check(not any(kernels.launches.values()),
           "sam: a port kernel launched on a path that has none")
-    r = dict(cell="sam-vitb-16x1024-32", params=n_params, cut=late,
+    r = dict(cell=f"sam-vitb-{n_frames}x1024-32", params=n_params,
              load_s=load_s, run=run, held=held, text=text, session=session,
              s=time.perf_counter() - t_phase)
     report["sam"] = r
@@ -5058,9 +5072,7 @@ def phase_sam(dev, report, t_script=0.0):
     print(f"phase 17 ok: SAM ViT-B ({n_params / 1e6:.1f} M parameters, "
           f"random, bfloat16) through create_detection over {n_frames} "
           f"frames of {SIZE}^2 with {SAM_FISH} box prompts"
-          + (f" (cut from {SAM_FRAMES}: the script was past "
-             f"{SAM_LATE_S:.0f} s)" if late else "")
-          + f": {run['fps']:.2f} frames/s, encoder {run['encoder_ms']:.2f} "
+          f": {run['fps']:.2f} frames/s, encoder {run['encoder_ms']:.2f} "
           f"ms and decoder {run['decoder_ms']:.2f} ms a frame on the card, "
           f"host {sum(run['host_ms'].values()):.1f} ms a frame ("
           + ", ".join(f"{k} {v:.1f}" for k, v in run["host_ms"].items())
@@ -5394,9 +5406,11 @@ def phase_multi(dev, report):
 # phase 19: the options that needed OpenCV, without it
 # --------------------------------------------------------------------------
 
-WO_FRAMES = 16             # frames of each sequence, option and border run
-WO_CUT_FRAMES = 8          # when the script reaches the phase late
-WO_LATE_S = 1000.0
+WO_FRAMES = 16             # frames of the mp4v scene and the border's run
+WO_RUN_FRAMES = 8          # frames of each sequence and option run (16
+                           # until the script outgrew its time limit)
+WO_CUT_FRAMES = 4          # when the script reaches the phase late
+WO_LATE_S = 800.0
 WO_SEED = 16
 WO_TIMED = 5               # calls a routine is timed over at 1024^2
 WO_JPEG_QUALITY = 90       # of the JPEG sequence
@@ -5464,6 +5478,101 @@ WO_DIGESTS = {
         "6e5881c468286e709f1cffe6dac92fb222cc601dac4fdcec86c6facbf73581f2",
     "tiff_tiled_big_endian":
         "904dd9ff2ce54a0f3de08390e7455a056999253fd5f3b36feb2596323fd7fe4a",
+}
+
+
+# the video fixtures cv2 5.0.0 wrote (tests/data/video_decode/
+# write_fixtures.py; the card's machine has no OpenCV to write or read
+# them) and, from its digests.json, cv2.VideoCapture's reading of each:
+# (CAP_PROP_FRAME_COUNT, CAP_PROP_FPS, the seeks, and the sha256 of the
+# frames' bytes: BGR and grey in order, BGR and grey at the seeks)
+WO_VIDEO_FIXTURES = REPO / "tests" / "data" / "video_decode"
+WO_VIDEO_SCENE = "scene_1024.mp4"  # phase 10's scene, WO_FRAMES frames
+WO_VIDEO_DIGESTS = {
+    "ellipses_90x70.avi": (
+        30, 25.0, (29, 3, 15, 0, 16, 13, 27, 12, 2),
+        "62c22d8c45d1217df686829f6c6f5b5282f91ca4297a4a62429abf669f7beea9",
+        "0f75d9532ec33ba5a30e40357d8e8904010663aa214718569db441b6ad5a8273",
+        "9c6611bbf3336588311c0fe50cd2aacec72eb6740fbc82a3a7214d822082fcba",
+        "bad5d18e347d64909094ca19a5fde25a0766ac672567f64da84713cab33ad478",
+    ),
+    "ellipses_90x70.mp4": (
+        30, 25.0, (29, 3, 15, 0, 16, 13, 27, 12, 2),
+        "caca7bf12c0540269b3c816339f4271cf513c27eb4f1ecf74a3a770ce56e26bc",
+        "1d3a6c97919abb05a6a769eb4e3a1c3b0d7c35b815bc2730e7fd294a954dc073",
+        "031c9553b3c15cab36342640f1e9ecb3a75b5660e66e902c56334c58f5c3b42e",
+        "c2a07eebc9ed6d3cfacd05dfa9ef7e2db843ed1fd0e3541a7e2954b82a30d83c",
+    ),
+    "iyuv_90x70.avi": (
+        5, 25.0, (3, 0, 2),
+        "cb3ce666f9fb8e59a816d8a247b6cbe4a850757701fbd51609fc714072630595",
+        "efc0dd2430b5221ed01a9f0ed522d8b94fb7bd20e8d1868a2c97186e3cbfb84b",
+        "cbb246ca90455d3e72e09bb45db6aeaf53a88ad1c7e289541a751918bafb83b4",
+        "1094d21af82f94475cd16c5a3475a2798932aa652c44db02bce2b0e391d0c2c2",
+    ),
+    "mjpg_90x70.avi": (
+        12, 25.0, (3, 0, 2),
+        "a2f9f2cfbaffac58b7805e53e0bc984db62d8bf242bed6156fdead10bf580136",
+        "055625e36925e932bd1c57f193b6542dc77adbba9fabd32d83b445d7448744c4",
+        "d8c5f7706f90b1c6f881f0e8e32edccd3c0e153989b160b0b3f90c722fbd6418",
+        "7f55fba4dea2ce0eda80311207d9cd8d51b25a6d86722c040c46dc1da126a20c",
+    ),
+    "mv4_aq_90x70.avi": (
+        30, 25.0, (29, 3, 15, 0, 16, 13, 27, 12, 2),
+        "4184d0a4e40b4bdb0c9c61c0011aa56143b43b13cb485c7565c2030605902865",
+        "6454d40519d05d1752422379433592c3d3a7d8b8cc14639f3d655c5e2528593e",
+        "fa31be58823f2349731ec0a433190c53052796f4388066965a6c6102acbe5189",
+        "63ffe797d5fd03444515ba7295eadc4f170e416992e55d5571a3389c6d67b4bc",
+    ),
+    "mv4_packets_112x80.avi": (
+        30, 25.0, (29, 3, 15, 0, 16, 13, 27, 12, 2),
+        "46ea3c4ed06f9c65930f36b84b7c890eade3e7fc50bc5c6c1f539c6f1da47201",
+        "ed171c24285b80d62bf4dac6ab5b6013e17c6564988b0848767514972e3355c2",
+        "8b2649624e207295f1ef9943fbc1b3c28a608e2f07ea53d63c18e661271816ef",
+        "47bb7fb824eeb29e52a9783bd9e3549fffbe2ecf63a00b6f6af6301e32232291",
+    ),
+    "mv4_zeros_96x80.avi": (
+        30, 25.0, (29, 3, 15, 0, 16, 13, 27, 12, 2),
+        "35292bcb17fe8ab65f69cbf1e7a018be7fbecddcf1a0cc4fba9291ff26efb039",
+        "16ba2c18fda6316f6c59362587dcd25e866592cb9a568adb3f4a8d2dcd9a8267",
+        "7903ccc59ccf3639b463be79b51294511f5b04dd70b935fad904b6643942de52",
+        "12b5a9bd69075c5ed4d8ec51c917485c68d3a2c1f54761fe42029748919e133b",
+    ),
+    "odml_90x70.avi": (
+        6, 25.0, (3, 0, 2),
+        "968a35bd9cd83490cc90905afa8c5014d1a38ae2aae7df6fb4bcdd67ac9cf99c",
+        "fe59caff2e8683e360f72ca0c00df8534b57b51f21d5a0bd13009b3638ee2863",
+        "d8c5f7706f90b1c6f881f0e8e32edccd3c0e153989b160b0b3f90c722fbd6418",
+        "7f55fba4dea2ce0eda80311207d9cd8d51b25a6d86722c040c46dc1da126a20c",
+    ),
+    "pan_112x80.mov": (
+        30, 25.0, (29, 3, 15, 0, 16, 13, 27, 12, 2),
+        "a8f41f999808c97c94d426e20b055c7cd9dbb9ba8e6a11fcffc3857b5d93ebc6",
+        "e767b25db11e8b69d95b881a8ff711ff39cdffcd1184e5b170735ba15f463118",
+        "685de43914f16853e3c7d1aab8d0dea40a486366ab9c6993914d9e0e22be2e18",
+        "16d08d2a0082f1a9e5739709d471a6fb88f826c6b73abff6670db1cbfbb63e4c",
+    ),
+    "raw_90x70.avi": (
+        4, 25.0, (3, 0, 2),
+        "bd46a83ab251dbc6ec313479323d0988344425e5a395148924367fbf9402b8c6",
+        "0503e7fba5f5fcb2cd78616851f222b4a16f603ffe2b64188f911ed70b2b81ec",
+        "b0fd7ae7dc5564f8f6ad148cfe38c4fd40c7884fc0851b7803e1370f5450d8a4",
+        "ac99a6156289a446f5483921516ad7629dffaba2f25ff64834ce5ec3eb215fd4",
+    ),
+    "scene_1024.mp4": (
+        16, 25.0, (3, 15, 0, 13, 12, 2),
+        "9d0f41870f08539f046d6afd54f1c202e5ff3442dc0bcaf640402d6c5cb70aca",
+        "f739764f72c6915721a3465c10c6a8afd7a07d935b4f094210ad225665166c65",
+        "0c29ff94e7c9dd76580fbf1255d8d1668f7e9fb39bdea32f5b79c7a542611bea",
+        "60beebf4df0ac4a3a30044a9b30fd4e35b1386f9cdcc82d19ebdd7c553bbd6c5",
+    ),
+    "zeros_96x80.mp4": (
+        30, 25.0, (29, 3, 15, 0, 16, 13, 27, 12, 2),
+        "200637299af40c68ecba4b40a3b88a0105c19780356e3c47b8bb7b6a10188381",
+        "18fbc2a9b4ae60706cca697cc88df4690bc63d4149cf9321c501b34326d4662f",
+        "ac373bacebd4830b2b01643accf8b3c78b37436d0b9ee228e7456bfe41039f22",
+        "88944a7d145e1650919be92c0d85159cf839c5eb1b6681569896d89e46d023f4",
+    ),
 }
 
 
@@ -6121,6 +6230,87 @@ def wo_convert_cli(dev, source, out, values):
     return wall
 
 
+def wo_video_sha(frames) -> str:
+    """sha256 of the frames' bytes, as tests/data/video_decode's
+    digests.json takes them."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in frames:
+        h.update(np.ascontiguousarray(f).tobytes())
+    return h.hexdigest()
+
+
+def wo_video(dev, root, values):
+    """Video files without OpenCV: every fixture of
+    :data:`WO_VIDEO_FIXTURES` decoded by the port (``io/video_decode.py``)
+    in BGR and grey, in order and at its seeks, against cv2 5.0.0's
+    digests (:data:`WO_VIDEO_DIGESTS`); then phase 10's scene as an
+    ``mp4v`` MP4 (:data:`WO_VIDEO_SCENE`), its decode timed a frame (I-
+    and P-VOPs apart), converted by the Segmenter and by ``trex -task
+    convert -i <file>`` on the card (tracked by the DeviceTracker), each
+    ``.pv`` equal to the in-memory conversion of the frames the decoder
+    returns."""
+    from trex_tpu_torch.io import video_decode
+    from trex_tpu_torch.track.tag_image import bgr_to_gray
+
+    bad = []
+    for name, (frames, fps, seeks, *want) in WO_VIDEO_DIGESTS.items():
+        f = video_decode.VideoFile(WO_VIDEO_FIXTURES / name)
+        got = [wo_video_sha(f.read(i, c) for i in range(frames))
+               for c in (True, False)]
+        got += [wo_video_sha(f.read(i, c) for i in seeks)
+                for c in (True, False)]
+        if (len(f), f.frame_rate, got) != (frames, fps, want):
+            bad.append(name)
+        f.close()
+    check(not bad, f"without_opencv: the decodes of {bad} differ from "
+          f"cv2 5.0.0's digests")
+    path = WO_VIDEO_FIXTURES / WO_VIDEO_SCENE
+    f = video_decode.VideoFile(path)
+    n = len(f)
+    decoded, ms = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        decoded.append(f.read(i, False))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    keys = np.asarray(f._c.keyframes)
+    # the grey of the last frame: fused into the colour conversion, and
+    # as cvtColor's formula on its BGR (track/tag_image.py::bgr_to_gray)
+    planes = f._last[1]
+    f.close()
+    fused = video_decode.yuv420_bgr(*planes, grey=True)
+    check(np.array_equal(fused, bgr_to_gray(video_decode.yuv420_bgr(
+        *planes))), "without_opencv: the fused grey differs from "
+          "bgr_to_gray of the BGR")
+    grey_ms = wo_timed_ms(lambda: video_decode.yuv420_bgr(*planes,
+                                                          grey=True))
+    via_bgr_ms = wo_timed_ms(lambda: bgr_to_gray(video_decode.yuv420_bgr(
+        *planes)))
+    convert(dev, decoded, root / "mp4_warm.pv", values, False)
+    _, mem_s = convert(dev, decoded, root / "mp4_mem.pv", values, False)
+    want = pv_payload(root / "mp4_mem.pv")
+    with Spy((video_decode.VideoFile, "read")) as spy:
+        _, file_s = convert(dev, str(path), root / "mp4.pv", values, False)
+    calls = len(spy.returned["read"])
+    cli_s = wo_convert_cli(dev, path, root / "mp4_out", values)
+    for pv in (root / "mp4.pv", next((root / "mp4_out").glob("*.pv"))):
+        got_pv = pv_payload(pv)
+        bad = [i for i, (a, b) in enumerate(zip(got_pv, want)) if a != b]
+        check(len(got_pv) == n and not bad,
+              f"without_opencv: the mp4v file's {pv.name} differs from "
+              f"the conversion of its decoded frames on frames {bad[:5]}")
+    return dict(fixtures=len(WO_VIDEO_DIGESTS), frames=n,
+                i_ms=statistics.median(np.asarray(ms)[keys].tolist()),
+                p_ms=statistics.median(np.asarray(ms)[~keys].tolist()),
+                grey_ms=grey_ms, grey_via_bgr_ms=via_bgr_ms,
+                s=file_s, fps=n / file_s, in_memory_fps=n / mem_s,
+                decode_calls=calls,
+                decode_ms=spy.seconds["read"] * 1e3 / calls,
+                cli_s=cli_s, cli_fps=n / cli_s,
+                objects=sum(len(fr) for fr in got_pv))
+
+
 def phase_without_opencv(dev, report, t_script=0.0):
     """The options that needed OpenCV, run without it (``without_opencv``):
     cv2 is blocked for the phase. Every rebuilt routine's output on
@@ -6132,7 +6322,9 @@ def phase_without_opencv(dev, report, t_script=0.0):
     (:func:`wo_tiff_bytes`) and converted by the port's ``trex -task
     convert -i <dir>/f_%03d.<ext>`` on the card, tracked by the
     DeviceTracker; each ``.pv`` equals the in-memory conversion frame for
-    frame (JPEG's, of the frames the port's decoder returns). A
+    frame (JPEG's, of the frames the port's decoder returns). Every video
+    fixture's decode equals cv2 5.0.0's digests and phase 10's scene as an
+    ``mp4v`` file converts the same way (:func:`wo_video`). A
     conversion under
     ``cam_undistort`` (:data:`WO_CAM_MATRIX`, five terms) equals the
     in-memory conversion of frames undistorted by the port's remap. Each
@@ -6143,9 +6335,9 @@ def phase_without_opencv(dev, report, t_script=0.0):
     with ``recognition_border`` outline and heatmap, on the scene at scale
     2 inside a dark arena (:func:`wo_arena`), exports finite
     BORDER_DISTANCE columns, and each shrunk mask differs from the mask
-    before the shrink. :data:`WO_FRAMES` frames a run
-    (:data:`WO_CUT_FRAMES` past :data:`WO_LATE_S` s, but for the border's
-    scene, whose heatmap needs the 16)."""
+    before the shrink. :data:`WO_RUN_FRAMES` frames a run
+    (:data:`WO_CUT_FRAMES` past :data:`WO_LATE_S` s), but for the mp4v
+    scene and the border's scene, whose heatmap needs :data:`WO_FRAMES`."""
     import shutil
 
     import trex_tpu_torch.pipeline as pipeline
@@ -6153,7 +6345,7 @@ def phase_without_opencv(dev, report, t_script=0.0):
     from trex_tpu_torch.track import border as border_mod
 
     t_phase = time.perf_counter()
-    n = WO_CUT_FRAMES if t_script > WO_LATE_S else WO_FRAMES
+    n = WO_CUT_FRAMES if t_script > WO_LATE_S else WO_RUN_FRAMES
     root = REPO / "build" / "smoke_without_opencv"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -6183,7 +6375,18 @@ def phase_without_opencv(dev, report, t_script=0.0):
           f"{r['in_memory_fps']:.2f}), decode {per_format('decode_ms')} ms a "
           f"call, through trex -task convert (tracked and exported) "
           f"{per_format('cli_fps')} frames/s, every .pv equal (JPEG's to "
-          f"its decoded frames' conversion); cam_undistort maps "
+          f"its decoded frames' conversion); video: "
+          f"{r['video']['fixtures']} files decode to cv2 5.0.0's digests "
+          f"in order and after seeks, the mp4v scene's decode "
+          f"{r['video']['i_ms']:.2f} ms an I-VOP and "
+          f"{r['video']['p_ms']:.2f} ms a P-VOP in grey (its conversion "
+          f"{r['video']['grey_ms']:.2f} ms fused, "
+          f"{r['video']['grey_via_bgr_ms']:.2f} as BGR then bgr_to_gray), "
+          f"converted at "
+          f"{r['video']['fps']:.2f} frames/s (in memory "
+          f"{r['video']['in_memory_fps']:.2f}), through trex -task convert "
+          f"{r['video']['cli_fps']:.2f} frames/s, both .pv equal to its "
+          f"decoded frames' conversion; cam_undistort maps "
           f"{r['undistort']['maps_ms']:.2f}"
           f" ms, remap {r['undistort']['remap_ms']:.2f} ms a frame; options "
           + ", ".join(f"{k} {v['blobs_per_frame']:.1f} blobs a frame "
@@ -6258,6 +6461,8 @@ def _phase_without_opencv(dev, root, n, pipeline, border_mod):
                       decode_ms=spy.seconds["imread"] * 1e3 / calls,
                       cli_s=cli_s, cli_fps=n / cli_s,
                       objects=sum(len(f) for f in got_pv))
+
+    r["video"] = wo_video(dev, root, values)
 
     # cam_undistort
     uvalues = dict(values, cam_undistort=True, cam_matrix=WO_CAM_MATRIX,
@@ -6391,26 +6596,36 @@ def main():
     report = {"torch": torch.__version__, "cuda": torch.version.cuda}
     kern = []
     t0 = time.perf_counter()
-    phase_kernels(dev, report)
-    phase_detect(dev, report, kern)
-    phase_label(dev, report, kern)
-    chunk = phase_track(dev, report)
-    phase_device_tracker(dev, report, *chunk)
-    phase_auto_split(dev, report, *chunk[:2])
-    phase_posture(dev, report, *chunk[:2])
-    phase_decay(dev, report, *chunk[:2])
-    phase_archive(dev, report, *chunk[:2])
-    phase_product(dev, report)
-    phase_object(dev, report)
-    phase_vi(dev, report)
-    phase_vi_train(dev, report)
-    phase_vf(dev, report, *chunk[:2])
-    phase_tags(dev, report)
-    phase_yolo(dev, report, time.perf_counter() - t0)
-    phase_sam(dev, report, time.perf_counter() - t0)
-    phase_multi(dev, report)
-    phase_without_opencv(dev, report, time.perf_counter() - t0)
+    phase_s = report["phase_s"] = {}
+
+    def run(name, phase, *args):
+        t = time.perf_counter()
+        out = phase(dev, report, *args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    run("kernels", phase_kernels)
+    run("detect", phase_detect, kern)
+    run("label", phase_label, kern)
+    chunk = run("track", phase_track)
+    run("device_tracker", phase_device_tracker, *chunk)
+    run("auto_split", phase_auto_split, *chunk[:2])
+    run("posture", phase_posture, *chunk[:2])
+    run("decay", phase_decay, *chunk[:2])
+    run("archive", phase_archive, *chunk[:2])
+    run("product", phase_product)
+    run("object", phase_object)
+    run("vi", phase_vi)
+    run("vi_train", phase_vi_train)
+    run("vf", phase_vf, *chunk[:2])
+    run("tags", phase_tags)
+    run("yolo", phase_yolo, time.perf_counter() - t0)
+    run("sam", phase_sam)
+    run("multi", phase_multi)
+    run("without_opencv", phase_without_opencv, time.perf_counter() - t0)
     report["total_s"] = time.perf_counter() - t0
+    print("phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_s.items()), flush=True)
     card = card_name_and_limit()
     report["card"] = card
     report["kernels"] = kern
@@ -6423,7 +6638,7 @@ def main():
         "detect", "label", "track", "device_tracker", "auto_split",
         "posture", "decay", "archive", "product", "object", "vi",
         "vi_train", "vf", "tags", "yolo", "sam", "multi",
-        "without_opencv", "build_s", "total_s")}))
+        "without_opencv", "build_s", "phase_s", "total_s")}))
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -203,7 +203,9 @@ def test_host_labeler_built_from_the_port():
     package), imgproc.cpp (the pipeline's, the decoder's and the
     border's image routines, OpenCV's in the JAX package), jpeg.cpp and
     tiffcodec.cpp (the JPEG and TIFF decoders' loops, libjpeg-turbo's and
-    libtiff's through OpenCV in the JAX package)."""
+    libtiff's through OpenCV in the JAX package) and mpeg4video.cpp (the
+    video decoders' MPEG-4 Part 2, MJPEG IDCT and colour conversion,
+    FFmpeg's through OpenCV in the JAX package)."""
     from trex_tpu_torch.ops import labeling
 
     assert labeling.NATIVE == REPO / "trex_tpu_torch" / "native"
@@ -211,7 +213,8 @@ def test_host_labeler_built_from_the_port():
                                 "posture_chain.cpp", "lzo1x.cpp",
                                 "imageops.cpp", "warp.cpp", "hostmath.cpp",
                                 "contours.cpp", "resize.cpp", "imgproc.cpp",
-                                "jpeg.cpp", "tiffcodec.cpp")
+                                "jpeg.cpp", "tiffcodec.cpp",
+                                "mpeg4video.cpp")
     assert sorted(p.name for p in labeling.NATIVE.iterdir()) \
         == sorted(labeling.SOURCES + labeling.HEADERS)
     lib = labeling._lib()
@@ -253,7 +256,8 @@ def test_package_lists_every_module():
                  "detect.tiling", "detect.rotated", "detect.region",
                  "detect.prediction_filter", "models.sam", "detect.sam3",
                  "parallel", "parallel.mesh", "parallel.distributed",
-                 "parallel.dryrun", "io.image_decode", "utils.imgproc"):
+                 "parallel.dryrun", "io.image_decode", "utils.imgproc",
+                 "io.containers", "io.video_decode"):
         assert f"trex_tpu_torch.{name}" in mods
 
 
@@ -262,8 +266,10 @@ def test_pipeline_converts_without_opencv_image_operations():
     (``VideoWriter``): grey conversion, resizes, equalization, the
     undistortion, the detection options' blurs, adaptive threshold and
     morphology are the port's own copies; track/border.py reaches cv2
-    nowhere; io/video.py reaches it only through ``_cv2``, for video
-    files, the webcam, JPEG and TIFF; the parallel package imports cv2
+    nowhere; io/video.py reaches it only through ``_cv2``, for the
+    webcam and for the image and video variants its decoders refuse
+    (each call names the variant), and otherwise only through the module
+    a ``_Capture`` was opened with; the parallel package imports cv2
     nowhere."""
     import ast
 
@@ -281,11 +287,13 @@ def test_pipeline_converts_without_opencv_image_operations():
     assert "cv2" not in border and "ImportError" not in border
     video = ast.parse((root / "io" / "video.py").read_text())
     purposes = {n.args[0].value if isinstance(n.args[0], ast.Constant)
-                else "image decode" for n in ast.walk(video)
+                else n.args[0].values[0].value
+                if isinstance(n.args[0], ast.JoinedStr) else None
+                for n in ast.walk(video)
                 if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
                 and n.func.id == "_cv2"}
-    assert purposes == {"webcam capture", "video decode", "image decode"}, \
-        purposes
+    assert purposes == {"webcam capture", "video decode (",
+                        "image decode ("}, purposes
     importers = [f.name for f in ast.walk(video)
                  if isinstance(f, ast.FunctionDef)
                  and any(isinstance(n, ast.Import) and any(

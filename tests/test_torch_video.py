@@ -1,6 +1,7 @@
 """The port's frame sources (trex_tpu_torch/io/video.py) and the
 acquisition preprocessing of its pipeline against the JAX package's:
-the background accumulator, image-sequence and .pv sources,
+the background accumulator, image-sequence, ``mp4v`` video and .pv
+sources,
 generate_average and preprocess_video_frame. Images compare exactly.
 Also: the port's default grey path runs with OpenCV absent."""
 import os
@@ -97,6 +98,51 @@ def test_generate_average_and_preprocess_equal_jax(tmp_path, name):
         np.testing.assert_array_equal(
             port_pipe.preprocess_video_frame(src.get(i), s),
             jax_pipe.preprocess_video_frame(src.get(i), sj))
+
+
+def _mp4v_parts(tmp_path):
+    """tests/test_aux.py::test_multi_video_concatenated_ingest's three
+    ``mp4v`` parts (4, 5 and 6 constant frames at 64x48)."""
+    paths = []
+    for v in range(3):
+        p = str(tmp_path / f"part{v}.mp4")
+        w = cv2.VideoWriter(p, cv2.VideoWriter_fourcc(*"mp4v"), 25,
+                            (64, 48))
+        for f in range(4 + v):
+            w.write(np.full((48, 64, 3), 30 * v + 10 * f, np.uint8))
+        w.release()
+        paths.append(p)
+    return paths
+
+
+@pytest.mark.parametrize("color", [False, True])
+@pytest.mark.parametrize("source", ["parts", "array string", "mp4", "mov"])
+def test_mp4v_video_source_equals_jax(tmp_path, monkeypatch, color,
+                                      source):
+    """The port's VideoSource, with cv2 blocked, against the JAX
+    package's on ``mp4v`` files (a single MP4 and MOV fixture of
+    tests/data/video_decode, and test_aux.py's multi-video path array as
+    a list and as its ``["a","b"]`` string): len, frame_rate and every
+    frame, in order and after backward seeks."""
+    data = REPO / "tests" / "data" / "video_decode"
+    parts = _mp4v_parts(tmp_path)
+    src = {"parts": parts,
+           "array string": "[" + ",".join(f'"{p}"' for p in parts) + "]",
+           "mp4": str(data / "ellipses_90x70.mp4"),
+           "mov": str(data / "pan_112x80.mov")}[source]
+    b = jax_video.VideoSource(src, color=color)
+    n = len(b)
+    want = [b.get(i) for i in list(range(n)) + [2, n - 1, 0, n // 2]]
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setattr(port_video, "_cv2_mod", None)
+    a = port_video.VideoSource(src, color=color)
+    assert (len(a), a.frame_rate) == (n, b.frame_rate)
+    got = [a.get(i) for i in list(range(n)) + [2, n - 1, 0, n // 2]]
+    for i, (x, y) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(x, y, err_msg=f"read {i}")
+    assert a.size == b.size
+    a.close()
+    b.close()
 
 
 def test_pv_video_source_equals_jax(tmp_path):

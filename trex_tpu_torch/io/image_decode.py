@@ -591,12 +591,12 @@ def _jpeg_scan_header(j, body, huff, present, restart, quant, coef_bits,
                         start=start, end=end))
 
 
-def _decode_jpeg(j: _Jpeg, data: bytes, color: bool,
-                 name: str) -> np.ndarray:
+def jpeg_coefficients(j: _Jpeg, data: bytes, name: str) -> list:
+    """Each component's quantised coefficients after every scan of `j`:
+    (block rows, block columns, 64) int16 in natural order, the DC summed
+    over its differences, over whole MCUs."""
     from ..ops.labeling import _lib
 
-    if j.refused is not None:
-        _refuse(name, j.refused)
     lib = _lib()
     w, h = j.width, j.height
     hmax = max(c["h"] for c in j.comps)
@@ -624,6 +624,20 @@ def _decode_jpeg(j: _Jpeg, data: bytes, color: bool,
         if got < 0:
             raise IOError(f"{name}: corrupt JPEG data: "
                           f"{_SCAN_ERRORS.get(got, got)}")
+    return coefs
+
+
+def _decode_jpeg(j: _Jpeg, data: bytes, color: bool,
+                 name: str) -> np.ndarray:
+    from ..ops.labeling import _lib
+
+    if j.refused is not None:
+        _refuse(name, j.refused)
+    lib = _lib()
+    w, h = j.width, j.height
+    hmax = max(c["h"] for c in j.comps)
+    vmax = max(c["v"] for c in j.comps)
+    coefs = jpeg_coefficients(j, data, name)
     if len(j.comps) == 1:
         space = "grey"
     elif j.jfif:

@@ -5,11 +5,13 @@ Re-creates the acquisition layer of the reference
 commons VideoSource/AveragingAccumulator): uniform `get(index)` /
 iteration over grayscale-or-color frames plus the background averaging
 accumulator (mean/mode/max/min, grabber default_config.cpp:72-133).
-Decode is host-side: PNG, BMP, JPEG and TIFF image sequences through the
-port's own decoder (``io/image_decode.py``, the pixels ``cv2.imread``
-gives), video files, the webcam and the JPEG and TIFF variants that
-decoder refuses (named from their headers) through OpenCV, imported only
-where such a source needs it; device transfer happens downstream.
+Decode is host-side and needs no OpenCV for PNG, BMP, JPEG and TIFF image
+sequences (``io/image_decode.py``, the pixels ``cv2.imread`` gives) and
+for MP4/MOV and AVI files of MPEG-4 Part 2, MJPEG or raw video
+(``io/video_decode.py``, the frames ``cv2.VideoCapture`` gives). The
+webcam, other video formats and the image and video variants those
+decoders refuse (named from their headers) go through OpenCV, imported
+only where such a source needs it; device transfer happens downstream.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from ..track.tag_image import bgr_to_gray
+from . import video_decode
 from .image_decode import can_decode, imread, refused_variant
 from .patharray import has_pattern, resolve_paths
 
@@ -28,11 +31,13 @@ _cv2_mod = None
 
 
 def _cv2(purpose: str):
-    """OpenCV, imported at the first use that needs it: video-file and
-    webcam decode, image files of other formats and the JPEG and TIFF
-    variants :func:`~.image_decode.refused_variant` names. In-memory and
-    ``.pv`` sources and PNG, BMP, JPEG or TIFF image sequences never call
-    this, so they run without OpenCV installed."""
+    """OpenCV, imported at the first use that needs it: webcam decode,
+    image and video files of other formats and the variants
+    :func:`~.image_decode.refused_variant` and
+    :func:`~.video_decode.refused_variant` name. In-memory and ``.pv``
+    sources, PNG, BMP, JPEG or TIFF image sequences and the video files
+    :mod:`.video_decode` decodes never call this, so they run without
+    OpenCV installed."""
     global _cv2_mod
     if _cv2_mod is None:
         try:
@@ -62,9 +67,9 @@ class VideoSource:
 
     def __init__(self, source, color: bool = False):
         self.color = color
+        # a VideoFile or a _Capture; several for a multi-video chain
         self._cap = None
         self._files: Optional[list[str]] = None
-        self._cap_pos = 0
         self._live = False
         self._videos: Optional[list[str]] = None  # multi-video chain
         # stateful decoder access (seek + read) must serialize: the
@@ -72,7 +77,6 @@ class VideoSource:
         self._seek_lock = threading.Lock()
         self._video_caps: list = []
         self._video_offsets: Optional[np.ndarray] = None
-        self._video_idx = -1
         if isinstance(source, (list, tuple)):
             self._files = [str(s) for s in source]
         else:
@@ -84,11 +88,12 @@ class VideoSource:
                 from ..config import global_settings
 
                 idx = int(global_settings().get("webcam_index", 0) or 0)
-                self._cap = cv2.VideoCapture(idx)
+                cap = cv2.VideoCapture(idx)
                 self._live = True
-                if not self._cap.isOpened():
+                if not cap.isOpened():
                     raise RuntimeError(
                         f"cannot open webcam device {idx}")
+                self._cap = _Capture(cv2, cap, live=True)
             elif has_pattern(s):
                 # printf patterns (%start[.end].digits), star globs and
                 # explicit ["a","b"] path arrays — one predicate shared
@@ -100,10 +105,7 @@ class VideoSource:
                     str(p) for p in Path(s).iterdir() if p.suffix.lower() in exts
                 )
             else:
-                cv2 = _cv2("video decode")
-                self._cap = cv2.VideoCapture(s)
-                if not self._cap.isOpened():
-                    raise FileNotFoundError(f"cannot open video source {s!r}")
+                self._cap = _open_video(s)
         if self._files is not None and not self._files:
             raise FileNotFoundError(f"no frames found for {source!r}")
         if self._files and all(
@@ -112,15 +114,12 @@ class VideoSource:
             # a path array of VIDEO files plays back as one concatenated
             # stream (commons VideoSource over a multi-video PathArray;
             # BASELINE config 5 "batched multi-video ingest")
-            cv2 = _cv2("video decode")
             self._videos = self._files
             self._files = None
             lengths = []
             for f in self._videos:
-                cap = cv2.VideoCapture(f)
-                if not cap.isOpened():
-                    raise FileNotFoundError(f"cannot open video {f!r}")
-                lengths.append(int(cap.get(cv2.CAP_PROP_FRAME_COUNT)))
+                cap = _open_video(f)
+                lengths.append(len(cap))
                 self._video_caps.append(cap)
             self._video_offsets = np.concatenate(
                 [[0], np.cumsum(lengths)]).astype(np.int64)
@@ -132,13 +131,13 @@ class VideoSource:
             return len(self._files)
         if self._live:
             return 1 << 30  # unbounded live stream
-        return int(self._cap.get(_cv2("video decode").CAP_PROP_FRAME_COUNT))
+        return len(self._cap)
 
     @property
     def frame_rate(self) -> float:
         cap = self._video_caps[0] if self._videos is not None else self._cap
         if cap is not None:
-            fps = cap.get(_cv2("video decode").CAP_PROP_FPS)
+            fps = cap.frame_rate
             return fps if fps and fps > 0 else 25.0
         return 25.0  # image sequences carry no timing; reference default
 
@@ -167,36 +166,16 @@ class VideoSource:
             if img is None:
                 raise IOError(f"failed to decode {path}")
             return img
-        cv2 = _cv2("video decode")
+        cap = self._cap
         if self._videos is not None:
             if not 0 <= index < len(self):
                 raise IndexError(index)
             vi = int(np.searchsorted(self._video_offsets, index,
                                      side="right")) - 1
-            local = index - int(self._video_offsets[vi])
+            index -= int(self._video_offsets[vi])
             cap = self._video_caps[vi]
-            with self._seek_lock:
-                if vi != self._video_idx or local != self._cap_pos:
-                    cap.set(cv2.CAP_PROP_POS_FRAMES, local)
-                ok, img = cap.read()
-                self._video_idx = vi
-                self._cap_pos = local + 1
-            if not ok:
-                raise IndexError(index)
-            if not self.color and img.ndim == 3:
-                img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
-            return img
         with self._seek_lock:
-            if not self._live and index != self._cap_pos:
-                self._cap.set(cv2.CAP_PROP_POS_FRAMES, index)
-                self._cap_pos = index
-            ok, img = self._cap.read()
-            self._cap_pos = index + 1
-        if not ok:
-            raise IndexError(index)
-        if not self.color and img.ndim == 3:
-            img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
-        return img
+            return cap.read(index, self.color)
 
     def __iter__(self) -> Iterator[np.ndarray]:
         for i in range(len(self)):
@@ -204,11 +183,64 @@ class VideoSource:
 
     def close(self):
         if self._cap is not None:
-            self._cap.release()
+            self._cap.close()
             self._cap = None
         for cap in self._video_caps:
-            cap.release()
+            cap.close()
         self._video_caps = []
+
+
+def _open_video(path: str):
+    """A :class:`~.video_decode.VideoFile` of `path`, or a :class:`_Capture`
+    where the port does not decode it (named from its headers) or it is
+    no file (a device or a stream URL)."""
+    if not Path(path).is_file():
+        variant = f"{path}, which is not a file"
+    elif video_decode.can_decode(path):
+        stream = video_decode.probe(path)
+        variant = stream.refused
+        if variant is None:
+            return video_decode.VideoFile(path, stream)
+    else:
+        variant = f"{Path(path).suffix or path} files"
+    cv2 = _cv2(f"video decode ({variant})")
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise FileNotFoundError(f"cannot open video source {path!r}")
+    return _Capture(cv2, cap)
+
+
+class _Capture:
+    """An OpenCV capture behind :class:`~.video_decode.VideoFile`'s
+    interface: a webcam, or a video the port does not decode. A read at
+    another index than the next seeks (``CAP_PROP_POS_FRAMES``); a live
+    capture never seeks."""
+
+    def __init__(self, cv2, cap, live: bool = False):
+        self._cv2, self._cap, self._live = cv2, cap, live
+        self._next = 0
+
+    def __len__(self) -> int:
+        return int(self._cap.get(self._cv2.CAP_PROP_FRAME_COUNT))
+
+    @property
+    def frame_rate(self) -> float:
+        return float(self._cap.get(self._cv2.CAP_PROP_FPS))
+
+    def read(self, index: int, color: bool) -> np.ndarray:
+        cv2 = self._cv2
+        if not self._live and index != self._next:
+            self._cap.set(cv2.CAP_PROP_POS_FRAMES, index)
+        ok, img = self._cap.read()
+        self._next = index + 1
+        if not ok:
+            raise IndexError(index)
+        if not color and img.ndim == 3:
+            img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+        return img
+
+    def close(self):
+        self._cap.release()
 
 
 class BaslerVideoSource:

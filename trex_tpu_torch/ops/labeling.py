@@ -41,10 +41,12 @@ missing compiler or a failed build raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from dataclasses import dataclass
 from pathlib import Path
@@ -58,7 +60,7 @@ NATIVE = Path(__file__).resolve().parents[1] / "native"
 SOURCES = ("labeling.cpp", "tracker_core.cpp", "posture_chain.cpp",
            "lzo1x.cpp", "imageops.cpp", "warp.cpp", "hostmath.cpp",
            "contours.cpp", "resize.cpp", "imgproc.cpp", "jpeg.cpp",
-           "tiffcodec.cpp")
+           "tiffcodec.cpp", "mpeg4video.cpp")
 HEADERS = ("simd_clones.h",)
 GXX_FLAGS = ["-O3", "-ffp-contract=off", "-std=c++20", "-shared", "-fPIC"]
 
@@ -86,7 +88,9 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the host labeler unless it is built already; returns the
-    library's path. Raises RuntimeError without g++ or on a failed
+    library's path. One g++ a source, all started together, then one
+    link; a lock beside the library lets one process build while the
+    others wait for it. Raises RuntimeError without g++ or on a failed
     build."""
     out = library_path()
     if out.exists():
@@ -96,14 +100,36 @@ def build() -> Path:
         raise RuntimeError("g++ not found: the host labeler of "
                            "trex_tpu_torch cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    r = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp),
-                        *(str(NATIVE / s) for s in SOURCES)],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"g++ failed for the host labeler (exit "
-                           f"{r.returncode}):\n{r.stdout}{r.stderr}")
-    os.replace(tmp, out)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        objs = Path(tempfile.mkdtemp(prefix=out.stem + ".", dir=BUILD_DIR))
+        try:
+            flags = [f for f in GXX_FLAGS if f != "-shared"]
+            procs = [(name, subprocess.Popen(
+                [gxx, *flags, "-c", str(NATIVE / name), "-o",
+                 str(objs / f"{name}.o")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)) for name in SOURCES]
+            failed = []
+            for name, proc in procs:
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"{name} (exit {proc.returncode}):\n{log}")
+            if failed:
+                raise RuntimeError("g++ failed for the host labeler: "
+                                   + "\n".join(failed))
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            r = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp),
+                                *(str(objs / f"{n}.o") for n in SOURCES)],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"g++ failed to link the host labeler "
+                                   f"(exit {r.returncode}):\n{r.stdout}"
+                                   f"{r.stderr}")
+            os.replace(tmp, out)
+        finally:
+            shutil.rmtree(objs, ignore_errors=True)
     return out
 
 
@@ -244,6 +270,19 @@ _SIGNATURES = {
     "trex_tiff_chunks": (_i64, [_c, _i64, _i64p, _i64p, _i64p, _i64,
                                 _i32, _u8p]),
     "trex_tiff_predict": (None, [_u8p, _i64, _i64, _i32, _i32, _i32]),
+    # mpeg4video.cpp: the video decoders' MPEG-4 Part 2, MJPEG IDCT and
+    # colour conversion (io/video_decode.py)
+    "trex_m4v_new": (_vp, [_i32]),
+    "trex_m4v_free": (None, [_vp]),
+    "trex_m4v_flush": (None, [_vp]),
+    "trex_m4v_headers": (_i32, [_vp, _c, _i64, _i32p]),
+    "trex_m4v_decode": (_i32, [_vp, _c, _i64, _u8p, _i64, _u8p, _u8p, _i64,
+                               _i32, _i32, _i32p]),
+    "trex_mjpeg_idct": (None, [ctypes.POINTER(ctypes.c_int16), _i32, _i32,
+                               _i32, ctypes.POINTER(ctypes.c_uint16), _u8p,
+                               _i64]),
+    "trex_yuv420_bgr": (None, [_u8p, _i64, _u8p, _i64, _u8p, _i64, _i32,
+                               _i32, _i32, _i32, _u8p]),
 }
 
 _lib_obj = None
