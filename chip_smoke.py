@@ -5488,6 +5488,10 @@ WO_DIGESTS = {
 # frames' bytes: BGR and grey in order, BGR and grey at the seeks)
 WO_VIDEO_FIXTURES = REPO / "tests" / "data" / "video_decode"
 WO_VIDEO_SCENE = "scene_1024.mp4"  # phase 10's scene, WO_FRAMES frames
+# the sha256 of the port's mp4v writer's file of phase 10's scene, and
+# cv2 5.0.0's reading of that file (tests/data/video_encode's
+# write_fixtures.py)
+WO_ENCODE_DIGESTS = REPO / "tests" / "data" / "video_encode" / "digests.json"
 WO_VIDEO_DIGESTS = {
     "ellipses_90x70.avi": (
         30, 25.0, (29, 3, 15, 0, 16, 13, 27, 12, 2),
@@ -6211,10 +6215,11 @@ def wo_arena(img):
         np.uint8)
 
 
-def wo_convert_cli(dev, source, out, values):
+def wo_convert_cli(dev, source, out, values, extra=()):
     """``trex -i source -d out -s settings -task convert -nowindow
-    -auto_quit`` through the port's ``cli.trex.main`` (it converts,
-    tracks on the card and exports); returns the wall seconds."""
+    -auto_quit`` (and the arguments `extra`) through the port's
+    ``cli.trex.main`` (it converts, tracks on the card and exports);
+    returns the wall seconds."""
     import trex_tpu_torch.cli.trex as cli
     from trex_tpu_torch.config import write_settings_file
 
@@ -6222,7 +6227,7 @@ def wo_convert_cli(dev, source, out, values):
     sfile = out / "run.settings"
     write_settings_file(registry(values), sfile)
     argv = ["-i", str(source), "-d", str(out), "-s", str(sfile), "-task",
-            "convert", "-nowindow", "-auto_quit"]
+            "convert", "-nowindow", "-auto_quit", *extra]
     t0 = time.perf_counter()
     rc = cli.main(argv, device=dev)
     wall = time.perf_counter() - t0
@@ -6241,6 +6246,63 @@ def wo_video_sha(frames) -> str:
     return h.hexdigest()
 
 
+def wo_encode(root):
+    """Recording without OpenCV: the port's ``mp4v`` writer
+    (``io/video_encode.py``) encodes phase 10's scene (:data:`WO_FRAMES`
+    frames of 1024^2 grey at 25 frames/s); the file's sha256 equals the
+    pinned digest of the file cv2 5.0.0 read (:data:`WO_ENCODE_DIGESTS`),
+    so this machine's build writes those bytes; the port's decode equals
+    the encoder's reconstruction frame for frame and the pinned grey
+    digests in order and after seeks. Returns the encode's ms a frame
+    (I- and P-VOPs apart), the bytes and the mean PSNR against the
+    frames."""
+    import hashlib
+
+    from trex_tpu_torch.io import video_decode, video_encode
+
+    want = json.loads(WO_ENCODE_DIGESTS.read_text())[WO_VIDEO_SCENE]
+    _, frames = synth_frames(want["frames"])
+    path = root / f"encoded_{WO_VIDEO_SCENE}"
+    w = video_encode.VideoWriter(path, want["fps"], (SIZE, SIZE), False)
+    ms, keys, recon, quant = [], [], [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        w.write(f)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        keys.append(bool(w.info[0]))
+        quant.append(int(w.info[1]))
+        recon.append(video_decode.yuv420_bgr(*w.reconstruction(), 0,
+                                             grey=True))
+    w.release()
+    sha = hashlib.sha256(path.read_bytes()).hexdigest()
+    check(sha == want["sha256"], f"without_opencv: the encoded scene's "
+          f"sha256 {sha} differs from the pinned {want['sha256']}")
+    f = video_decode.VideoFile(path)
+    grey = [f.read(i, False) for i in range(len(f))]
+    bad = [i for i, (a, b) in enumerate(zip(grey, recon))
+           if not np.array_equal(a, b)]
+    check(len(grey) == len(frames) and not bad and f.frame_rate
+          == want["fps"], f"without_opencv: the encoded scene decodes to "
+          f"{len(grey)} frames at {f.frame_rate}/s, other than the "
+          f"encoder's reconstruction on frames {bad[:5]}")
+    seen = [wo_video_sha(grey), wo_video_sha(
+        f.read(i, True) for i in want["seeks"]), wo_video_sha(
+        f.read(i, False) for i in want["seeks"])]
+    f.close()
+    check(seen == [want["grey"], want["seek_bgr"], want["seek_grey"]],
+          "without_opencv: the encoded scene's decode differs from cv2 "
+          "5.0.0's digests")
+    mse = [np.mean((a.astype(np.float64) - b) ** 2)
+           for a, b in zip(grey, frames)]
+    keys = np.asarray(keys)
+    return dict(frames=len(frames), bytes=path.stat().st_size,
+                psnr_db=float(np.mean([10 * np.log10(255 ** 2 / e)
+                                       for e in mse])),
+                i_ms=statistics.median(np.asarray(ms)[keys].tolist()),
+                p_ms=statistics.median(np.asarray(ms)[~keys].tolist()),
+                ms=float(np.mean(ms)), quantisers=sorted(set(quant)))
+
+
 def wo_video(dev, root, values):
     """Video files without OpenCV: every fixture of
     :data:`WO_VIDEO_FIXTURES` decoded by the port (``io/video_decode.py``)
@@ -6248,9 +6310,11 @@ def wo_video(dev, root, values):
     digests (:data:`WO_VIDEO_DIGESTS`); then phase 10's scene as an
     ``mp4v`` MP4 (:data:`WO_VIDEO_SCENE`), its decode timed a frame (I-
     and P-VOPs apart), converted by the Segmenter and by ``trex -task
-    convert -i <file>`` on the card (tracked by the DeviceTracker), each
-    ``.pv`` equal to the in-memory conversion of the frames the decoder
-    returns."""
+    convert -i <file> -save_raw_movie true`` on the card (tracked by the
+    DeviceTracker), each ``.pv`` equal to the in-memory conversion of the
+    frames the decoder returns; the raw movie the CLI recorded (the
+    port's own writer) holds every frame at the source's rate, and its
+    conversion equals the in-memory conversion of its decoded frames."""
     from trex_tpu_torch.io import video_decode
     from trex_tpu_torch.track.tag_image import bgr_to_gray
 
@@ -6293,13 +6357,30 @@ def wo_video(dev, root, values):
     with Spy((video_decode.VideoFile, "read")) as spy:
         _, file_s = convert(dev, str(path), root / "mp4.pv", values, False)
     calls = len(spy.returned["read"])
-    cli_s = wo_convert_cli(dev, path, root / "mp4_out", values)
+    cli_s = wo_convert_cli(dev, path, root / "mp4_out", values,
+                           ["-save_raw_movie", "true"])
     for pv in (root / "mp4.pv", next((root / "mp4_out").glob("*.pv"))):
         got_pv = pv_payload(pv)
         bad = [i for i, (a, b) in enumerate(zip(got_pv, want)) if a != b]
         check(len(got_pv) == n and not bad,
               f"without_opencv: the mp4v file's {pv.name} differs from "
               f"the conversion of its decoded frames on frames {bad[:5]}")
+    # the raw movie beside the CLI's .pv: every frame at the source's
+    # rate, converting to what its decoded frames convert to in memory
+    movie = next((root / "mp4_out").glob("*.mov.mp4"))
+    rv = video_decode.VideoFile(movie)
+    check((len(rv), rv.frame_rate) == (n, f.frame_rate),
+          f"without_opencv: the raw movie holds {len(rv)} frames at "
+          f"{rv.frame_rate}/s, the source {n} at {f.frame_rate}/s")
+    raw = [rv.read(i, False) for i in range(n)]
+    rv.close()
+    convert(dev, raw, root / "raw_mem.pv", values, False)
+    _, raw_s = convert(dev, str(movie), root / "raw.pv", values, False)
+    bad = [i for i, (a, b) in enumerate(zip(pv_payload(root / "raw.pv"),
+                                            pv_payload(root / "raw_mem.pv")))
+           if a != b]
+    check(not bad, f"without_opencv: the raw movie's .pv differs from the "
+          f"conversion of its decoded frames on frames {bad[:5]}")
     return dict(fixtures=len(WO_VIDEO_DIGESTS), frames=n,
                 i_ms=statistics.median(np.asarray(ms)[keys].tolist()),
                 p_ms=statistics.median(np.asarray(ms)[~keys].tolist()),
@@ -6308,7 +6389,8 @@ def wo_video(dev, root, values):
                 decode_calls=calls,
                 decode_ms=spy.seconds["read"] * 1e3 / calls,
                 cli_s=cli_s, cli_fps=n / cli_s,
-                objects=sum(len(fr) for fr in got_pv))
+                objects=sum(len(fr) for fr in got_pv),
+                raw_movie_bytes=movie.stat().st_size, raw_convert_s=raw_s)
 
 
 def phase_without_opencv(dev, report, t_script=0.0):
@@ -6324,7 +6406,9 @@ def phase_without_opencv(dev, report, t_script=0.0):
     DeviceTracker; each ``.pv`` equals the in-memory conversion frame for
     frame (JPEG's, of the frames the port's decoder returns). Every video
     fixture's decode equals cv2 5.0.0's digests and phase 10's scene as an
-    ``mp4v`` file converts the same way (:func:`wo_video`). A
+    ``mp4v`` file converts the same way, its CLI run recording the raw
+    movie (:func:`wo_video`); the port's own ``mp4v`` writer encodes the
+    scene to the pinned sha256 (:func:`wo_encode`). A
     conversion under
     ``cam_undistort`` (:data:`WO_CAM_MATRIX`, five terms) equals the
     in-memory conversion of frames undistorted by the port's remap. Each
@@ -6385,8 +6469,14 @@ def phase_without_opencv(dev, report, t_script=0.0):
           f"converted at "
           f"{r['video']['fps']:.2f} frames/s (in memory "
           f"{r['video']['in_memory_fps']:.2f}), through trex -task convert "
-          f"{r['video']['cli_fps']:.2f} frames/s, both .pv equal to its "
-          f"decoded frames' conversion; cam_undistort maps "
+          f"{r['video']['cli_fps']:.2f} frames/s with -save_raw_movie "
+          f"(its raw movie {r['video']['raw_movie_bytes']} bytes, converted "
+          f"equal to its decoded frames), both .pv equal to its "
+          f"decoded frames' conversion; encoded by the port's mp4v writer "
+          f"to the pinned sha256, {r['encode']['bytes']} bytes, "
+          f"{r['encode']['psnr_db']:.2f} dB, {r['encode']['i_ms']:.2f} ms "
+          f"an I-VOP and {r['encode']['p_ms']:.2f} ms a P-VOP "
+          f"(quantisers {r['encode']['quantisers']}); cam_undistort maps "
           f"{r['undistort']['maps_ms']:.2f}"
           f" ms, remap {r['undistort']['remap_ms']:.2f} ms a frame; options "
           + ", ".join(f"{k} {v['blobs_per_frame']:.1f} blobs a frame "
@@ -6463,6 +6553,7 @@ def _phase_without_opencv(dev, root, n, pipeline, border_mod):
                       objects=sum(len(f) for f in got_pv))
 
     r["video"] = wo_video(dev, root, values)
+    r["encode"] = wo_encode(root)
 
     # cam_undistort
     uvalues = dict(values, cam_undistort=True, cam_matrix=WO_CAM_MATRIX,

@@ -257,15 +257,15 @@ def test_package_lists_every_module():
                  "detect.prediction_filter", "models.sam", "detect.sam3",
                  "parallel", "parallel.mesh", "parallel.distributed",
                  "parallel.dryrun", "io.image_decode", "utils.imgproc",
-                 "io.containers", "io.video_decode"):
+                 "io.containers", "io.video_decode", "io.video_encode"):
         assert f"trex_tpu_torch.{name}" in mods
 
 
 def test_pipeline_converts_without_opencv_image_operations():
-    """pipeline.py reaches cv2 only for the raw-movie writer
-    (``VideoWriter``): grey conversion, resizes, equalization, the
-    undistortion, the detection options' blurs, adaptive threshold and
-    morphology are the port's own copies; track/border.py reaches cv2
+    """pipeline.py reaches cv2 nowhere: grey conversion, resizes,
+    equalization, the undistortion, the detection options' blurs,
+    adaptive threshold and morphology are the port's own copies, and the
+    raw-movie writer is io/video_encode.py's; track/border.py reaches cv2
     nowhere; io/video.py reaches it only through ``_cv2``, for the
     webcam and for the image and video variants its decoders refuse
     (each call names the variant), and otherwise only through the module
@@ -277,12 +277,12 @@ def test_pipeline_converts_without_opencv_image_operations():
     tree = ast.parse((root / "pipeline.py").read_text())
     used = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)
             and isinstance(n.value, ast.Name) and n.value.id == "cv2"}
-    assert used == {"VideoWriter_fourcc", "VideoWriter"}, used
+    assert used == set(), used
     importers = [f.name for f in ast.walk(tree)
                  if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
                  and any(isinstance(n, ast.Import) and any(
                      a.name == "cv2" for a in n.names) for n in ast.walk(f))]
-    assert importers == ["_write_raw"], importers
+    assert importers == [], importers
     border = (root / "track" / "border.py").read_text()
     assert "cv2" not in border and "ImportError" not in border
     video = ast.parse((root / "io" / "video.py").read_text())
@@ -306,8 +306,9 @@ def test_pipeline_converts_without_opencv_image_operations():
 
 
 def test_only_video_decode_and_the_raw_writer_import_opencv():
-    """``import cv2`` appears in io/video.py's ``_cv2`` and in
-    pipeline.py's raw-movie writer, nowhere else in the port."""
+    """``import cv2`` appears in io/video.py's ``_cv2``, nowhere else in
+    the port: the raw-movie writer (pipeline.py's ``_write_raw``) records
+    through io/video_encode.py, which imports no cv2."""
     import ast
 
     root = REPO / "trex_tpu_torch"
@@ -315,7 +316,76 @@ def test_only_video_decode_and_the_raw_writer_import_opencv():
                    for f in root.rglob("*.py")
                    if "cv2" in {m.split(".")[0] for m in _imports(
                        ast.parse(f.read_text()), False)})
-    assert users == ["io/video.py", "pipeline.py"], users
+    assert users == ["io/video.py"], users
+
+
+def test_native_sources_include_only_the_standard_library():
+    """The host library's sources, the MPEG-4 Part 2 encoder and decoder
+    among them, include the C++ standard library and the port's own
+    headers only: no OpenCV, no FFmpeg."""
+    import re
+
+    from trex_tpu_torch.ops import labeling
+
+    std = {"algorithm", "array", "atomic", "cmath", "cstddef", "cstdint",
+           "cstdio", "cstdlib", "cstring", "functional", "limits",
+           "numeric", "thread", "utility", "vector"}
+    for name in labeling.SOURCES + labeling.HEADERS:
+        text = (labeling.NATIVE / name).read_text()
+        for inc in re.findall(r'#include\s*([<"][^>"]+[>"])', text):
+            body = inc[1:-1]
+            assert body in std or (inc[0] == '"' and body
+                                   in labeling.HEADERS), (name, inc)
+
+
+_NO_CV2_RAW = r"""
+import sys
+sys.modules["cv2"] = None
+sys.modules["jax"] = None
+import numpy as np
+from pathlib import Path
+from trex_tpu_torch.config import reset_global_settings
+from trex_tpu_torch.io.image_decode import imread
+from trex_tpu_torch.io.video_decode import VideoFile, refused_variant
+from trex_tpu_torch.pipeline import Segmenter
+from trex_tpu_torch.utils.drawing import write_png
+root = Path(sys.argv[1])
+for f in range(6):
+    img = np.full((48, 64), 200, np.uint8)
+    img[10:16, 5 + 3 * f:15 + 3 * f] = 80
+    write_png(root / f"f_{f:03d}.png", img)
+s = reset_global_settings()
+for k, v in dict(save_raw_movie=True, frame_rate=30, cm_per_pixel=1.0,
+                 track_threshold=20, detect_threshold=15,
+                 meta_encoding="gray").items():
+    s.set(k, v)
+Segmenter(s, str(root / "f_%03d.png"), root / "r.pv", track=False,
+          device="cpu").run()
+movie = root / "r.mov.mp4"
+assert refused_variant(movie) is None
+v = VideoFile(movie)
+assert (len(v), v.frame_rate) == (6, 30.0), (len(v), v.frame_rate)
+grey = v.read(5, False)
+assert abs(int(grey[12, 25]) - 80) < 8 and abs(int(grey[40, 60]) - 200) < 8
+bad = sorted(m for m in sys.modules if m == "trex_tpu"
+             or m.startswith("trex_tpu.") or m in ("cv2", "jax")
+             and sys.modules[m] is not None)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_raw_movie_without_opencv_or_jax(tmp_path):
+    """In a process where cv2 and jax cannot be imported, the port's
+    Segmenter records ``save_raw_movie`` (io/video_encode.py and the
+    native encoder) and its own decoder reads it back; neither trex_tpu
+    nor cv2 is loaded."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _NO_CV2_RAW, str(tmp_path)],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "ok"
 
 
 def _imports(tree, top_level_only):
@@ -335,10 +405,12 @@ def test_no_module_imports_opencv_at_import_time():
     """The machine with the card has no OpenCV: no module of the port
     imports cv2 at its top level (a function that needs it imports it
     where it runs), and the visual-field modules, whose convex hull
-    replaces cv2.convexHull, import it nowhere, nor JAX or trex_tpu."""
+    replaces cv2.convexHull, and the raw-movie writer and its muxer
+    import it nowhere, nor JAX or trex_tpu."""
     import ast
 
-    new = {"ops/raycast.py", "track/visual_field.py", "closed_loop.py"}
+    new = {"ops/raycast.py", "track/visual_field.py", "closed_loop.py",
+           "io/video_encode.py", "io/containers.py"}
     root = REPO / "trex_tpu_torch"
     files = sorted(root.rglob("*.py"))
     assert {f.relative_to(root).as_posix() for f in files} >= new

@@ -250,6 +250,59 @@ def _vop_coded_bit(data: bytes, at: int, time_bits: int) -> int:
     return bit + 1 + 1 + time_bits + 1
 
 
+# a 90x70 fixture whose headers say 69 rows, of each codec: (fixture,
+# its even original)
+ODD_HEIGHT = {"odd_height": "ellipses_90x70.avi",
+              "mjpeg_odd_height": "mjpg_90x70.avi",
+              "raw_odd_height": "iyuv_90x70.avi"}
+
+
+def _avi_height(data: bytes, h: int) -> bytes:
+    """`data` with the AVI main header's and BITMAPINFOHEADER's height
+    set to `h`."""
+    b = bytearray(data)
+    struct.pack_into("<I", b, data.index(b"avih") + 8 + 36, h)
+    struct.pack_into("<i", b, data.index(b"strf") + 8 + 8, h)
+    return bytes(b)
+
+
+def _odd_height(kind) -> bytes:
+    """A 90x69 AVI made from a 90x70 fixture: the MPEG-4 file with every
+    VOL's height 69, the MJPEG file with every frame's SOF height 69, the
+    IYUV file rebuilt from its first frame's planes with the last luma
+    row cut (the chroma keeps its 35 rows)."""
+    src = ODD_HEIGHT[kind]
+    data = (DATA / src).read_bytes()
+    if kind == "odd_height":
+        for at in [a for a in range(len(data))
+                   if data.startswith(b"\x00\x00\x01\x20", a)]:
+            bit = _vol_offsets(data[at:])["width"] + 13 + 1 + at * 8
+            data = _set_bits(data, bit, 13, 69)
+        return _avi_height(data, 69)
+    if kind == "mjpeg_odd_height":
+        b = bytearray(data)
+        at = data.find(b"\xff\xc0")
+        while at >= 0:
+            struct.pack_into(">H", b, at + 5, 69)
+            at = data.find(b"\xff\xc0", at + 2)
+        return _avi_height(bytes(b), 69)
+    sys.path.insert(0, str(DATA))
+    try:
+        import write_fixtures as wf
+    finally:
+        sys.path.pop(0)
+    c = open_container(DATA / src)
+    with open(DATA / src, "rb") as fh:
+        planes = c.read(fh, 0)
+    frame = planes[:90 * 69] + planes[90 * 70:]  # Y less its last row
+    index = struct.pack("<4sIII", b"00db", 0x10, 4, len(frame))
+    body = (b"AVI " + wf.avi_headers(90, 69, 1, b"IYUV", struct.unpack(
+        "<I", b"IYUV")[0], 12, len(frame))
+        + wf.lst(b"movi", wf.riff(b"00db", frame))
+        + wf.riff(b"idx1", index))
+    return wf.riff(b"RIFF", body)
+
+
 def _variant(kind, tmp):
     """(path, the words of the refusal) of a refused file built from a
     fixture."""
@@ -331,6 +384,9 @@ def _variant(kind, tmp):
         at = sof + 2 + 2 + 1 + 2 + 2 + 1 + 1  # the first component's hv
         data = mj[:at] + b"\x21" + mj[at + 1:]
         words, name = "MJPEG with sampling [(2, 1)", "422.avi"
+    elif kind in ODD_HEIGHT:
+        data = _odd_height(kind)
+        words, name = "an odd frame height (69)", f"{kind}.avi"
     else:
         raise KeyError(kind)
     path = tmp / name
@@ -341,7 +397,7 @@ def _variant(kind, tmp):
 VARIANTS = ("interlaced", "obmc", "mpeg_quant", "data_partitioning",
             "vol_size", "later_vol_size", "b_vop", "s_vop", "not_coded", "xvid_tag", "xvid", "divx",
             "old_lavc", "h264_avi", "avc1_mp4", "edit_list", "container",
-            "mjpeg_progressive", "mjpeg_422")
+            "mjpeg_progressive", "mjpeg_422", *ODD_HEIGHT)
 
 
 @pytest.mark.parametrize("kind", VARIANTS)
@@ -391,6 +447,26 @@ def test_decoder_refuses_a_picture_of_another_size(tmp_path, kind):
         for i in range(len(f)):
             f.read(i, True)
     f.close()
+
+
+@pytest.mark.parametrize("kind", ODD_HEIGHT)
+def test_odd_heights_are_converted_by_another_path(tmp_path, kind):
+    """Why odd heights are refused: past the refusal the port decodes
+    the 90x69 file's first frame as the unscaled conversion of the 90x70
+    original's first 69 rows, but cv2 5.0.0 converts an odd height by
+    libswscale's scaler and returns other values (PERF.md, PR 19: up to
+    114 levels apart)."""
+    path, _ = _variant(kind, tmp_path)
+    stream = vd.probe(path)
+    stream.refused = None
+    f = vd.VideoFile(path, stream)
+    ours = f.read(0, True)
+    f.close()
+    even = _cv2_frames(DATA / ODD_HEIGHT[kind])[1][0][:69]
+    np.testing.assert_array_equal(ours, even)
+    theirs = _cv2_frames(path)[1][0]
+    assert theirs.shape == ours.shape
+    assert np.abs(theirs.astype(int) - ours).max() > 8
 
 
 def test_decoded_files_never_reach_opencv(written):

@@ -20,10 +20,14 @@ Two formats, read as FFmpeg's demuxers in OpenCV 5.0.0 read them:
 
 :func:`open_container` returns a :class:`Container`; ``frame_count`` and
 ``fps`` are what ``CAP_PROP_FRAME_COUNT`` and ``CAP_PROP_FPS`` report.
+
+:class:`Mp4Writer` writes the other way: one ``mp4v`` track, streamed
+(``io/video_encode.py`` feeds it).
 """
 from __future__ import annotations
 
 import struct
+from array import array
 from dataclasses import dataclass
 from typing import Optional
 
@@ -406,3 +410,165 @@ def _odml_keys(fh, off: int, size: int) -> np.ndarray:
         return np.zeros(0, bool)
     entries = np.frombuffer(raw, "<u4", 2 * n, 24).reshape(n, 2)
     return (entries[:, 1] & 0x80000000) == 0
+
+
+# --------------------------------------------------------------------------
+# MP4 writing
+# --------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+_MATRIX = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
+
+
+def _box(kind: bytes, *parts: bytes) -> bytes:
+    body = b"".join(parts)
+    return struct.pack(">I4s", 8 + len(body), kind) + body
+
+
+def _full_box(kind: bytes, version: int, flags: int, *parts: bytes) -> bytes:
+    return _box(kind, struct.pack(">I", (version << 24) | flags), *parts)
+
+
+def _desc(tag: int, body: bytes) -> bytes:
+    """An MPEG-4 descriptor, its size in four bytes as FFmpeg writes it."""
+    n = len(body)
+    return bytes([tag, 0x80 | (n >> 21) & 0x7F, 0x80 | (n >> 14) & 0x7F,
+                  0x80 | (n >> 7) & 0x7F, n & 0x7F]) + body
+
+
+def mp4_timescale(res: int, inc: int) -> tuple:
+    """(timescale, sample duration) of a track at `res` / `inc` frames a
+    second: both doubled until the timescale reaches 10000, as FFmpeg's
+    MP4 muxer scales a video track's time base (exact for any rate)."""
+    while res < 10000:
+        res, inc = res * 2, inc * 2
+    return res, inc
+
+
+class Mp4Writer:
+    """A streaming MP4 muxer of one ``mp4v`` (MPEG-4 Part 2) video track,
+    laid out as FFmpeg's MP4 muxer lays out cv2's files: ``ftyp``, an 8-byte
+    ``free`` box, the ``mdat`` the packets are appended to, and at
+    :meth:`close` the ``moov``. An ``mdat`` past 4 GiB takes the ``free``
+    box's bytes for a 64-bit size; chunk offsets past 2^32 make the chunk
+    table ``co64``. Each packet is a chunk of its own; only the sample
+    table (size, offset and key flag of each packet) stays in memory.
+
+    `timescale` and `delta`: the track's time units a second and a
+    packet's duration in them (:func:`mp4_timescale`); `config`: the
+    decoder's headers (VOS, VO and VOL), the ``esds``
+    DecoderSpecificInfo."""
+
+    def __init__(self, path, width: int, height: int, timescale: int,
+                 delta: int, config: bytes):
+        self.path = str(path)
+        self.width, self.height = int(width), int(height)
+        self.timescale, self.delta = int(timescale), int(delta)
+        self.config = bytes(config)
+        self._sizes = array("I")
+        self._offsets = array("Q")
+        self._keys = array("I")  # 1-based sample numbers
+        self._fh = open(self.path, "wb")
+        self._fh.write(_box(b"ftyp", b"isom", struct.pack(">I", 0x200),
+                            b"isomiso2mp41"))
+        self._mdat = self._fh.tell()  # the free box, then the mdat's header
+        self._fh.write(_box(b"free") + struct.pack(">I4s", 8, b"mdat"))
+        self._pos = self._mdat + 16
+
+    def __len__(self) -> int:
+        return len(self._sizes)
+
+    def add(self, packet: bytes, key: bool):
+        """Append one frame's packet; `key`: an I-VOP."""
+        if self._fh is None:
+            raise ValueError(f"{self.path}: the MP4 writer is closed")
+        self._fh.write(packet)
+        self._sizes.append(len(packet))
+        self._offsets.append(self._pos)
+        if key:
+            self._keys.append(len(self._sizes))
+        self._pos += len(packet)
+
+    def close(self):
+        """Write the mdat's size and the moov; a second call does
+        nothing."""
+        if self._fh is None:
+            return
+        fh, self._fh = self._fh, None
+        try:
+            size = self._pos - (self._mdat + 8)
+            if size > _U32:
+                fh.seek(self._mdat)
+                fh.write(struct.pack(">I4sQ", 1, b"mdat",
+                                     self._pos - self._mdat))
+            else:
+                fh.seek(self._mdat + 8)
+                fh.write(struct.pack(">I4s", size, b"mdat"))
+            fh.seek(self._pos)
+            fh.write(self.moov())
+        finally:
+            fh.close()
+
+    def moov(self) -> bytes:
+        """The ``moov`` box of the packets added so far."""
+        n = len(self._sizes)
+        duration = n * self.delta
+        movie = (duration * 1000 + self.timescale // 2) // self.timescale
+        v = 1 if max(duration, movie) > _U32 else 0
+        times = ">QQIQ" if v else ">IIII"
+        mvhd = _full_box(b"mvhd", v, 0, struct.pack(times, 0, 0, 1000, movie),
+                         struct.pack(">IH10x", 0x10000, 0x100), _MATRIX,
+                         bytes(24), struct.pack(">I", 2))
+        tk = ">QQI4xQ" if v else ">III4xI"
+        tkhd = _full_box(b"tkhd", v, 3, struct.pack(tk, 0, 0, 1, movie),
+                         bytes(8), struct.pack(">HHH2x", 0, 0, 0), _MATRIX,
+                         struct.pack(">II", self.width << 16,
+                                     self.height << 16))
+        md = ">QQIQ" if v else ">IIII"
+        mdhd = _full_box(b"mdhd", v, 0, struct.pack(
+            md, 0, 0, self.timescale, duration), struct.pack(">HH", 0x55C4,
+                                                               0))
+        hdlr = _full_box(b"hdlr", 0, 0, struct.pack(">I4s12x", 0, b"vide"),
+                         b"VideoHandler\0")
+        vmhd = _full_box(b"vmhd", 0, 1, bytes(8))
+        dinf = _box(b"dinf", _full_box(b"dref", 0, 0, struct.pack(">I", 1),
+                                       _full_box(b"url ", 0, 1)))
+        total = sum(self._sizes)
+        seconds = duration / self.timescale if duration else 1.0
+        rate = int(total * 8 / seconds)
+        # MPEG-4 Visual (0x20), a visual stream; the largest packet, the
+        # mean bit rate as both rates
+        buffer = min(max(self._sizes, default=0), 0xFFFFFF)
+        dcd = _desc(0x04, bytes([0x20, 0x11]) + buffer.to_bytes(3, "big")
+                    + struct.pack(">II", rate, rate)
+                    + _desc(0x05, self.config))
+        esds = _full_box(b"esds", 0, 0, _desc(0x03, struct.pack(">HB", 1, 0)
+                                             + dcd + _desc(0x06, b"\x02")))
+        entry = _box(b"mp4v", bytes(6), struct.pack(">H", 1), bytes(16),
+                     struct.pack(">HHIII", self.width, self.height,
+                                 0x480000, 0x480000, 0),
+                     struct.pack(">H", 1), bytes(32),
+                     struct.pack(">Hh", 0x18, -1), esds)
+        stsd = _full_box(b"stsd", 0, 0, struct.pack(">I", 1), entry)
+        stts = _full_box(b"stts", 0, 0, struct.pack(">I", 1 if n else 0),
+                         struct.pack(">II", n, self.delta) if n else b"")
+        stss = _full_box(b"stss", 0, 0, struct.pack(">I", len(self._keys)),
+                         _be(self._keys, "I"))
+        stsc = _full_box(b"stsc", 0, 0, struct.pack(">I", 1 if n else 0),
+                         struct.pack(">III", 1, 1, 1) if n else b"")
+        stsz = _full_box(b"stsz", 0, 0, struct.pack(">II", 0, n),
+                         _be(self._sizes, "I"))
+        wide = n and self._offsets[-1] > _U32
+        stco = _full_box(b"co64" if wide else b"stco", 0, 0,
+                         struct.pack(">I", n),
+                         _be(self._offsets, "Q" if wide else "I"))
+        stbl = _box(b"stbl", stsd, stts, stss, stsc, stsz, stco)
+        minf = _box(b"minf", vmhd, dinf, stbl)
+        trak = _box(b"trak", tkhd, _box(b"mdia", mdhd, hdlr, minf))
+        return _box(b"moov", mvhd, trak)
+
+
+def _be(values: array, kind: str) -> bytes:
+    """`values` as big-endian `kind` ("I" or "Q") integers."""
+    return np.asarray(values, np.uint64).astype(">u4" if kind == "I" else
+                                                ">u8").tobytes()

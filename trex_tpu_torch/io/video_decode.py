@@ -28,7 +28,9 @@ quarter-pel, interlace, data partitioning, MPEG quantisation, short
 headers, OBMC, other shapes, depths and chroma formats, VOPs that are not
 coded, a VOL whose size is not the container's, Xvid and DivX builds and
 old libavcodec builds (whose workarounds and IDCT FFmpeg switches on), an
-edit list that moves the first frame;
+edit list that moves the first frame; of every codec an odd frame height
+(cv2's writer writes none; libswscale converts one by its scaler, not by
+the unscaled path rebuilt here);
 of MJPEG progressive, lossless or arithmetic coding and sampling other than
 4:2:0; raw formats other than these (an RGB DIB among them, which
 cv2 5.0.0 itself reads with a corrupted heap). ``io/video.py`` sends these to
@@ -142,6 +144,9 @@ class _Stream:
                                               else "")
         if self.kind == "mjpeg" and self.refused is None:
             self.refused = _mjpeg_refusal(c)
+        if self.kind and self.refused is None and c.height % 2:
+            self.refused = (f"an odd frame height ({c.height}), which "
+                            f"libswscale converts to BGR by another path")
 
 
 class VideoFile:

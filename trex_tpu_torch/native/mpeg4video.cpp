@@ -21,10 +21,16 @@
 //   its x86 SIMD (yuv_2_rgb.asm) computes it: 16-bit fixed point, pmulhw
 //   products, chroma repeated over each 2x2 block; or that BGR's grey
 //   as cvtColor(COLOR_BGR2GRAY) computes it.
+// - trex_m4v_enc_*: the port's own MPEG-4 Part 2 encoder of the streams
+//   the decoder above reads (trex_tpu_torch/io/video_encode.py drives it;
+//   tests/test_torch_video_encode.py holds cv2's decode, the decoder's and
+//   its reconstruction equal).
 //
 // Built with -ffp-contract=off like the rest of the host library; every
-// step here is integer arithmetic.
+// step here is integer arithmetic but the encoder's rate control, whose
+// few double operations IEEE fixes: the same bits on every host.
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -653,10 +659,12 @@ struct Decoder {
 
   // -- prediction ------------------------------------------------------------
 
-  int pred_dc(int n, int level, int* dir) {
+  // the DC block n is predicted from (in quantised units) and the
+  // direction, as pred_dc reads them
+  int dc_pred(int n, int* dir) const {
     int scale = n < 4 ? kYDcScale[qscale] : kCDcScale[qscale];
     int wrap = block_wrap(n);
-    int16_t* dc = &dc_val[size_t(block_index(n))];
+    const int16_t* dc = &dc_val[size_t(block_index(n))];
     int a = dc[-1], bb = dc[-1 - wrap], c = dc[-wrap];
     if (first_slice_line && n != 3) {
       if (n != 2) bb = c = 1024;
@@ -673,13 +681,20 @@ struct Decoder {
       pred = a;
       *dir = 0;
     }
-    pred = (pred + (scale >> 1)) / scale;
-    level += pred;
-    int ret = level;
-    level *= scale;
+    return (pred + (scale >> 1)) / scale;
+  }
+
+  // keep block n's DC `level` (quantised) for the predictions after it
+  void dc_store(int n, int level) {
+    level *= n < 4 ? kYDcScale[qscale] : kCDcScale[qscale];
     if (level & ~2047) level = level < 0 ? 0 : 2047;
-    dc[0] = int16_t(level);
-    return ret;
+    dc_val[size_t(block_index(n))] = int16_t(level);
+  }
+
+  int pred_dc(int n, int level, int* dir) {
+    level += dc_pred(n, dir);
+    dc_store(n, level);
+    return level;
   }
 
   void pred_ac(int16_t* blk, int n, int dir) {
@@ -1181,10 +1196,30 @@ struct Decoder {
     return kOk;
   }
 
-  int decode_vop(Bits& b) {
+  int start_vop() {
     if (pict_type == 1 && !have_ref) return kErrNoRef;
     std::fill(mv.begin(), mv.end(), int16_t(0));
     mb_x = mb_y = 0;
+    return kOk;
+  }
+
+  // the macroblock at (mb_x, mb_y), decoded and reconstructed into cur
+  int macroblock(Bits& b) {
+    int r = decode_mb(b);
+    if (r) return r;
+    update_tables();
+    if (!mb_intra) motion();
+    reconstruct();
+    return kOk;
+  }
+
+  void end_vop() {
+    std::swap(cur, ref);
+    have_ref = true;
+  }
+
+  int decode_vop(Bits& b) {
+    if (int r = start_vop()) return r;
     for (;;) {
       // a slice (video packet) from mb_x, mb_y
       first_slice_line = true;
@@ -1195,11 +1230,7 @@ struct Decoder {
         for (; mb_x < mb_w; ++mb_x) {
           if (resync_mb_x == mb_x && resync_mb_y + 1 == mb_y)
             first_slice_line = false;
-          int r = decode_mb(b);
-          if (r) return r;
-          update_tables();
-          if (!mb_intra) motion();
-          reconstruct();
+          if (int r = macroblock(b)) return r;
           int next = is_resync(b);
           if (next && mb_x + mb_y * mb_w + 1 >= next) {
             slice_end = true;
@@ -1220,8 +1251,7 @@ struct Decoder {
       if (r) return r;
       clean_buffers();
     }
-    std::swap(cur, ref);
-    have_ref = true;
+    end_vop();
     return kOk;
   }
 
@@ -1232,6 +1262,698 @@ struct Decoder {
     int r = headers(b, false);
     if (r) return r == kEnd ? int(kErrHeader) : r;
     return decode_vop(b);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The encoder: MPEG-4 Part 2 Simple Profile as the decoder above decodes
+// it (what cv2's VideoWriter writes under `mp4v`, without its user data):
+// one rectangular progressive VOL with H.263 quantisation, an I-VOP every
+// kGop frames and P-VOPs between, intra DC prediction without AC
+// prediction, one half-pel motion vector a macroblock, not-coded
+// macroblocks, no video packets. Every macroblock is decoded from its
+// bits by an embedded Decoder as soon as it is written: the reference
+// pictures are the decoder's own, so the encoder's reconstruction is what
+// a decoder returns, and a macroblock the decoder would read otherwise is
+// an error (kErrEncoder), never a silent drift.
+// ---------------------------------------------------------------------------
+
+constexpr int kErrEncoder = -7;
+
+// kDct[u][x] = round(2^13 C(u) / 2 cos((2x + 1) u pi / 16)), C(0) = 1/sqrt(2)
+const int16_t kDct[8][8] = {
+    {2896, 2896, 2896, 2896, 2896, 2896, 2896, 2896},
+    {4017, 3406, 2276, 799, -799, -2276, -3406, -4017},
+    {3784, 1567, -1567, -3784, -3784, -1567, 1567, 3784},
+    {3406, -799, -4017, -2276, 2276, 4017, 799, -3406},
+    {2896, -2896, -2896, 2896, 2896, -2896, -2896, 2896},
+    {2276, -4017, 799, 3406, -3406, -799, 4017, -2276},
+    {1567, -3784, 3784, -1567, -1567, 3784, -3784, 1567},
+    {799, -2276, 3406, -4017, 4017, -3406, 2276, -799},
+};
+// kDctT[x][u] = kDct[u][x]
+const int16_t kDctT[8][8] = {
+    {2896, 4017, 3784, 3406, 2896, 2276, 1567, 799},
+    {2896, 3406, 1567, -799, -2896, -4017, -3784, -2276},
+    {2896, 2276, -1567, -4017, -2896, 799, 3784, 3406},
+    {2896, 799, -3784, -2276, 2896, 3406, -1567, -4017},
+    {2896, -799, -3784, 2276, 2896, -3406, -1567, 4017},
+    {2896, -2276, -1567, 4017, -2896, -799, 3784, -3406},
+    {2896, -3406, 1567, 799, -2896, 4017, -3784, 2276},
+    {2896, -4017, 3784, -3406, 2896, -2276, 1567, -799},
+};
+
+// The forward DCT of an 8x8 block of samples or differences (|v| <= 255,
+// natural order) into out (natural order, orthonormal scale: a flat block
+// of v gives 8 v at 0). Integer arithmetic: the same bits on every host.
+void fdct(const int16_t* in, int* out) {
+  bool flat = true;
+  for (int i = 1; i < 64; ++i) flat &= in[i] == in[0];
+  if (flat) {
+    // what the passes below give a flat block: every row and column sum
+    // of kDct but the first is 0
+    std::memset(out, 0, 64 * sizeof(int));
+    int t = (kDct[0][0] * 8 * in[0] + (1 << 9)) >> 10;
+    out[0] = (kDct[0][0] * 8 * t + (1 << 15)) >> 16;
+    return;
+  }
+  int tmp[64];  // tmp[y * 8 + u]: coefficient u of row y, times 8
+  for (int y = 0; y < 8; ++y) {
+    int s[8] = {};
+    for (int x = 0; x < 8; ++x)
+      for (int u = 0; u < 8; ++u) s[u] += kDctT[x][u] * in[y * 8 + x];
+    for (int u = 0; u < 8; ++u) tmp[y * 8 + u] = (s[u] + (1 << 9)) >> 10;
+  }
+  for (int v = 0; v < 8; ++v) {
+    int s[8] = {};
+    for (int y = 0; y < 8; ++y)
+      for (int u = 0; u < 8; ++u) s[u] += kDct[v][y] * tmp[y * 8 + u];
+    for (int u = 0; u < 8; ++u) out[v * 8 + u] = (s[u] + (1 << 15)) >> 16;
+  }
+}
+
+// BT.601 limited range, times 2^15: Y from B, G and R (the sum 219/255),
+// U and V (each row summing to 0, so that grey gives 128)
+constexpr int kYb = 3208, kYg = 16520, kYr = 8414;
+constexpr int kUb = 14392, kUg = -9535, kUr = -4857;
+constexpr int kVb = -2340, kVg = -12052, kVr = 14392;
+
+struct PutBits {
+  std::vector<uint8_t> buf;  // zeros from pos on
+  int64_t pos = 0;           // in bits
+
+  // the next n (<= 32) bits, v < 2^n
+  void put(int n, uint32_t v) {
+    if (n == 0) return;
+    size_t byte = size_t(pos >> 3);
+    uint64_t w = uint64_t(v) << (64 - n - int(pos & 7));
+    for (int i = 0; i < 5; ++i) buf[byte + i] |= uint8_t(w >> (56 - 8 * i));
+    pos += n;
+  }
+  template <typename T>
+  void code(const T* c) { put(c[1], c[0]); }
+  void start_code(int code) {
+    put(24, 1);
+    put(8, uint32_t(code));
+  }
+  // next_start_code: a 0, then 1s to the byte boundary
+  void stuffing() {
+    put(1, 0);
+    int k = int(-pos & 7);
+    if (k) put(k, (1u << k) - 1);
+  }
+  int64_t bytes() const { return (pos + 7) >> 3; }
+  void clear() {
+    std::fill_n(buf.begin(), size_t(bytes()) + 8, uint8_t(0));
+    pos = 0;
+  }
+};
+
+// the TCOEF symbol of (last, run, level) in each table, -1 where none
+struct CoefIndex {
+  int16_t sym[2][2][64][28];  // [intra][last][run][level]
+  CoefIndex() {
+    std::memset(sym, -1, sizeof(sym));
+    const RunLevel* rls[2] = {&tables().inter, &tables().intra};
+    for (int t = 0; t < 2; ++t)
+      for (int k = 0; k < 102; ++k)
+        sym[t][k >= rls[t]->last][rls[t]->run[k]][rls[t]->level[k]] =
+            int16_t(k);
+  }
+  int at(int intra, int last, int run, int level) const {
+    if (run < 0 || run > 63 || level < 1 || level > 27) return -1;
+    return sym[intra][last][run][level];
+  }
+};
+
+const CoefIndex& coef_index() {
+  static const CoefIndex c;
+  return c;
+}
+
+// The SAD of two 16x16 blocks, summed 4 rows at a time: past `limit`,
+// the sum so far (some value past it).
+inline int sad16(const uint8_t* a, int64_t as, const uint8_t* b, int64_t bs,
+                 int limit) {
+  int s = 0;
+  for (int j = 0; j < 16; j += 4) {
+    for (int r = j; r < j + 4; ++r)
+      for (int i = 0; i < 16; ++i)
+        s += std::abs(int(a[r * as + i]) - int(b[r * bs + i]));
+    if (s > limit) break;
+  }
+  return s;
+}
+
+// bits of a motion vector difference's code (f_code 1 ... 7), as put_mvd
+inline int mvd_bits(int d, int f) {
+  if (d == 0) return 1;
+  int a = std::abs(d) - 1;
+  int code = std::min((a >> (f - 1)) + 1, 32);
+  return kMv[code][1] + 1 + (f - 1);
+}
+
+inline int median3(int a, int b, int c) {
+  return std::max(std::min(a, b), std::min(std::max(a, b), c));
+}
+
+struct Encoder {
+  Decoder dec;  // reads every macroblock back: the reference pictures
+  int width = 0, height = 0, mb_w = 0, mb_h = 0;
+  static constexpr int kGop = 12;  // frames from one I-VOP to the next
+  int res = 1, inc = 1, fixed_q = 0;
+  int time_bits = 1;
+  int64_t frame = 0, last_time_base = 0;
+  Picture src;  // the frame, macroblock-aligned, edges replicated
+  PutBits pb;
+  std::vector<uint8_t> hdr;  // VOS, VO and VOL
+  // the quantiser of the next VOP and the bits written so far
+  int q = 3;
+  int64_t spent = 0;
+  // pass 1 of a P-VOP: each macroblock's vector (half-pel) and intra flag;
+  // the last P-VOP's vectors seed the next search
+  std::vector<int16_t> mvf, last_mvf;
+  std::vector<uint8_t> intra;
+  int f_code = 1;
+
+  int init(int w, int h, int res_, int inc_, int q_) {
+    if (w < 1 || h < 1 || w > 8191 || h > 8191 || res_ < 1 ||
+        res_ > 65535 || inc_ < 1 || q_ < 0 || q_ > 31 || q_ == 1)
+      return kErrHeader;
+    width = w;
+    height = h;
+    mb_w = (w + 15) / 16;
+    mb_h = (h + 15) / 16;
+    res = res_;
+    inc = inc_;
+    fixed_q = q_;
+    q = q_ ? q_ : 3;
+    time_bits = log2_floor(unsigned(res - 1)) + 1;
+    src.p[0].alloc(mb_w * 16, mb_h * 16);
+    src.p[1].alloc(mb_w * 8, mb_h * 8);
+    src.p[2].alloc(mb_w * 8, mb_h * 8);
+    mvf.assign(size_t(mb_w) * mb_h * 2, 0);
+    last_mvf = mvf;
+    intra.assign(size_t(mb_w) * mb_h, 0);
+    // a macroblock: its header and six blocks of a DC and 63 third
+    // escapes at most
+    pb.buf.assign(size_t(mb_w) * mb_h * 1500 + 256, 0);
+    write_headers();
+    Bits b;
+    b.p = hdr.data();
+    b.size = int64_t(hdr.size()) * 8;
+    int r = dec.headers(b, false);
+    return r == kEnd && dec.have_vol ? int(kOk) : int(kErrEncoder);
+  }
+
+  void write_headers() {
+    PutBits h;
+    h.buf.assign(64, 0);
+    h.start_code(0xB0);  // visual object sequence
+    h.put(8, 0x01);      // simple profile, level 1
+    h.start_code(0xB5);  // visual object
+    h.put(1, 1);         // is_visual_object_identifier
+    h.put(4, 1);         // verid
+    h.put(3, 1);         // priority
+    h.put(4, 1);         // video ID
+    h.put(1, 0);         // no video_signal_type
+    h.stuffing();
+    h.start_code(0x00);  // video object 0
+    h.start_code(0x20);  // video object layer 0
+    h.put(1, 0);         // random_accessible_vol
+    h.put(8, 1);         // simple object type
+    h.put(1, 1);         // is_object_layer_identifier
+    h.put(4, 1);         // verid
+    h.put(3, 1);         // priority
+    h.put(4, 1);         // aspect ratio: square pixels
+    h.put(1, 1);         // vol_control_parameters
+    h.put(2, 1);         // 4:2:0
+    h.put(1, 1);         // low_delay
+    h.put(1, 0);         // no vbv_parameters
+    h.put(2, 0);         // rectangular
+    h.put(1, 1);
+    h.put(16, uint32_t(res));  // vop_time_increment_resolution
+    h.put(1, 1);
+    h.put(1, 0);  // no fixed_vop_rate
+    h.put(1, 1);
+    h.put(13, uint32_t(width));
+    h.put(1, 1);
+    h.put(13, uint32_t(height));
+    h.put(1, 1);
+    h.put(1, 0);  // progressive
+    h.put(1, 1);  // obmc_disable
+    h.put(1, 0);  // no sprites
+    h.put(1, 0);  // 8 bits
+    h.put(1, 0);  // H.263 quantisation
+    h.put(1, 1);  // complexity_estimation_disable
+    h.put(1, 1);  // resync_marker_disable
+    h.put(1, 0);  // not data-partitioned
+    h.put(1, 0);  // no scalability
+    h.stuffing();
+    hdr.assign(h.buf.begin(), h.buf.begin() + h.bytes());
+  }
+
+  // -- the input ------------------------------------------------------------
+
+  // BGR (channels 3) or grey (1) rows into src: Y, U and V, the chroma of
+  // each 2x2 block averaged, then the macroblock padding replicated
+  void load(const uint8_t* img, int64_t stride, int channels) {
+    Plane& Y = src.p[0];
+    Plane& U = src.p[1];
+    Plane& V = src.p[2];
+    int cw = (width + 1) / 2, ch = (height + 1) / 2;
+    if (channels == 1) {
+      uint8_t lut[256];
+      for (int g = 0; g < 256; ++g)
+        lut[g] = uint8_t(((g * (kYb + kYg + kYr) + (1 << 14)) >> 15) + 16);
+      for (int j = 0; j < height; ++j) {
+        const uint8_t* s = img + j * stride;
+        uint8_t* d = &Y.px[size_t(j) * Y.stride];
+        for (int i = 0; i < width; ++i) d[i] = lut[s[i]];
+      }
+      for (int j = 0; j < ch; ++j) {
+        std::memset(&U.px[size_t(j) * U.stride], 128, size_t(cw));
+        std::memset(&V.px[size_t(j) * V.stride], 128, size_t(cw));
+      }
+    } else {
+      for (int j = 0; j < height; ++j) {
+        const uint8_t* s = img + j * stride;
+        uint8_t* d = &Y.px[size_t(j) * Y.stride];
+        for (int i = 0; i < width; ++i, s += 3)
+          d[i] = uint8_t(((s[0] * kYb + s[1] * kYg + s[2] * kYr + (1 << 14)) >>
+                          15) + 16);
+      }
+      for (int j = 0; j < ch; ++j) {
+        const uint8_t* r0 = img + int64_t(2 * j) * stride;
+        const uint8_t* r1 =
+            img + int64_t(std::min(2 * j + 1, height - 1)) * stride;
+        uint8_t* du = &U.px[size_t(j) * U.stride];
+        uint8_t* dv = &V.px[size_t(j) * V.stride];
+        for (int i = 0; i < cw; ++i) {
+          int x0 = 6 * i, x1 = 3 * std::min(2 * i + 1, width - 1);
+          int b = r0[x0] + r0[x1] + r1[x0] + r1[x1];
+          int g = r0[x0 + 1] + r0[x1 + 1] + r1[x0 + 1] + r1[x1 + 1];
+          int r = r0[x0 + 2] + r0[x1 + 2] + r1[x0 + 2] + r1[x1 + 2];
+          du[i] = uint8_t(((b * kUb + g * kUg + r * kUr + (1 << 16)) >> 17) +
+                          128);
+          dv[i] = uint8_t(((b * kVb + g * kVg + r * kVr + (1 << 16)) >> 17) +
+                          128);
+        }
+      }
+    }
+    pad(Y, width, height);
+    pad(U, cw, ch);
+    pad(V, cw, ch);
+  }
+
+  static void pad(Plane& p, int w, int h) {
+    for (int j = 0; j < h; ++j) {
+      uint8_t* row = &p.px[size_t(j) * p.stride];
+      std::memset(row + w, row[w - 1], size_t(p.w - w));
+    }
+    for (int j = h; j < p.h; ++j)
+      std::memcpy(&p.px[size_t(j) * p.stride],
+                  &p.px[size_t(h - 1) * p.stride], size_t(p.w));
+  }
+
+  // -- motion search (pass 1 of a P-VOP) ----------------------------------
+
+  // SAD of the source macroblock at (x, y) against the reference luma at
+  // the half-pel vector (vx, vy), as the decoder's motion() predicts it;
+  // once past `limit`, some value past it
+  int sad_at(int x, int y, int vx, int vy, int limit = 1 << 30) {
+    const Plane& r = dec.ref.p[0];
+    const Plane& s = src.p[0];
+    uint8_t tmp[17 * 17], pred[256];
+    int64_t ss;
+    const uint8_t* w = Decoder::window(r, x + (vx >> 1), y + (vy >> 1), 16,
+                                       16, tmp, &ss);
+    int dxy = ((vy & 1) << 1) | (vx & 1);
+    if (dxy) {
+      hpel_put(pred, 16, w, ss, 16, 16, dxy, dec.no_rounding);
+      w = pred;
+      ss = 16;
+    }
+    return sad16(&s.px[size_t(y) * s.stride + x], s.stride, w, ss, limit);
+  }
+
+  // each macroblock's vector and intra decision; the smallest f_code
+  // that holds every vector
+  void motion_search() {
+    const int lim = 126;  // |vector| in half-pels: f_code 3 at most
+    int maxv = 0;
+    for (int my = 0; my < mb_h; ++my)
+      for (int mx = 0; mx < mb_w; ++mx) {
+        size_t k = size_t(my) * mb_w + mx;
+        int x = mx * 16, y = my * 16;
+        // the median of the vectors left, above and above right (0 for
+        // one outside or intra), the cost's predictor
+        auto at = [&](int cx, int cy, int c) {
+          if (cx < 0 || cy < 0 || cx >= mb_w) return 0;
+          return int(mvf[(size_t(cy) * mb_w + cx) * 2 + c]);
+        };
+        int px = median3(at(mx - 1, my, 0), at(mx, my - 1, 0),
+                         at(mx + 1, my - 1, 0));
+        int py = median3(at(mx - 1, my, 1), at(mx, my - 1, 1),
+                         at(mx + 1, my - 1, 1));
+        int sad0 = sad_at(x, y, 0, 0);
+        int best = sad0 + q * (mvd_bits(px, 2) + mvd_bits(py, 2));
+        // past the best so far, some cost past it
+        auto cost = [&](int vx, int vy) {
+          int bits = q * (mvd_bits(vx - px, 2) + mvd_bits(vy - py, 2));
+          return sad_at(x, y, vx, vy, best - bits) + bits;
+        };
+        int bx = 0, by = 0;
+        if (sad0 > 256) {
+          auto consider = [&](int vx, int vy) {
+            vx = std::clamp(vx, -lim, lim) & ~1;
+            vy = std::clamp(vy, -lim, lim) & ~1;
+            if (vx == bx && vy == by) return false;
+            int c = cost(vx, vy);
+            if (c >= best) return false;
+            best = c;
+            bx = vx;
+            by = vy;
+            return true;
+          };
+          consider(px, py);
+          consider(at(mx - 1, my, 0), at(mx - 1, my, 1));
+          consider(at(mx, my - 1, 0), at(mx, my - 1, 1));
+          consider(at(mx + 1, my - 1, 0), at(mx + 1, my - 1, 1));
+          consider(last_mvf[k * 2], last_mvf[k * 2 + 1]);
+          // a full-pel diamond from the best, then its diagonals
+          static const int dirs[8][2] = {{2, 0},  {-2, 0}, {0, 2},  {0, -2},
+                                         {2, 2},  {-2, 2}, {2, -2}, {-2, -2}};
+          for (int it = 0; it < 64; ++it) {
+            int cx = bx, cy = by;
+            bool moved = false;
+            for (int d = 0; d < 4; ++d)
+              moved |= consider(cx + dirs[d][0], cy + dirs[d][1]);
+            if (!moved) break;
+          }
+          int cx = bx, cy = by;
+          for (int d = 4; d < 8; ++d) consider(cx + dirs[d][0], cy + dirs[d][1]);
+          // half-pels around it
+          cx = bx;
+          cy = by;
+          for (int dy = -1; dy <= 1; ++dy)
+            for (int dx = -1; dx <= 1; ++dx) {
+              if (!dx && !dy) continue;
+              int vx = cx + dx, vy = cy + dy;
+              if (std::abs(vx) > lim || std::abs(vy) > lim) continue;
+              int c = cost(vx, vy);
+              if (c < best) {
+                best = c;
+                bx = vx;
+                by = vy;
+              }
+            }
+          // intra where the macroblock's own spread is well below the
+          // best prediction's error
+          const Plane& s = src.p[0];
+          const uint8_t* a = &s.px[size_t(y) * s.stride + x];
+          int sum = 0;
+          for (int j = 0; j < 16; ++j)
+            for (int i = 0; i < 16; ++i) sum += a[j * s.stride + i];
+          int mean = (sum + 128) >> 8, dev = 0;
+          for (int j = 0; j < 16; ++j)
+            for (int i = 0; i < 16; ++i)
+              dev += std::abs(int(a[j * s.stride + i]) - mean);
+          if (dev + 500 < best - q * (mvd_bits(bx - px, 2) +
+                                      mvd_bits(by - py, 2))) {
+            intra[k] = 1;
+            bx = by = 0;
+          }
+        }
+        mvf[k * 2] = int16_t(bx);
+        mvf[k * 2 + 1] = int16_t(by);
+        maxv = std::max({maxv, std::abs(bx), std::abs(by)});
+      }
+    // vectors in [-2^(4+f), 2^(4+f) - 1]
+    f_code = 1;
+    while ((16 << f_code) <= maxv) ++f_code;
+  }
+
+  // -- bits -------------------------------------------------------------------
+
+  void put_dc(int n, int diff) {
+    int a = std::abs(diff), size = 0;
+    while (a >> size) ++size;
+    pb.code(n < 4 ? kDcLum[size] : kDcChrom[size]);
+    if (size) {
+      pb.put(size, uint32_t(diff > 0 ? diff : diff + (1 << size) - 1));
+      if (size > 8) pb.put(1, 1);  // marker
+    }
+  }
+
+  void put_coef(int is_intra, int last, int run, int level) {
+    const RunLevel& rl = is_intra ? tables().intra : tables().inter;
+    const uint16_t (*vlc)[2] = is_intra ? kIntraVlc : kInterVlc;
+    const CoefIndex& ci = coef_index();
+    int a = std::abs(level);
+    uint32_t sign = level < 0;
+    int s = ci.at(is_intra, last, run, a);
+    if (s >= 0) {
+      pb.code(vlc[s]);
+      pb.put(1, sign);
+      return;
+    }
+    pb.code(vlc[102]);
+    // first escape: the level less the largest of its run
+    s = ci.at(is_intra, last, run, a - rl.max_level[last][run]);
+    if (s >= 0) {
+      pb.put(1, 0);
+      pb.code(vlc[s]);
+      pb.put(1, sign);
+      return;
+    }
+    // second escape: the run less the longest of its level, less 1
+    if (a <= 64) {
+      s = ci.at(is_intra, last, run - rl.max_run[last][a] - 1, a);
+      if (s >= 0) {
+        pb.put(2, 2);
+        pb.code(vlc[s]);
+        pb.put(1, sign);
+        return;
+      }
+    }
+    // third escape: fixed length
+    pb.put(2, 3);
+    pb.put(1, uint32_t(last));
+    pb.put(6, uint32_t(run));
+    pb.put(1, 1);
+    pb.put(12, uint32_t(level) & 0xfff);
+    pb.put(1, 1);
+  }
+
+  // the coefficients of `lv` (natural order) from zigzag index `start`
+  void put_block(const int16_t* lv, int start, int is_intra) {
+    int end = -1;
+    for (int i = start; i < 64; ++i)
+      if (lv[kZigzag[i]]) end = i;
+    int run = 0;
+    for (int i = start; i <= end; ++i) {
+      int l = lv[kZigzag[i]];
+      if (!l) {
+        ++run;
+        continue;
+      }
+      put_coef(is_intra, i == end, run, l);
+      run = 0;
+    }
+  }
+
+  void put_mvd(int d) {
+    int m = 16 << f_code;
+    d = ((d + m) & (2 * m - 1)) - m;
+    if (d == 0) {
+      pb.code(kMv[0]);
+      return;
+    }
+    int shift = f_code - 1, a = std::abs(d) - 1;
+    pb.code(kMv[(a >> shift) + 1]);
+    pb.put(1, d < 0);
+    if (shift) pb.put(shift, uint32_t(a & ((1 << shift) - 1)));
+  }
+
+  // -- macroblocks ----------------------------------------------------------
+
+  // block n of the current macroblock: its plane and position
+  uint8_t* block_at(Picture& p, int n, int64_t* stride) const {
+    Plane& pl = p.p[n < 4 ? 0 : n - 3];
+    int x = n < 4 ? dec.mb_x * 16 + (n & 1) * 8 : dec.mb_x * 8;
+    int y = n < 4 ? dec.mb_y * 16 + (n >> 1) * 8 : dec.mb_y * 8;
+    *stride = pl.stride;
+    return &pl.px[size_t(y) * pl.stride + x];
+  }
+
+  void intra_mb(bool in_p) {
+    int16_t lv[6][64], in[64];
+    int coef[64], dc[6], cbp = 0;
+    for (int n = 0; n < 6; ++n) {
+      int64_t ss;
+      const uint8_t* s = block_at(src, n, &ss);
+      for (int j = 0; j < 8; ++j)
+        for (int i = 0; i < 8; ++i) in[j * 8 + i] = s[j * ss + i];
+      fdct(in, coef);
+      int scale = n < 4 ? kYDcScale[q] : kCDcScale[q];
+      dc[n] = (coef[0] + (scale >> 1)) / scale;
+      bool coded = false;
+      lv[n][0] = 0;
+      for (int i = 1; i < 64; ++i) {
+        int l = std::min(std::abs(coef[i]) / (2 * q), 2047);
+        lv[n][i] = int16_t(coef[i] < 0 ? -l : l);
+        coded |= l != 0;
+      }
+      cbp |= int(coded) << (5 - n);
+    }
+    if (in_p) {
+      pb.put(1, 0);  // coded
+      pb.code(kInterMcbpc[4 + (cbp & 3)]);
+    } else {
+      pb.code(kIntraMcbpc[cbp & 3]);
+    }
+    pb.put(1, 0);  // no AC prediction
+    pb.code(kCbpy[cbp >> 2]);
+    for (int n = 0; n < 6; ++n) {
+      int dir;
+      put_dc(n, dc[n] - dec.dc_pred(n, &dir));
+      dec.dc_store(n, dc[n]);
+      if (cbp & (32 >> n)) put_block(lv[n], 1, 1);
+    }
+  }
+
+  void inter_mb(int vx, int vy) {
+    dec.mb_intra = false;
+    dec.mv_type = 0;
+    dec.mvs[0][0] = vx;
+    dec.mvs[0][1] = vy;
+    // the prediction: the reference itself under a zero vector, else
+    // motion()'s, into dec.cur
+    Picture* pred = &dec.ref;
+    if (vx || vy) {
+      dec.motion();
+      pred = &dec.cur;
+    }
+    int16_t lv[6][64], in[64];
+    int coef[64], cbp = 0;
+    for (int n = 0; n < 6; ++n) {
+      int64_t ss, ps;
+      const uint8_t* s = block_at(src, n, &ss);
+      const uint8_t* p = block_at(*pred, n, &ps);
+      bool same = true;
+      for (int j = 0; j < 8 && same; ++j)
+        same = std::memcmp(s + j * ss, p + j * ps, 8) == 0;
+      if (same) continue;
+      int sad = 0;
+      for (int j = 0; j < 8; ++j)
+        for (int i = 0; i < 8; ++i) {
+          in[j * 8 + i] = int16_t(s[j * ss + i] - p[j * ps + i]);
+          sad += std::abs(in[j * 8 + i]);
+        }
+      // |coefficient| <= sad / 4 (+ 1 for rounding) < 2.5 q: all zero
+      if (sad < 8 * q) continue;
+      fdct(in, coef);
+      bool coded = false;
+      for (int i = 0; i < 64; ++i) {
+        int a2 = 2 * std::abs(coef[i]);
+        int l = a2 > q ? std::min((a2 - q) / (4 * q), 2047) : 0;
+        lv[n][i] = int16_t(coef[i] < 0 ? -l : l);
+        coded |= l != 0;
+      }
+      cbp |= int(coded) << (5 - n);
+    }
+    if (vx == 0 && vy == 0 && cbp == 0) {
+      pb.put(1, 1);  // not coded
+      return;
+    }
+    pb.put(1, 0);
+    pb.code(kInterMcbpc[cbp & 3]);
+    pb.code(kCbpy[(cbp >> 2) ^ 15]);
+    int px, py;
+    dec.pred_motion(0, &px, &py);
+    put_mvd(vx - px);
+    put_mvd(vy - py);
+    for (int n = 0; n < 6; ++n)
+      if (cbp & (32 >> n)) put_block(lv[n], 0, 0);
+  }
+
+  // -- VOPs -----------------------------------------------------------------
+
+  // one frame into pb; returns 0 or a negative error
+  int encode(const uint8_t* img, int64_t stride, int channels) {
+    load(img, stride, channels);
+    bool key = frame % kGop == 0;
+    if (!fixed_q && frame) rate_control();
+    pb.clear();
+    if (!key) {
+      dec.no_rounding ^= 1;  // alternated over the P-VOPs against drift
+      motion_search();
+    }
+    pb.start_code(0xB6);
+    pb.put(2, key ? 0 : 1);
+    int64_t t = frame * inc, base = t / res;
+    for (int64_t k = base - last_time_base; k > 0; --k) pb.put(1, 1);
+    pb.put(1, 0);  // modulo_time_base
+    last_time_base = base;
+    pb.put(1, 1);
+    pb.put(time_bits, uint32_t(t % res));
+    pb.put(1, 1);
+    pb.put(1, 1);  // vop_coded
+    int rounding = key ? 0 : dec.no_rounding;
+    if (!key) pb.put(1, uint32_t(rounding));
+    pb.put(3, 0);  // intra_dc_vlc_thr: always the DC VLC
+    pb.put(5, uint32_t(q));
+    if (!key) pb.put(3, uint32_t(f_code));
+    // the decoder reads the header back: its VOP state is the encoder's
+    Bits b;
+    b.p = pb.buf.data();
+    b.size = pb.bytes() * 8;
+    if (dec.headers(b, false) != kOk || b.pos != pb.pos ||
+        dec.pict_type != (key ? 0 : 1) || dec.qscale != q)
+      return kErrEncoder;
+    if (int r = dec.start_vop()) return r;
+    dec.first_slice_line = true;
+    dec.resync_mb_x = dec.resync_mb_y = 0;
+    for (int my = 0; my < mb_h; ++my)
+      for (int mx = 0; mx < mb_w; ++mx) {
+        dec.mb_x = mx;
+        dec.mb_y = my;
+        if (my == 1 && mx == 0) dec.first_slice_line = false;
+        int64_t at = pb.pos;
+        size_t k = size_t(my) * mb_w + mx;
+        if (key || intra[k])
+          intra_mb(!key);
+        else
+          inter_mb(mvf[k * 2], mvf[k * 2 + 1]);
+        b.size = pb.bytes() * 8;
+        b.pos = at;
+        if (dec.macroblock(b) != kOk || b.pos != pb.pos) return kErrEncoder;
+      }
+    pb.stuffing();
+    dec.end_vop();
+    if (!key) last_mvf = mvf;
+    std::fill(intra.begin(), intra.end(), uint8_t(0));
+    spent += pb.pos;
+    ++frame;
+    return kOk;
+  }
+
+  // The quantiser of the next VOP, toward cv2's budget of w * h bits a
+  // frame: 3 + 28 * excess / (30 s of budget), rounded, where excess is
+  // the bits written less the budget of the frames written, kept within
+  // the range that maps to [2, 31] (a stream long under its budget does
+  // not bank what it did not spend).
+  void rate_control() {
+    const double budget = double(width) * height;
+    const double window = 30.0 * res / inc * budget;
+    double excess = double(spent) - budget * double(frame);
+    double lo = -window / 28, hi = window;
+    if (excess < lo || excess > hi) {
+      excess = std::clamp(excess, lo, hi);
+      spent = int64_t(excess + budget * double(frame));
+    }
+    q = std::clamp(int(std::lround(3.0 + 28.0 * excess / window)), 2, 31);
   }
 };
 
@@ -1415,6 +2137,68 @@ void trex_yuv420_bgr(const uint8_t* y, int64_t ys, const uint8_t* u,
         o[3 * i + 2] = uint8_t(std::clamp(Y + cr[i], 0, 255));
       }
     }
+  }
+}
+
+// An MPEG-4 Part 2 encoder of w x h frames at res / inc frames a second
+// (vop_time_increment_resolution res, each frame inc later), an I-VOP
+// every 12 frames; quantiser `q` 0: the rate control, 2-31: that
+// quantiser on every VOP. Null where a value is out of range.
+void* trex_m4v_enc_new(int32_t w, int32_t h, int32_t res, int32_t inc,
+                       int32_t q) {
+  auto* e = new Encoder();
+  if (e->init(w, h, res, inc, q) != kOk) {
+    delete e;
+    return nullptr;
+  }
+  return e;
+}
+
+void trex_m4v_enc_free(void* h) { delete static_cast<Encoder*>(h); }
+
+// The VOS, VO and VOL headers (an MP4's DecoderSpecificInfo) into out;
+// returns their bytes, or the bytes needed where `cap` is smaller.
+int64_t trex_m4v_enc_headers(void* h, uint8_t* out, int64_t cap) {
+  const auto* e = static_cast<Encoder*>(h);
+  int64_t n = int64_t(e->hdr.size());
+  if (n <= cap) std::memcpy(out, e->hdr.data(), size_t(n));
+  return n;
+}
+
+// The bytes a packet may need at most.
+int64_t trex_m4v_enc_capacity(void* h) {
+  return int64_t(static_cast<Encoder*>(h)->pb.buf.size());
+}
+
+// Encode one frame of h rows `stride` bytes apart, BGR (channels 3) or
+// grey (1), into out (trex_m4v_enc_capacity bytes); returns the packet's
+// bytes or a negative error. info: whether the VOP is an I-VOP, and its
+// quantiser.
+int64_t trex_m4v_enc_frame(void* h, const uint8_t* img, int64_t stride,
+                           int32_t channels, uint8_t* out, int32_t* info) {
+  auto* e = static_cast<Encoder*>(h);
+  if (channels != 1 && channels != 3) return kErrHeader;
+  int r = e->encode(img, stride, channels);
+  if (r != kOk) return r;
+  std::memcpy(out, e->pb.buf.data(), size_t(e->pb.bytes()));
+  info[0] = e->dec.pict_type == 0;
+  info[1] = e->dec.qscale;
+  return e->pb.bytes();
+}
+
+// The last frame's reconstruction, the decoder's picture, cropped: y
+// (w x h) and u, v ((w + 1) / 2 x (h + 1) / 2), the given strides.
+void trex_m4v_enc_recon(void* h, uint8_t* y, int64_t ys, uint8_t* u,
+                        uint8_t* v, int64_t cs) {
+  const auto* e = static_cast<Encoder*>(h);
+  const Picture& p = e->dec.ref;
+  int w = e->width, hh = e->height;
+  for (int j = 0; j < hh; ++j)
+    std::memcpy(y + j * ys, &p.p[0].px[size_t(j) * p.p[0].stride], size_t(w));
+  int cw = (w + 1) / 2, ch = (hh + 1) / 2;
+  for (int j = 0; j < ch; ++j) {
+    std::memcpy(u + j * cs, &p.p[1].px[size_t(j) * p.p[1].stride], size_t(cw));
+    std::memcpy(v + j * cs, &p.p[2].px[size_t(j) * p.p[2].stride], size_t(cw));
   }
 }
 

@@ -283,6 +283,13 @@ _SIGNATURES = {
                                _i64]),
     "trex_yuv420_bgr": (None, [_u8p, _i64, _u8p, _i64, _u8p, _i64, _i32,
                                _i32, _i32, _i32, _u8p]),
+    # mpeg4video.cpp: the MPEG-4 Part 2 encoder (io/video_encode.py)
+    "trex_m4v_enc_new": (_vp, [_i32, _i32, _i32, _i32, _i32]),
+    "trex_m4v_enc_free": (None, [_vp]),
+    "trex_m4v_enc_headers": (_i64, [_vp, _u8p, _i64]),
+    "trex_m4v_enc_capacity": (_i64, [_vp]),
+    "trex_m4v_enc_frame": (_i64, [_vp, _u8p, _i64, _i32, _u8p, _i32p]),
+    "trex_m4v_enc_recon": (None, [_vp, _u8p, _i64, _u8p, _u8p, _i64]),
 }
 
 _lib_obj = None

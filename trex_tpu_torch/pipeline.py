@@ -850,7 +850,9 @@ class Segmenter:
         (core/tomp4.cpp / FFMPEGQueue). When `ffmpeg_path` is
         configured, frames pipe to that ffmpeg as rawvideo with
         libx264 at `ffmpeg_crf` (the reference's encoder settings);
-        otherwise cv2.VideoWriter is the fallback encoder."""
+        otherwise the port's own ``mp4v`` writer records them
+        (io/video_encode.py: an MPEG-4 Part 2 MP4 as cv2.VideoWriter
+        writes it, without OpenCV, which this path never uses)."""
         if self._raw_writer is None:
             # save_raw_movie_path overrides the default .mov beside
             # the pv (grabber default_config)
@@ -887,12 +889,11 @@ class Segmenter:
 
                 self._raw_writer = _FFWriter(proc)
             else:
-                import cv2
+                from .io.video_encode import VideoWriter
 
-                fourcc = cv2.VideoWriter_fourcc(*"mp4v")
-                self._raw_writer = cv2.VideoWriter(
-                    path, fourcc, frame_rate,
-                    (img.shape[1], img.shape[0]), img.ndim == 3)
+                self._raw_writer = VideoWriter(
+                    path, frame_rate, (img.shape[1], img.shape[0]),
+                    img.ndim == 3)
         self._raw_writer.write(img)
 
     def _track_frame(self, index: int, blobs, time: float,
